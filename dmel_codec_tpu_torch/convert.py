@@ -1,0 +1,131 @@
+"""JAX parameter trees -> this package's state_dicts.
+
+The exact inverse of the JAX package's torch-checkpoint converters
+(`models/codec_convert.codec_params_from_torch_state_dict` and
+`models/bigvgan.params_from_torch_state_dict`): this package uses the
+original torch reference's parameter names and layouts, so a reference
+checkpoint loads into it directly, and a JAX tree reaches it through here.
+Input leaves are array-likes (numpy, or jax arrays via np.asarray); output
+values are CPU float tensors for `load_state_dict`.
+
+Layouts: Dense [in, out] -> Linear [out, in] (or [out, in, 1] for the
+reference's 1x1 convs); conv [k, in, out] -> [out, in, k]; transposed conv
+[k, in, out] -> [in, out, k]; vmapped `rvqs` leading group axis ->
+`rvqs.{g}`; quantizer up stage idx -> Sequential position n - 1 - idx.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from dmel_codec_tpu_torch.models.bigvgan import BigVGANConfig
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _linear(p: dict) -> Dict[str, torch.Tensor]:
+    return {"weight": _t(np.asarray(p["kernel"]).T), "bias": _t(p["bias"])}
+
+
+def _conv1x1(p: dict) -> Dict[str, torch.Tensor]:
+    return {"weight": _t(np.asarray(p["kernel"]).T[:, :, None]), "bias": _t(p["bias"])}
+
+
+def _conv(p: dict) -> Dict[str, torch.Tensor]:
+    return {"weight": _t(np.transpose(p["kernel"], (2, 1, 0))), "bias": _t(p["bias"])}
+
+
+def _conv_transpose(p: dict) -> Dict[str, torch.Tensor]:
+    return {"weight": _t(np.transpose(p["kernel"], (1, 2, 0))), "bias": _t(p["bias"])}
+
+
+def _put(sd: dict, prefix: str, entries: Dict[str, torch.Tensor]) -> None:
+    for k, v in entries.items():
+        sd[f"{prefix}.{k}"] = v
+
+
+def _wavenet(sd: dict, prefix: str, p: dict) -> None:
+    for name in ("input_projection", "skip_projection", "output_projection"):
+        if name in p:
+            _put(sd, f"{prefix}.{name}.conv", _conv1x1(p[name]))
+    i = 0
+    while f"layer_{i}" in p:
+        lp, out = p[f"layer_{i}"], f"{prefix}.residual_layers.{i}"
+        _put(sd, f"{out}.conv_layer.conv", _conv(lp["conv"]))
+        _put(sd, f"{out}.output_projection.conv", _conv1x1(lp["output_projection"]))
+        if "condition_projection" in lp:
+            _put(sd, f"{out}.condition_projection.conv", _conv1x1(lp["condition_projection"]))
+        i += 1
+
+
+def _convnext(sd: dict, prefix: str, p: dict) -> None:
+    _put(sd, f"{prefix}.dwconv", _conv(p["dwconv"]))
+    _put(sd, f"{prefix}.norm", {"weight": _t(p["norm"]["weight"]), "bias": _t(p["norm"]["bias"])})
+    _put(sd, f"{prefix}.pwconv1", _linear(p["pwconv1"]))
+    _put(sd, f"{prefix}.pwconv2", _linear(p["pwconv2"]))
+    sd[f"{prefix}.gamma"] = _t(p["gamma"])
+
+
+def codec_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """DMelCodec flax params -> `dmel_codec_tpu_torch.models.codec.DMelCodec` state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _wavenet(sd, "encoder", params["encoder"])
+    _wavenet(sd, "decoder", params["decoder"])
+    _put(sd, "quality_projection", _linear(params["quality_projection"]))
+
+    q = params["quantizer"]
+    n = sum(1 for k in q if k.startswith("downsample_") and k.endswith("_conv"))
+    for idx in range(n):
+        _put(sd, f"quantizer.downsample.{idx}.0", _conv(q[f"downsample_{idx}_conv"]))
+        _convnext(sd, f"quantizer.downsample.{idx}.1", q[f"downsample_{idx}_block"])
+        s = n - 1 - idx  # the reference builds the up stages in reversed order
+        _put(sd, f"quantizer.upsample.{s}.0", _conv_transpose(q[f"upsample_{idx}_convt"]))
+        _convnext(sd, f"quantizer.upsample.{s}.1", q[f"upsample_{idx}_block"])
+    rvqs = q["residual_fsq"]["rvqs"]
+    for name in ("project_in", "project_out"):
+        kernel, bias = np.asarray(rvqs[name]["kernel"]), np.asarray(rvqs[name]["bias"])
+        for g in range(kernel.shape[0]):
+            _put(
+                sd,
+                f"quantizer.residual_fsq.rvqs.{g}.{name}",
+                _linear({"kernel": kernel[g], "bias": bias[g]}),
+            )
+    return sd
+
+
+def _wn(sd: dict, prefix: str, p: dict, transposed: bool) -> None:
+    v = np.asarray(p["v"])  # [k, in, out]
+    sd[f"{prefix}.weight_v"] = _t(np.transpose(v, (1, 2, 0) if transposed else (2, 1, 0)))
+    sd[f"{prefix}.weight_g"] = _t(np.asarray(p["g"]).reshape(-1, 1, 1))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _act(sd: dict, prefix: str, p: dict) -> None:
+    for name in ("alpha", "beta"):
+        if name in p:
+            sd[f"{prefix}.act.{name}"] = _t(p[name])
+
+
+def bigvgan_state_dict_from_jax(params: dict, cfg: BigVGANConfig) -> Dict[str, torch.Tensor]:
+    """BigVGAN flax params -> `dmel_codec_tpu_torch.models.bigvgan.BigVGAN` state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _wn(sd, "conv_pre", params["conv_pre"], transposed=False)
+    _wn(sd, "conv_post", params["conv_post"], transposed=False)
+    _act(sd, "activation_post", params["act_post"])
+    for i in range(len(cfg.upsample_rates)):
+        _wn(sd, f"ups.{i}.0", params[f"up_{i}"], transposed=True)
+        for j, dils in enumerate(cfg.resblock_dilation_sizes):
+            n = i * cfg.num_kernels + j
+            blk, out = params[f"resblock_{n}"], f"resblocks.{n}"
+            for jj in range(len(dils)):
+                _wn(sd, f"{out}.convs1.{jj}", blk[f"conv1_{jj}"], transposed=False)
+                _wn(sd, f"{out}.convs2.{jj}", blk[f"conv2_{jj}"], transposed=False)
+            for a in range(2 * len(dils)):
+                _act(sd, f"{out}.activations.{a}", blk[f"act_{a}"])
+    return sd

@@ -1,0 +1,90 @@
+// K1: fused anti-aliased snake / snakebeta activation, channels-first.
+//
+// Replaces the Pallas TPU kernel `_kernel` / `_fused_forward`
+// (dmel_codec_tpu/ops/anti_alias.py, launched from
+// fused_anti_alias_activation). Same function, exact at both edges; the
+// plain PyTorch version is ops/anti_alias.py anti_alias_activation_reference.
+//
+// Bound on the H100: memory. Per sample it reads and writes one element
+// (2 B each in bf16) and does ~40 flops plus two sinf, far below the card's
+// flop/byte balance. The TPU kernel ran the FIRs as banded matmuls on the
+// MXU and a fitted polynomial sin because the VPU's sin was slow; here the
+// FIRs are 6-tap FMA chains and sin is the accurate sinf.
+//
+// Design: one block per (row = b*C + c, tile of TILE outputs); the row's
+// time axis is contiguous, so loads and stores are coalesced. The block
+// stages x[t0-8, t0+TILE+8) (replicate-clamped) in shared memory, computes
+// both snake phases for half-rate indices [t0-3, t0+TILE+3) once each, then
+// the down FIR. The 2x-rate signal never touches device memory and any T
+// works without a tail patch. Arithmetic in float32, output in the input
+// dtype (float32 or bfloat16).
+#include "common.cuh"
+
+namespace {
+
+constexpr int TILE = 512;
+constexpr int THREADS = 256;
+constexpr int XH = 8;  // input halo per side (the chain reaches 5)
+constexpr int VH = 3;  // half-rate snake halo per side
+
+__global__ void __launch_bounds__(THREADS)
+anti_alias_kernel(const void* __restrict__ x, void* __restrict__ y,
+                  const float* __restrict__ alpha, const float* __restrict__ beta,
+                  int logscale, int C, int T, int bf16, dmel::Taps taps) {
+  __shared__ float xs[TILE + 2 * XH];
+  __shared__ float ve[TILE + 2 * VH];
+  __shared__ float vo[TILE + 2 * VH];
+
+  const long long row = blockIdx.x;
+  const int c = static_cast<int>(row % C);
+  const int t0 = blockIdx.y * TILE;
+  const long long off = row * static_cast<long long>(T);
+
+  // snake: gain 1/alpha; snakebeta: gain 1/beta (both exp'd under logscale)
+  float a = alpha[c];
+  float g = beta != nullptr ? beta[c] : alpha[c];
+  if (logscale) {
+    a = expf(a);
+    g = expf(g);
+  }
+  const float inv_beta = 1.f / (g + 1e-9f);
+
+  const int xbase = t0 - XH;
+  for (int i = threadIdx.x; i < TILE + 2 * XH; i += THREADS) {
+    xs[i] = dmel::load_f(x, off + dmel::clampi(xbase + i, 0, T - 1), bf16);
+  }
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < TILE + 2 * VH; i += THREADS) {
+    float e, o;
+    dmel::snake_phases(xs, xbase, t0 - VH + i, T, taps, a, inv_beta, e, o);
+    ve[i] = e;
+    vo[i] = o;
+  }
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < TILE && t0 + i < T; i += THREADS) {
+    dmel::store_f(y, off + t0 + i, dmel::down(ve + i, vo + i, taps), bf16);
+  }
+}
+
+}  // namespace
+
+extern "C" const char* dmel_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// x, y: [B, C, T] contiguous, float32 (bf16 = 0) or bfloat16 (bf16 = 1).
+// alpha, beta: [C] float32 on the device; beta == nullptr selects snake.
+// taps: 12 host floats. Returns cudaGetLastError() after the launch.
+extern "C" int dmel_anti_alias(const void* x, void* y, const float* alpha,
+                               const float* beta, int logscale, int B, int C, int T,
+                               int bf16, const float* taps, void* stream) {
+  dmel::Taps tp;
+  for (int i = 0; i < 12; ++i) tp.f[i] = taps[i];
+  const dim3 grid(static_cast<unsigned>(B) * static_cast<unsigned>(C),
+                  static_cast<unsigned>((T + TILE - 1) / TILE));
+  anti_alias_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, y, alpha, beta, logscale, C, T, bf16, tp);
+  return static_cast<int>(cudaGetLastError());
+}

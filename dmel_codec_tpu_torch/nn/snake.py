@@ -1,0 +1,47 @@
+"""Snake periodic activations (port of `dmel_codec_tpu/nn/snake.py`).
+
+snake(x)      = x + (1/(alpha+eps)) * sin^2(alpha x)
+snake_beta(x) = x + (1/(beta +eps)) * sin^2(alpha x)
+
+With `logscale` the stored parameters are log-alpha/log-beta. Channels-first:
+alpha/beta [C] broadcast over [B, C, T].
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+_EPS = 1e-9
+
+
+def snake_beta(
+    x: torch.Tensor,
+    alpha: torch.Tensor,
+    beta: Optional[torch.Tensor],
+    logscale: bool = False,
+) -> torch.Tensor:
+    """beta=None is plain snake (gain 1/alpha)."""
+    if logscale:
+        alpha = torch.exp(alpha)
+        beta = torch.exp(beta) if beta is not None else None
+    alpha = alpha[:, None]
+    gain = 1.0 / ((alpha if beta is None else beta[:, None]) + _EPS)
+    s = torch.sin(x * alpha)
+    return x + gain * s * s
+
+
+class SnakeBeta(nn.Module):
+    """Parameter holder with the reference's `alpha` / `beta` names (beta is
+    absent for plain snake); ops/anti_alias applies it."""
+
+    def __init__(self, channels: int, activation: str = "snakebeta", logscale: bool = True):
+        super().__init__()
+        if activation not in ("snake", "snakebeta"):
+            raise ValueError(f"unknown activation {activation!r}")
+        init = torch.zeros if logscale else torch.ones
+        self.logscale = logscale
+        self.alpha = nn.Parameter(init(channels))
+        self.beta = nn.Parameter(init(channels)) if activation == "snakebeta" else None

@@ -1,0 +1,87 @@
+"""Fused anti-aliased snake activation (port of `dmel_codec_tpu/ops/anti_alias.py`).
+
+`anti_alias_activation` computes UpSample1d -> snake/snakebeta ->
+DownSample1d on channels-first [B, C, T] (the reference's
+alias_free_activation chain, exact at both edges):
+  * on a CPU tensor it runs the plain PyTorch version,
+    `anti_alias_activation_reference`;
+  * on a CUDA tensor it launches kernel K1 (csrc/anti_alias.cu) or raises.
+The backward pass differentiates the plain version, as the JAX op's custom
+VJP differentiates its oracle.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from dmel_codec_tpu_torch.nn.resample import downsample1d, kaiser_sinc_filter1d, upsample1d
+from dmel_codec_tpu_torch.nn.snake import snake_beta
+from dmel_codec_tpu_torch.ops import library
+
+_KS = 12
+FILT = kaiser_sinc_filter1d(0.5 / 2, 0.6 / 2, _KS)  # [12] numpy float32
+
+
+def anti_alias_activation_reference(
+    x: torch.Tensor,
+    alpha: torch.Tensor,
+    beta: Optional[torch.Tensor],
+    logscale: bool = False,
+) -> torch.Tensor:
+    """Plain version: float32 arithmetic, result in x's dtype."""
+    filt = torch.from_numpy(FILT)
+    u = upsample1d(x.float(), filt, 2, _KS)
+    v = snake_beta(u, alpha.float(), None if beta is None else beta.float(), logscale)
+    return downsample1d(v, filt, 2, _KS).to(x.dtype)
+
+
+def _launch(x, alpha, beta, logscale: bool) -> torch.Tensor:
+    lib = library.load()
+    library.check_plane(x)
+    b, c, t = x.shape
+    a = library.channel_vector(alpha, x, c)
+    bt = None if beta is None else library.channel_vector(beta, x, c)
+    y = torch.empty_like(x)
+    rc = lib.dmel_anti_alias(
+        x.data_ptr(), y.data_ptr(), a.data_ptr(),
+        None if bt is None else bt.data_ptr(),
+        int(logscale), b, c, t, int(x.dtype == torch.bfloat16),
+        library.taps(FILT), library.stream(x),
+    )
+    library.check(lib, rc, "dmel_anti_alias")
+    anti_alias_activation.launches += 1
+    return y
+
+
+class _AntiAlias(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, alpha, beta, logscale):
+        ctx.save_for_backward(x, alpha, beta)
+        ctx.logscale = logscale
+        return _launch(x, alpha, beta, logscale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ins = [None if t is None else t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = anti_alias_activation_reference(*ins, ctx.logscale)
+            live = [t for t in ins if t is not None]
+            grads = iter(torch.autograd.grad(y, live, grad))
+        return (*(None if t is None else next(grads) for t in ins), None)
+
+
+def anti_alias_activation(
+    x: torch.Tensor,
+    alpha: torch.Tensor,
+    beta: Optional[torch.Tensor] = None,
+    logscale: bool = False,
+) -> torch.Tensor:
+    """[B, C, T] -> [B, C, T]; beta=None selects plain snake (gain 1/alpha)."""
+    if x.device.type == "cpu":
+        return anti_alias_activation_reference(x, alpha, beta, logscale)
+    return _AntiAlias.apply(x, alpha, beta, logscale)
+
+
+anti_alias_activation.launches = 0  # K1 launches, counted in _launch

@@ -1,0 +1,125 @@
+"""Build and bind the CUDA kernels in ../csrc.
+
+At first use `load()` compiles every `csrc/*.cu` with nvcc for sm_90a into
+one shared library with a plain C interface, under `build/` at the root of
+the checkout (named by a hash of the sources and flags, so an edited source
+rebuilds), and binds it with ctypes. The compiler's resource report
+(`-Xptxas -v`) is kept next to it. Nothing here runs at import time, and
+there is no fallback: if the library cannot be built or loaded, `load()`
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "dmel_anti_alias": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "dmel_act_conv": [
+        _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _F, _I,
+        _I, _I, _I, _I, _I, _I, _P, _P,
+    ],
+}
+
+
+def find_nvcc() -> str | None:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    return str(cand) if cand.is_file() else shutil.which("nvcc")
+
+
+def library_path() -> Path:
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources:
+        h.update(p.name.encode() + p.read_bytes())
+    return BUILD_DIR / f"libdmel_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the sources unless this exact build exists; returns the
+    library path and the seconds spent compiling (0 when cached)."""
+    out = library_path()
+    if out.is_file():
+        return out, 0.0
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+            "kernels cannot be built, and a CUDA tensor has no other path"
+        )
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stderr)
+    os.replace(tmp, out)
+    return out, seconds
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.dmel_error_string.argtypes = [ctypes.c_int]
+    lib.dmel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.dmel_error_string(rc).decode()} ({rc})")
+
+
+def check_plane(x: torch.Tensor, name: str = "x") -> None:
+    """The kernels take contiguous, non-empty [B, C, T] float32/bfloat16
+    tensors on a CUDA device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 3 or x.numel() == 0:
+        raise ValueError(f"{name} must be a non-empty [B, C, T] tensor, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def channel_vector(p: torch.Tensor, like: torch.Tensor, n: int) -> torch.Tensor:
+    """A per-channel parameter as a contiguous float32 vector beside `like`."""
+    if p.shape != (n,) or p.device != like.device:
+        raise ValueError(f"expected a [{n}] tensor on {like.device}, got {tuple(p.shape)} on {p.device}")
+    return p.detach().to(torch.float32).contiguous()
+
+
+def taps(filt: np.ndarray):
+    return (ctypes.c_float * len(filt))(*filt.tolist())
+
+
+def stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
