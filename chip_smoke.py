@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's codec serving path once on one CUDA card.
+"""Drive the PyTorch port's serving paths once on one CUDA card: the codec
+(log-mel -> dMel tokens -> BigVGAN) and the slow-fast LM in front of it.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
 
@@ -17,7 +18,23 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      torch.profiler breakdown, the vocoder stage by stage, and each kernel's
      time beside its plain version at the main-path shapes;
   6. stage-wise kernel-vs-plain error of the vocoder in float32, each stage
-     fed the same input.
+     fed the same input;
+  7. FA (causal GQA flash attention) against its plain version at the slow
+     decoder's head layout, main-path and ragged lengths, and at the fast
+     decoder's head size, float32 and bfloat16;
+  8. the teacher-forced LM forward at full width (slow 24 x 896, fast
+     12 x 480, vocabulary 151936; seeded random bf16 weights) on a batch of
+     2 x 2048 grid positions: FA launch count, finite losses, logits with
+     the flash kernel on against off, both timed;
+  9. LM serving through the entry point: `cli.infer_lm.main` on state_dicts
+     written to a temporary directory, text prompt -> 128 frames -> codec
+     decode -> vocoder -> WAV, with output checks and K1 / K2 launch
+     counts; then `generate` (B = 1) and `generate_batched` (B = 16) timed,
+     a profile of one steady-state frame, and greedy agreement of the three
+     generation forms;
+ 10. FA, its plain version and PyTorch's scaled_dot_product_attention (a
+     yardstick only: nothing in the port calls it) at the main-path shape,
+     with each kernel's bound on this card.
 The comparison phases run with TF32 off for cuBLAS and cuDNN. The
 line before the last is one JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.
@@ -27,13 +44,16 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 SECONDS, BATCH, SR, HOP = 4, 16, 24000, 256
@@ -41,6 +61,15 @@ FUSE_MAX_CHANNELS = 192
 DEVICE = "cuda:0"
 K1_SOURCE = "dmel_codec_tpu_torch/csrc/anti_alias.cu"
 K2_SOURCE = "dmel_codec_tpu_torch/csrc/stage_fused.cu"
+FA_SOURCE = "dmel_codec_tpu_torch/csrc/flash_attention.cu"
+LM_BATCH, LM_SEQ, LM_FRAMES, SERVE_BATCH = 2, 2048, 128, 16
+# Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data
+# sheet): bf16 tensor cores, float32 outside them, HBM3.
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# K1's arithmetic per output sample: two 6-tap polyphase up FIRs (24 flops)
+# and their gain (2), two snakes (mul, sin, mul, fma: 8), one 12-tap down
+# FIR (24).
+K1_FLOPS_PER_SAMPLE = 58
 
 
 def log(msg: str) -> None:
@@ -62,9 +91,10 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, rel: float) ->
     return err
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean milliseconds per call, CUDA events, after one warm-up call."""
-    fn()
+    if warm:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
@@ -84,8 +114,20 @@ def cuda_ms(fn, reps: int) -> float:
 #    random weights' gain: 2e-5.
 #  K2 bf16: 54 bf16 rounding points on each side; a flip there is one ulp
 #    (<= 2^-7) and flips compound down the chain: 5e-2.
+#  FA f32: both sides float32; exp of scores up to ~5 that were summed in
+#    another order (1e-6 relative each) and ~2000-term sums: 2e-5.
+#  FA bf16: both sides compute in float32 from the same bf16 inputs and
+#    round once; a result next to a rounding boundary may round the other
+#    way: one bf16 ulp, 2^-7.
+#  LM logits, flash on vs off, bf16: the einsum path rounds scores and
+#    probabilities to bf16 (2^-8 relative each) in each of 24 layers where
+#    FA keeps them float32; the differences add up along the residual
+#    stream (and through the 12 fast layers behind it): 1e-2 of max |logit|
+#    on average, and 12 times that for the largest of ~10^8 logits.
 TOL = {("K1", torch.float32): 1e-6, ("K1", torch.bfloat16): 2.0**-7,
-       ("K2", torch.float32): 2e-5, ("K2", torch.bfloat16): 5e-2}
+       ("K2", torch.float32): 2e-5, ("K2", torch.bfloat16): 5e-2,
+       ("FA", torch.float32): 2e-5, ("FA", torch.bfloat16): 2.0**-7}
+TOL_LM_MAX, TOL_LM_MEAN = 1.2e-1, 1e-2
 
 
 def stage_shapes(vcfg, frames: int):
@@ -93,6 +135,26 @@ def stage_shapes(vcfg, frames: int):
     for i, u in enumerate(vcfg.upsample_rates):
         t *= u
         yield i, vcfg.stage_channels(i), t
+
+
+def fa_bound_ms(b: int, s: int, h: int, kh: int, hd: int, itemsize: int):
+    """Least time for causal attention on this card: q and the output once,
+    k and v once, against 4 * hd flops per visible (query, key) pair at the
+    tensor-core rate of the inputs' type (float32 inputs: the CUDA cores)."""
+    nbytes = (2 * b * s * h * hd + 2 * b * s * kh * hd) * itemsize
+    flops = 4 * hd * b * h * s * (s + 1) // 2
+    by_ops = flops / (PEAK_BF16 if itemsize == 2 else PEAK_F32) * 1e3
+    by_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
+
+
+def set_flash(model: torch.nn.Module, on: bool) -> None:
+    """Switch the slow decoder between the flash kernel and the einsum path."""
+    from dmel_codec_tpu_torch.models.transformer import Attention, Decoder
+
+    for m in model.slow_decoder.modules():
+        if isinstance(m, (Attention, Decoder)):
+            m.config = dataclasses.replace(m.config, flash_attention=on)
 
 
 def profile_once(what: str, fn) -> None:
@@ -157,7 +219,13 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from dmel_codec_tpu_torch.cli import infer_lm
     from dmel_codec_tpu_torch.dsp.spectrogram import LogMelSpectrogram
+    from dmel_codec_tpu_torch.lm.generate import InferenceConfig, SlowFastGenerator
+    from dmel_codec_tpu_torch.lm.inputs import TokenGridBuilder, pad_grids_to_batch
+    from dmel_codec_tpu_torch.lm.tokenizer import ByteTokenizer
+    from dmel_codec_tpu_torch.models.lm import ChatMusicLM, SlowFastLMConfig
+    from dmel_codec_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
     from dmel_codec_tpu_torch.models.bigvgan import AMPBlock1, BigVGAN, BigVGANConfig, FusedBigVGAN
     from dmel_codec_tpu_torch.models.codec import DMelCodec, DMelCodecConfig
     from dmel_codec_tpu_torch.ops import library
@@ -365,13 +433,232 @@ def main() -> None:
         want = fused32.post(x)
     check_close(f"act_post + conv_post {list(got.shape)}", got, want, TOL[("K2", torch.float32)])
 
+    # ---- 7. FA vs plain
+    log("FA causal GQA flash attention vs plain:")
+    fa_cases = [(2, 512, 14, 2, 64), (2, 2048, 14, 2, 64), (1, 4096, 14, 2, 64), (3, 513, 14, 2, 64),
+                (1, 1500, 14, 2, 64), (2, 1, 14, 2, 64), (2, 700, 10, 2, 48)]
+    errs["FA"] = 0.0
+    for b, sq, h, kh, hd in fa_cases:
+        q32, k32, v32 = (torch.randn((b, sq, n, hd), device=dev, generator=gen) for n in (h, kh, kh))
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+            got = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            want = flash_attention_reference(q, k, v)
+            e = check_close(f"q {[b, sq, h, hd]} kv heads {kh} {dt}", got, want, TOL[("FA", dt)])
+            if dt == torch.float32:
+                errs["FA"] = max(errs["FA"], e)
+            del got, want
+
+    # ---- 8. the teacher-forced forward at full width
+    log(f"LM forward: ChatMusicLM at full width, seeded random bf16 weights, B = {LM_BATCH} x S = {LM_SEQ}")
+    torch.manual_seed(0)
+    lm_cfg = SlowFastLMConfig()
+    with torch.device(dev):
+        lm = ChatMusicLM(lm_cfg)
+    lm = lm.to(torch.bfloat16).eval()
+    n_params = sum(p.numel() for p in lm.parameters())
+    log(f"  {n_params / 1e6:.1f} M parameters; slow {lm_cfg.slow.num_layers} x {lm_cfg.slow.hidden_size}, "
+        f"fast {lm_cfg.fast.num_layers} x {lm_cfg.fast.hidden_size}, vocabulary {lm_cfg.slow.vocab_size}")
+    gridder = TokenGridBuilder(config=lm_cfg)
+    rng = np.random.default_rng(0)
+    # a grid is text + audio + 14 positions long: one fills S, one is padded to it
+    grids = [gridder.build_train_grid(rng.integers(0, 151643, size=lt), rng.integers(0, 175, size=(la, 10)))
+             for lt, la in ((34, LM_SEQ - 48), (20, LM_SEQ - 148))]
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in pad_grids_to_batch(grids, lm_cfg, pad_to=LM_SEQ).items()}
+    assert batch["text_tokens"].shape == (LM_BATCH, LM_SEQ) and bool(batch["valid"][0].all())
+
+    def forward():
+        emb = lm.embed_inputs(batch["text_tokens"], batch["audio_tokens"])
+        emb = emb * batch["valid"][..., None].to(emb.dtype)
+        return lm(emb, batch["text_labels"], batch["audio_labels"])
+
+    with torch.no_grad():
+        set_flash(lm, True)
+        flash_attention.launches = 0
+        out_on = forward()
+        torch.cuda.synchronize()
+        launches["FA"] = flash_attention.launches
+        set_flash(lm, False)
+        out_off = forward()
+        torch.cuda.synchronize()
+        assert flash_attention.launches == launches["FA"]  # the einsum path launches none
+        log(f"  FA launches in one forward: {launches['FA']} (expected {lm_cfg.slow.num_layers}: "
+            f"the fast decoder's S = 11 stays on the einsum path)")
+        assert launches["FA"] == lm_cfg.slow.num_layers, launches
+        for name, out in (("flash on", out_on), ("flash off", out_off)):
+            assert out["text_logits"].shape == (LM_BATCH, LM_SEQ, lm_cfg.slow.vocab_size)
+            assert out["audio_logits"].shape == (LM_BATCH * (LM_SEQ - 1), 11, lm_cfg.audio_vocab)
+            losses = {k: out[k].item() for k in ("loss", "text_loss", "audio_loss")}
+            assert all(math.isfinite(x) and x > 0 for x in losses.values()), losses
+            log(f"  {name}: " + ", ".join(f"{k} {x:.4f}" for k, x in losses.items()))
+        for k in ("text_logits", "audio_logits"):
+            diff = (out_on[k].float() - out_off[k].float()).abs()
+            scale = max(1.0, out_off[k].float().abs().max().item())
+            log(f"  {k} flash on vs off: max abs diff {diff.max().item():.3e}, mean {diff.mean().item():.3e} "
+                f"(tol {TOL_LM_MAX * scale:.3e} / {TOL_LM_MEAN * scale:.3e}, max|logit| {scale:.3g})")
+            assert diff.max().item() <= TOL_LM_MAX * scale and diff.mean().item() <= TOL_LM_MEAN * scale
+            del diff
+        assert abs(out_on["loss"].item() - out_off["loss"].item()) <= 1e-2 * out_off["loss"].item()
+        del out_on, out_off
+        torch.cuda.reset_peak_memory_stats()
+        ms_off_1 = cuda_ms(forward, 3)
+        set_flash(lm, True)
+        ms_on_1 = cuda_ms(forward, 3)
+        ms_on_2 = cuda_ms(forward, 3)
+        peak_on = torch.cuda.max_memory_allocated() / 2**30
+        set_flash(lm, False)
+        ms_off_2 = cuda_ms(forward, 3)
+    log(f"  forward ms (off, on, on, off): {ms_off_1:.2f}, {ms_on_1:.2f}, {ms_on_2:.2f}, {ms_off_2:.2f}; "
+        f"peak device memory {peak_on:.2f} GiB")
+
+    # ---- 9. LM serving through the entry point
+    log(f"LM serving: infer_lm.main, text prompt -> {LM_FRAMES} frames -> codec decode -> vocoder -> WAV")
+    prompt = "who are you?"
+    seed = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, module in (("lm", lm), ("codec", codec)):
+            (tmp / name).mkdir()
+            torch.save(module.state_dict(), tmp / name / "model.pt")
+        torch.save({"generator": voc16.state_dict()}, tmp / "vocoder.pt")
+        (tmp / "infer.yaml").write_text(
+            f"lm_ckpt_dir: {tmp / 'lm'}\ncodec_ckpt_dir: {tmp / 'codec'}\nvocoder_ckpt: {tmp / 'vocoder.pt'}\n"
+            "text_tokenizer_path: null\nsilence_length: 3\ninference:\n"
+            f"  temperature: 0.7\n  top_k: 50\n  top_p: 0.8\n  windows_penalty: 1.2\n  windows_length: 16\n"
+            f"  max_new_tokens: {LM_FRAMES}\n  max_seq_len: 4096\n  cache_dtype: bfloat16\n"
+        )
+        anti_alias_activation.launches = amp_stage.launches = flash_attention.launches = 0
+        t0 = time.perf_counter()
+        infer_lm.main(["--config", str(tmp / "infer.yaml"), "--prompt", prompt, "--out", str(tmp / "out.wav"),
+                       "--seed", str(seed), "--device", DEVICE])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        serve_launches = {"K1": anti_alias_activation.launches, "K2": amp_stage.launches,
+                          "FA": flash_attention.launches}
+        from scipy.io import wavfile
+        wav_sr, wav = wavfile.read(tmp / "out.wav")
+    icfg = InferenceConfig(max_new_tokens=LM_FRAMES, cache_dtype="bfloat16")
+    generator_ = SlowFastGenerator(lm, icfg)
+    grid = gridder.build_infer_grid(text_ids=ByteTokenizer().encode(prompt))
+    audio_ids, text_ids = generator_.generate(*grid, torch.Generator(device=dev).manual_seed(seed))
+    n_frames = audio_ids.shape[0]
+    log(f"  infer_lm: {wall_s:.2f} s wall with loading; WAV {wav.shape} at {wav_sr} Hz, rms "
+        f"{float(np.sqrt(np.mean(np.square(wav)))):.4f}; the same seed generates {n_frames} frames; "
+        f"launches K1 {serve_launches['K1']}, K2 {serve_launches['K2']}, FA {serve_launches['FA']} "
+        f"(expected {want_k1}, {want_k2}, 0: the prompt is shorter than flash_min_seq)")
+    assert wav_sr == SR and wav.dtype == np.float32 and np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+    # infer_lm drops the last generated frame; a frame is 4 mel frames of 256 samples
+    assert wav.shape == ((n_frames - 1) * 4 * HOP,), (wav.shape, n_frames)
+    assert (audio_ids >= 0).all() and (audio_ids < lm_cfg.audio_vocab).all() and text_ids.shape == (n_frames,)
+    assert serve_launches == {"K1": want_k1, "K2": want_k2, "FA": 0}, serve_launches
+
+    first_only = SlowFastGenerator(lm, dataclasses.replace(icfg, max_new_tokens=1))
+    for b in (1, SERVE_BATCH):
+        text_b, audio_b = np.stack([grid[0]] * b), np.stack([grid[1]] * b)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        run = ((lambda gen_: gen_.generate(*grid, g)) if b == 1
+               else (lambda gen_: gen_.generate_batched(text_b, audio_b, g)))
+        prefill_ms = cuda_ms(lambda: run(first_only), 1)
+        got_frames = []
+        total_ms = cuda_ms(lambda: got_frames.append(run(generator_)[0]), 1, warm=False)
+        n = got_frames[0].shape[0] if b == 1 else max(len(a) for a in got_frames[0])
+        fps = (n - 1) / ((total_ms - prefill_ms) / 1e3)
+        log(f"  B = {b}: prefill + first frame ({len(grid[0])} positions) {prefill_ms:.2f} ms; {n} frames in "
+            f"{total_ms:.2f} ms; {fps:.2f} frames/s per row, {b * fps:.2f} aggregate")
+        assert 2 <= n <= LM_FRAMES, n  # fewer than LM_FRAMES only if every row sampled <EOM>
+
+        # one steady-state frame: a slow step at position ~84 and ten fixed-shape fast decodes
+        with torch.no_grad():
+            cache = lm.init_slow_cache(b, icfg.max_seq_len, dtype=torch.bfloat16)
+            emb = lm.embed_inputs(torch.as_tensor(text_b, device=dev), torch.as_tensor(audio_b, device=dev))
+            window = torch.zeros((b, icfg.windows_length, 10), dtype=torch.long, device=dev)
+            valid = torch.ones((b, icfg.windows_length), dtype=torch.bool, device=dev)
+            cache, text, frame = generator_._frame(cache, emb, window, valid, g, generator_._fast_decode_fixed)
+            state = {"cache": cache}
+
+            def one_frame():
+                e = lm.embed_inputs(text[:, None], frame[:, None, :])
+                state["cache"], _, _ = generator_._frame(state["cache"], e, window, valid, g,
+                                                         generator_._fast_decode_fixed)
+
+            for _ in range(64):
+                one_frame()
+            frame_ms = cuda_ms(one_frame, 10)
+            log(f"  B = {b}: one steady-state frame {frame_ms:.2f} ms (CUDA events, 10 frames)")
+            profile_once(f"one frame at B = {b}", one_frame)
+
+    # greedy: the three generation forms give the same tokens (float32, so
+    # that batch shape cannot move an argmax among near-uniform logits)
+    lm32 = copy.deepcopy(lm).float()
+    greedy = SlowFastGenerator(lm32, InferenceConfig(max_new_tokens=16, top_k=1))
+    a1, t1 = greedy.generate(*grid, None)
+    a2, t2 = greedy.generate_stepwise(*grid, None)
+    a3, t3 = greedy.generate_batched(np.stack([grid[0]] * 2), np.stack([grid[1]] * 2), None)
+    same = all(np.array_equal(a1, a) and np.array_equal(t1, t) for a, t in ((a2, t2), (a3[0], t3[0]), (a3[1], t3[1])))
+    log(f"  greedy generate / generate_stepwise / generate_batched: {len(t1)} frames, same tokens: {same}")
+    assert same and len(t1) == 16
+    del lm32, greedy
+
+    # ---- 10. FA, plain and the library call at the main-path shape; bounds
+    hd, heads, kv_heads = lm_cfg.slow.head_dim, lm_cfg.slow.num_heads, lm_cfg.slow.num_kv_heads
+    q, k, v = (torch.randn((LM_BATCH, LM_SEQ, n, hd), device=dev, generator=gen).to(torch.bfloat16)
+               for n in (heads, kv_heads, kv_heads))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    with torch.no_grad():
+        fa_ms = [cuda_ms(lambda: flash_attention_reference(q, k, v), 10), cuda_ms(lambda: flash_attention(q, k, v), 20),
+                 cuda_ms(sdpa, 20), cuda_ms(lambda: flash_attention(q, k, v), 20)]
+        check_close("library call vs FA", sdpa().transpose(1, 2), flash_attention(q, k, v), 2.0**-6)
+    n_fa = launches["FA"]
+    ms["FA"], plain_ms["FA"], library_fa = n_fa * (fa_ms[1] + fa_ms[3]) / 2, n_fa * fa_ms[0], n_fa * fa_ms[2]
+    fa_bound, fa_by = fa_bound_ms(LM_BATCH, LM_SEQ, heads, kv_heads, hd, 2)
+    log(f"  FA {[LM_BATCH, LM_SEQ, heads, hd]} bf16, per launch: plain {fa_ms[0]:.3f} ms, kernel {fa_ms[1]:.3f} / "
+        f"{fa_ms[3]:.3f} ms, scaled_dot_product_attention {fa_ms[2]:.3f} ms, bound {fa_bound:.4f} ms by {fa_by} "
+        f"(x{n_fa} per forward)")
+
+    # bounds of K1 and K2 per request, from the shapes of this run (bf16)
+    k1_bytes = k1_flops = 0.0
+    for shape, count in ((k1_shapes["act_post"], 1), (k1_shapes["s0"], 18), (k1_shapes["s1"], 18)):
+        k1_bytes += count * 2 * math.prod(shape) * 2
+        k1_flops += count * K1_FLOPS_PER_SAMPLE * math.prod(shape)
+    k1_bound = {"bytes": k1_bytes / PEAK_BYTES * 1e3, "operations": k1_flops / PEAK_F32 * 1e3}
+    # K2 per stage: 18 convs of C x C x k (k = 3, 7, 11, six each) on bf16
+    # operands, 18 float32 activations, the plane in and out once, the weights once
+    k2_conv = k2_act = k2_bytes = 0.0
+    for i, (spec, _) in stage_packs.items():
+        c, t_len = shapes[i]
+        n = BATCH * c * t_len
+        k2_conv += 2 * c * n * 6 * sum(spec.kernel_sizes)
+        k2_act += 18 * K1_FLOPS_PER_SAMPLE * n
+        k2_bytes += 2 * n * 2 + 6 * sum(spec.kernel_sizes) * c * c * 2
+    k2_bound = {"bytes": k2_bytes / PEAK_BYTES * 1e3,
+                "operations": max(k2_conv / PEAK_BF16, k2_act / PEAK_F32) * 1e3}
+    bounds = {}
+    for name, bound in (("K1", k1_bound), ("K2", k2_bound)):
+        by = max(bound, key=bound.get)
+        bounds[name] = (bound[by], by)
+        log(f"  {name} bound per request: {bound['bytes']:.4f} ms by bytes, {bound['operations']:.4f} ms by operations")
+
     kernels = [
         {"name": "anti_alias_activation (K1)", "route": "cuda", "source": K1_SOURCE,
          "replaces": "dmel_codec_tpu/ops/anti_alias.py:521", "launches": launches["K1"],
-         "max_abs_err": errs["K1"], "ms": ms["K1"], "plain_ms": plain_ms["K1"]},
+         "max_abs_err": errs["K1"], "ms": ms["K1"], "plain_ms": plain_ms["K1"],
+         "bound_ms": bounds["K1"][0], "bound_by": bounds["K1"][1], "library_ms": None,
+         "per": f"codec request ({want_k1} launches)"},
         {"name": "amp_stage act->conv (K2)", "route": "cuda", "source": K2_SOURCE,
          "replaces": "dmel_codec_tpu/ops/stage_fused.py:806", "launches": launches["K2"],
-         "max_abs_err": errs["K2"], "ms": ms["K2"], "plain_ms": plain_ms["K2"]},
+         "max_abs_err": errs["K2"], "ms": ms["K2"], "plain_ms": plain_ms["K2"],
+         "bound_ms": bounds["K2"][0], "bound_by": bounds["K2"][1], "library_ms": None,
+         "per": f"codec request ({want_k2} launches)"},
+        {"name": "flash_attention (FA)", "route": "cuda", "source": FA_SOURCE,
+         "replaces": "dmel_codec_tpu/models/transformer.py:197", "launches": launches["FA"],
+         "max_abs_err": errs["FA"], "ms": ms["FA"], "plain_ms": plain_ms["FA"],
+         "bound_ms": n_fa * fa_bound, "bound_by": fa_by, "library_ms": library_fa,
+         "per": f"LM forward ({n_fa} launches)"},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

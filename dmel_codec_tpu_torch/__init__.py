@@ -1,4 +1,4 @@
-"""dmel_codec_tpu_torch — the dMel codec serving path in PyTorch + CUDA.
+"""dmel_codec_tpu_torch — the dMel codec and its slow-fast LM in PyTorch + CUDA.
 
 A port of `dmel_codec_tpu` (JAX, the reference it is tested against) for
 NVIDIA Hopper. Same layer map as the JAX package:
@@ -7,8 +7,13 @@ NVIDIA Hopper. Same layer map as the JAX package:
   nn/        WaveNet, ConvNeXt, snake, kaiser-sinc resamplers, weight-norm convs
   ops/       hand-written CUDA kernels (csrc/) with a plain PyTorch version each
   quantize/  FSQ + grouped/residual wrappers + the downsample sandwich
-  models/    DMelCodec and the BigVGAN vocoder (module and serving forms)
-  utils/     masks
+  models/    DMelCodec, the BigVGAN vocoder (module and serving forms), the
+             Qwen2-style decoder and the slow-fast LM
+  lm/        token grids, tokenizer, sampling, generation
+  eval/      the numpy-in/numpy-out codec adapter
+  cli/       entry points (infer_lm)
+  data/      WAV loading
+  utils/     masks, precision, YAML configs, logging
   convert.py JAX parameter trees -> this package's state_dicts
 
 Modules run channels-first ([B, C, T]) inside; the public codec and vocoder

@@ -11,7 +11,10 @@ values are CPU float tensors for `load_state_dict`.
 Layouts: Dense [in, out] -> Linear [out, in] (or [out, in, 1] for the
 reference's 1x1 convs); conv [k, in, out] -> [out, in, k]; transposed conv
 [k, in, out] -> [in, out, k]; vmapped `rvqs` leading group axis ->
-`rvqs.{g}`; quantizer up stage idx -> Sequential position n - 1 - idx.
+`rvqs.{g}`; quantizer up stage idx -> Sequential position n - 1 - idx;
+`nn.Embed.embedding` -> `Embedding.weight`; the LM's `audio_projector`
+DenseGeneral kernel [C, H, H_out] -> Linear [H_out, C * H], the order in
+which the port flattens the codebook embeddings.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from dmel_codec_tpu_torch.models.bigvgan import BigVGANConfig
+from dmel_codec_tpu_torch.models.lm import SlowFastLMConfig
 
 
 def _t(a) -> torch.Tensor:
@@ -128,4 +132,44 @@ def bigvgan_state_dict_from_jax(params: dict, cfg: BigVGANConfig) -> Dict[str, t
                 _wn(sd, f"{out}.convs2.{jj}", blk[f"conv2_{jj}"], transposed=False)
             for a in range(2 * len(dils)):
                 _act(sd, f"{out}.activations.{a}", blk[f"act_{a}"])
+    return sd
+
+
+def _dense(p: dict) -> Dict[str, torch.Tensor]:
+    """Dense with or without a bias."""
+    out = {"weight": _t(np.asarray(p["kernel"]).T)}
+    if "bias" in p:
+        out["bias"] = _t(p["bias"])
+    return out
+
+
+def decoder_state_dict_from_jax(params: dict, num_layers: int) -> Dict[str, torch.Tensor]:
+    """Decoder flax params (`layers_{i}`, not scanned) ->
+    `dmel_codec_tpu_torch.models.transformer.Decoder` state_dict, which has
+    HF Qwen2Model's names: the inverse of the JAX package's
+    `decoder_params_from_torch`."""
+    sd: Dict[str, torch.Tensor] = {"norm.weight": _t(params["norm"]["weight"])}
+    for i in range(num_layers):
+        lp, out = params[f"layers_{i}"], f"layers.{i}"
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            sd[f"{out}.{name}.weight"] = _t(lp[name]["weight"])
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _put(sd, f"{out}.self_attn.{name}", _dense(lp["self_attn"][name]))
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            _put(sd, f"{out}.mlp.{name}", _dense(lp["mlp"][name]))
+    return sd
+
+
+def lm_state_dict_from_jax(params: dict, cfg: SlowFastLMConfig) -> Dict[str, torch.Tensor]:
+    """ChatMusicLM flax params -> `dmel_codec_tpu_torch.models.lm.ChatMusicLM` state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("text_embed", "slow_audio_embed", "fast_audio_embed"):
+        sd[f"{name}.weight"] = _t(params[name]["embedding"])
+    kernel = np.asarray(params["audio_projector"]["kernel"])  # [C, H, H_out]
+    sd["audio_projector.weight"] = _t(kernel.reshape(-1, kernel.shape[-1]).T)
+    sd["fast_pre_norm.weight"] = _t(params["fast_pre_norm"]["weight"])
+    for name in ("fast_projector", "text_head", "audio_head"):
+        _put(sd, name, _dense(params[name]))
+    for name, tcfg in (("slow_decoder", cfg.slow), ("fast_decoder", cfg.fast)):
+        _put(sd, name, decoder_state_dict_from_jax(params[name], tcfg.num_layers))
     return sd

@@ -1,0 +1,258 @@
+"""Qwen2-style decoder-only transformer (port of `dmel_codec_tpu/models/transformer.py`).
+
+Pre-RMSNorm blocks, RoPE (theta 1e6, HF half-duplicated layout),
+grouped-query attention with Q/K/V biases and a bias-free output
+projection, SiLU gated MLP, final RMSNorm. Parameter names are HF Qwen2's
+(`layers.{i}.self_attn.q_proj.weight`, ...), so a `Qwen2Model` state_dict
+loads into `Decoder` directly.
+
+  * The KV cache is a dict of static-shape tensors
+    ([L, B, max_len, kv_heads, head_dim]) and a host integer `index`; a
+    cached call writes the new keys and values into it IN PLACE and attends
+    over the filled prefix `[: index + s]` (the masked tail the JAX package
+    attends over contributes exact zeros).
+  * Attention outside the flash kernel is einsum-based with a float32
+    softmax; GQA goes through a group axis, K/V are never repeated.
+  * With `flash_attention=True`, the cache-less causal path at
+    S >= flash_min_seq runs `ops.flash_attention` (kernel FA on a CUDA
+    tensor).
+  * RoPE is applied in float32 and returned in the input dtype, so that the
+    cache and the flash kernel see one dtype (the JAX function leaves the
+    float32 promotion in place; in float32 the two are the same).
+`scan_layers` and `remat` of the JAX config are XLA devices and have no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dmel_codec_tpu_torch.ops.flash_attention import flash_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 1_000_000.0
+    # flash_attention: use the flash kernel on the cache-less (training)
+    # path for sequences >= flash_min_seq: O(S) memory instead of the
+    # materialised [S, S] score matrix.
+    flash_attention: bool = False
+    flash_min_seq: int = 512
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+# Flagship sizes (Qwen2-0.5B slow decoder, 12-layer fast depth decoder).
+SLOW_LM_CONFIG = TransformerConfig(
+    vocab_size=151936,
+    hidden_size=896,
+    intermediate_size=4864,
+    num_layers=24,
+    num_heads=14,
+    num_kv_heads=2,
+)
+FAST_LM_CONFIG = TransformerConfig(
+    vocab_size=1800,
+    hidden_size=480,
+    intermediate_size=2880,
+    num_layers=12,
+    num_heads=10,
+    num_kv_heads=2,
+)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        return (self.weight * (xf * torch.rsqrt(var + self.eps))).to(x.dtype)
+
+
+def rope_cos_sin(
+    positions: torch.Tensor, head_dim: int, theta: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [..., S] -> float32 cos/sin [..., S, head_dim] (HF half-duplicated)."""
+    inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+    inv_freq = torch.from_numpy(inv_freq.astype(np.float32)).to(positions.device)
+    angles = positions[..., None].float() * inv_freq  # [..., S, hd/2]
+    angles = torch.cat([angles, angles], dim=-1)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, hd]; cos/sin [B, S, hd] (broadcast over heads)."""
+    half = x.shape[-1] // 2
+    xf = x.float()
+    rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * cos[..., None, :] + rotated * sin[..., None, :]).to(x.dtype)
+
+
+def init_kv_cache(
+    config: TransformerConfig, batch: int, max_len: int, dtype=torch.float32, device=None
+) -> dict:
+    """Static-shape cache: per-layer K/V [L, B, max_len, kv_heads, head_dim]
+    and the number of filled positions (a host integer)."""
+    shape = (config.num_layers, batch, max_len, config.num_kv_heads, config.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "index": 0,
+    }
+
+
+class Attention(nn.Module):
+    def __init__(self, config: TransformerConfig):
+        super().__init__()
+        cfg = self.config = config
+        hd = cfg.head_dim
+        self.q_proj = nn.Linear(cfg.hidden_size, cfg.num_heads * hd)
+        self.k_proj = nn.Linear(cfg.hidden_size, cfg.num_kv_heads * hd)
+        self.v_proj = nn.Linear(cfg.hidden_size, cfg.num_kv_heads * hd)
+        self.o_proj = nn.Linear(cfg.num_heads * hd, cfg.hidden_size, bias=False)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        cos: torch.Tensor,
+        sin: torch.Tensor,
+        mask: Optional[torch.Tensor],
+        cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        cache_index: int = 0,
+        mask_is_causal: bool = False,
+    ) -> torch.Tensor:
+        """x [B, S, H]; mask [B, S, T] bool (None only on the flash path).
+        With `cache_kv` ([B, max_len, kh, hd] each) the new keys and values
+        are written at `cache_index` in place and T = cache_index + S."""
+        cfg = self.config
+        b, s, _ = x.shape
+        hd = cfg.head_dim
+
+        q = apply_rope(self.q_proj(x).reshape(b, s, cfg.num_heads, hd), cos, sin)
+        k = apply_rope(self.k_proj(x).reshape(b, s, cfg.num_kv_heads, hd), cos, sin)
+        v = self.v_proj(x).reshape(b, s, cfg.num_kv_heads, hd)
+
+        if cache_kv is not None:
+            ck, cv = cache_kv
+            t = cache_index + s
+            ck[:, cache_index:t] = k.to(ck.dtype)
+            cv[:, cache_index:t] = v.to(cv.dtype)
+            k, v = ck[:, :t], cv[:, :t]
+        elif cfg.flash_attention and s >= cfg.flash_min_seq and mask_is_causal:
+            # a caller-supplied mask must use the einsum path
+            out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+            return self.o_proj(out.reshape(b, s, -1))
+
+        # GQA: [B, T, kh, hd] -> heads via an extra group axis in the einsum;
+        # a cache of another dtype promotes as jnp.einsum does
+        groups = cfg.num_heads // cfg.num_kv_heads
+        qk = torch.promote_types(q.dtype, k.dtype)
+        qg = q.reshape(b, s, cfg.num_kv_heads, groups, hd).to(qk)
+        scores = torch.einsum("bskgh,btkh->bkgst", qg, k.to(qk)) / math.sqrt(hd)
+        scores = torch.where(mask[:, None, None, :, :], scores, -1e30)
+        probs = torch.softmax(scores.float(), dim=-1).to(torch.promote_types(x.dtype, v.dtype))
+        out = torch.einsum("bkgst,btkh->bskgh", probs, v.to(probs.dtype))
+        return self.o_proj(out.reshape(b, s, -1).to(x.dtype))
+
+
+class MLP(nn.Module):
+    def __init__(self, config: TransformerConfig):
+        super().__init__()
+        h, i = config.hidden_size, config.intermediate_size
+        self.gate_proj = nn.Linear(h, i, bias=False)
+        self.up_proj = nn.Linear(h, i, bias=False)
+        self.down_proj = nn.Linear(i, h, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class Block(nn.Module):
+    def __init__(self, config: TransformerConfig):
+        super().__init__()
+        self.self_attn = Attention(config)
+        self.mlp = MLP(config)
+        self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+
+    def forward(self, x, cos, sin, mask, cache_kv=None, cache_index=0, mask_is_causal=False):
+        x = x + self.self_attn(
+            self.input_layernorm(x), cos, sin, mask, cache_kv, cache_index, mask_is_causal
+        )
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class Decoder(nn.Module):
+    """Stack of blocks + final norm over input EMBEDDINGS (no token table:
+    the multimodal model owns its embeddings)."""
+
+    def __init__(self, config: TransformerConfig):
+        super().__init__()
+        self.config = config
+        self.layers = nn.ModuleList(Block(config) for _ in range(config.num_layers))
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+
+    def forward(
+        self,
+        inputs_embeds: torch.Tensor,
+        positions: Optional[torch.Tensor] = None,
+        cache: Optional[dict] = None,
+        attn_mask: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Optional[dict]]:
+        """inputs_embeds [B, S, H]. Without cache: causal self-attention.
+        With cache: S new tokens appended at cache['index'] (the cache
+        tensors are updated in place); attention over all cached positions
+        <= current. Returns (hidden, cache)."""
+        cfg = self.config
+        b, s, _ = inputs_embeds.shape
+        dev = inputs_embeds.device
+
+        mask_is_causal = False
+        if cache is None:
+            index = 0
+            if positions is None:
+                positions = torch.arange(s, device=dev).expand(b, s)
+            if attn_mask is None:
+                mask_is_causal = True
+                if not (cfg.flash_attention and s >= cfg.flash_min_seq):
+                    attn_mask = torch.ones(s, s, dtype=torch.bool, device=dev).tril().expand(b, s, s)
+        else:
+            index = cache["index"]
+            if index + s > cache["k"].shape[2]:
+                raise ValueError(f"KV cache of {cache['k'].shape[2]} positions cannot take {index} + {s}")
+            if positions is None:
+                positions = (index + torch.arange(s, device=dev)).expand(b, s)
+            key_pos = torch.arange(index + s, device=dev)[None, None, :]  # [1, 1, T]
+            attn_mask = key_pos <= positions[:, :, None]  # [B, S, T]
+
+        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+
+        x = inputs_embeds
+        for i, layer in enumerate(self.layers):
+            layer_cache = (cache["k"][i], cache["v"][i]) if cache is not None else None
+            x = layer(x, cos, sin, attn_mask, layer_cache, index, mask_is_causal)
+        x = self.norm(x)
+
+        if cache is not None:
+            cache = {"k": cache["k"], "v": cache["v"], "index": index + s}
+        return x, cache

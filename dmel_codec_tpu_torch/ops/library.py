@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--threads", "0",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -37,6 +37,7 @@ _SIGNATURES = {
         _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _F, _I,
         _I, _I, _I, _I, _I, _I, _P, _P,
     ],
+    "dmel_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 
@@ -108,6 +109,30 @@ def check_plane(x: torch.Tensor, name: str = "x") -> None:
         raise ValueError(f"{name} must be a non-empty [B, C, T] tensor, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The attention kernel takes contiguous q [B, S, H, hd] and k, v
+    [B, S, KH, hd] of one dtype (float32 or bfloat16) on one CUDA device,
+    with H a multiple of KH and hd a multiple of 16 up to 128."""
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"q, k, v must lie on one CUDA device, got {q.device}, {k.device}, {v.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or q.numel() == 0:
+        raise ValueError(f"q must be a non-empty [B, S, H, hd] tensor, got {tuple(q.shape)}")
+    b, s, h, hd = q.shape
+    if k.dim() != 4 or k.shape != v.shape or (k.shape[0], k.shape[1], k.shape[3]) != (b, s, hd):
+        raise ValueError(f"k, v must be [B, S, KH, hd] beside q {tuple(q.shape)}, got {tuple(k.shape)}, {tuple(v.shape)}")
+    kh = k.shape[2]
+    if kh == 0 or h % kh:
+        raise ValueError(f"{h} query heads are not a multiple of {kh} KV heads")
+    if hd % 16 or hd > 128:
+        raise ValueError(f"head size must be a multiple of 16 up to 128, got {hd}")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"batch {b} and heads {h} must fit the launch grid (65535)")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k, v must be contiguous")
 
 
 def channel_vector(p: torch.Tensor, like: torch.Tensor, n: int) -> torch.Tensor:

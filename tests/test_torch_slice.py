@@ -142,13 +142,13 @@ def test_slice_end_to_end(models, jax_codec):
 
 
 def test_port_runs_without_jax():
-    """Every port module imports, and the small slice runs, with jax and
-    flax blocked."""
+    """Every port module imports, and the small codec slice and an LM
+    generation run, with jax and flax blocked."""
     root = Path(__file__).resolve().parents[1]
     script = textwrap.dedent(
         """
         import importlib, pkgutil, sys
-        sys.modules["jax"] = sys.modules["flax"] = None
+        sys.modules["jax"] = sys.modules["flax"] = sys.modules["dmel_codec_tpu"] = None
         import torch
         torch.set_num_threads(1)
         import dmel_codec_tpu_torch as pkg
@@ -170,6 +170,23 @@ def test_port_runs_without_jax():
             mel = codec.decode(idx, ilen, generator=torch.Generator().manual_seed(0))
             wav = FusedBigVGAN(voc, fuse_max_channels=8)(mel)
         assert idx.shape == (2, 2, 8) and wav.shape == (2, 128) and torch.isfinite(wav).all()
+        import numpy as np
+        from dmel_codec_tpu_torch.lm.generate import InferenceConfig, SlowFastGenerator
+        from dmel_codec_tpu_torch.lm.inputs import TokenGridBuilder
+        from dmel_codec_tpu_torch.lm.tokenizer import ByteTokenizer
+        from dmel_codec_tpu_torch.models.lm import ChatMusicLM, SlowFastLMConfig
+        from dmel_codec_tpu_torch.models.transformer import TransformerConfig
+        lm_cfg = SlowFastLMConfig(slow=TransformerConfig(151936, 32, 64, 2, 4, 2),
+                                  fast=TransformerConfig(1800, 24, 48, 2, 4, 2))
+        lm = ChatMusicLM(lm_cfg).eval()
+        grid = TokenGridBuilder(config=lm_cfg).build_infer_grid(text_ids=ByteTokenizer().encode("hi"))
+        gen = SlowFastGenerator(lm, InferenceConfig(max_new_tokens=3, max_seq_len=32))
+        audio, text = gen.generate(*grid, torch.Generator().manual_seed(0))
+        batch_audio, _ = gen.generate_batched(np.stack([grid[0]] * 2), np.stack([grid[1]] * 2),
+                                              torch.Generator().manual_seed(0))
+        assert audio.shape[1] == 10 and 1 <= len(audio) == len(text) <= 3 and len(batch_audio) == 2
+        assert not any(n.split(".")[0] in ("jax", "flax", "dmel_codec_tpu") for n in sys.modules
+                       if sys.modules[n] is not None)
         print("ok")
         """
     )
