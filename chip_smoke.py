@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths once on one CUDA card: the codec
-(log-mel -> dMel tokens -> BigVGAN) and the slow-fast LM in front of it.
+(log-mel -> dMel tokens -> BigVGAN), the slow-fast LM in front of it, and
+the codec on long audio, window by window.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
 
@@ -8,9 +9,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
   1. card name and power limit (nvidia-smi);
   2. build the CUDA kernels from dmel_codec_tpu_torch/csrc into build/;
   3. K1 (anti-aliased snake) against its plain version at the vocoder's
-     shapes, float32 and bfloat16;
+     shapes in a codec request and in a streaming window, float32 and
+     bfloat16;
   4. K2 (fused AMP stage) against its plain version at every fused width,
-     B = 2, float32 and bfloat16;
+     B = 2 and a streaming window's B = 1, float32 and bfloat16;
   5. the main path at the flagship width with seeded random bf16 weights:
      three requests of 16 clips x 4 s through log-mel -> DMelCodec.encode ->
      DMelCodec.decode -> serving BigVGAN, with output checks and kernel
@@ -33,8 +35,25 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      a profile of one steady-state frame, and greedy agreement of the three
      generation forms;
  10. FA, its plain version and PyTorch's scaled_dot_product_attention (a
-     yardstick only: nothing in the port calls it) at the main-path shape,
-     with each kernel's bound on this card.
+     yardstick only: nothing in the port calls it) at the main-path shape;
+ 11. K2-v1 (the whole AMP stage in one launch) against its plain version
+     at the two flagship widths it holds (C = 48 and 24), at a codec
+     request's lengths and at a streaming window's (the path that
+     launches it), float32 and bfloat16, ragged lengths and widths, its
+     refusal of a wider stage, and its time beside K2's and the plain
+     version's at both; K1 and K2 timed at the window's shapes too;
+ 12. window invariance of K1, K2 and K2-v1 in float32: a kernel run on a
+     slice of the signal gives the bits of its run on the whole signal,
+     beyond its receptive field from the cuts;
+ 13. the streaming path at full width (models/streaming.py): chunked
+     against one-shot on an 8 s clip in float32 (tokens equal, decode and
+     vocoder within tolerance, both `use_v2`), a 10-minute clip through
+     `chunked_vocode` in bfloat16 with both `use_v2` (seconds, xRT, peak
+     device memory, launch counts), 60 s through encode -> decode ->
+     vocode, and `cli.stream_codec.main` on a WAV written here;
+ 14. the K1 ablation probe: each variant against its plain version, and
+     the probe's own table of times;
+ 15. every kernel's bound on this card.
 The comparison phases run with TF32 off for cuBLAS and cuDNN. The
 line before the last is one JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.
@@ -45,6 +64,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -62,6 +82,9 @@ DEVICE = "cuda:0"
 K1_SOURCE = "dmel_codec_tpu_torch/csrc/anti_alias.cu"
 K2_SOURCE = "dmel_codec_tpu_torch/csrc/stage_fused.cu"
 FA_SOURCE = "dmel_codec_tpu_torch/csrc/flash_attention.cu"
+V1_SOURCE = "dmel_codec_tpu_torch/csrc/stage_fused_v1.cu"
+LONG_MINUTES, CHAIN_SECONDS, CLI_SECONDS, EXACT_SECONDS = 10, 60, 20, 8
+VOCODE_CHUNK, VOCODE_HALO = 480, 40
 LM_BATCH, LM_SEQ, LM_FRAMES, SERVE_BATCH = 2, 2048, 128, 16
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data
 # sheet): bf16 tensor cores, float32 outside them, HBM3.
@@ -114,6 +137,19 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
 #    random weights' gain: 2e-5.
 #  K2 bf16: 54 bf16 rounding points on each side; a flip there is one ulp
 #    (<= 2^-7) and flips compound down the chain: 5e-2.
+#  K2-v1 f32: as K2.
+#  K2-v1 bf16: both sides keep the planes float32 and round only the 18
+#    conv operands and the result; one bf16 ulp of the output for a result
+#    next to a rounding boundary and one for operand flips that compound
+#    down the chain: 2^-6.
+#  Chunked vs one-shot, float32: the kernels give the same bits wherever
+#    the window lies (phase 12); the cuDNN convs around them could pick
+#    another algorithm (and so summation order) for another T, ~1e-7
+#    relative per op over 20 layers: 1e-5 for the decode, 2e-5 (K2's own)
+#    per vocoder stage, and 2e-5 absolute end to end, which the JAX package
+#    asserts on its XLA path (scripts/bench_streaming.py:72; its kernel path
+#    is off by 1.58e-1 there, BENCHMARKS.md:270-282). On an NVIDIA H100 with
+#    torch 2.11 every one of these differences measured 0.
 #  FA f32: both sides float32; exp of scores up to ~5 that were summed in
 #    another order (1e-6 relative each) and ~2000-term sums: 2e-5.
 #  FA bf16: both sides compute in float32 from the same bf16 inputs and
@@ -126,8 +162,10 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
 #    on average, and 12 times that for the largest of ~10^8 logits.
 TOL = {("K1", torch.float32): 1e-6, ("K1", torch.bfloat16): 2.0**-7,
        ("K2", torch.float32): 2e-5, ("K2", torch.bfloat16): 5e-2,
+       ("K2-v1", torch.float32): 2e-5, ("K2-v1", torch.bfloat16): 2.0**-6,
        ("FA", torch.float32): 2e-5, ("FA", torch.bfloat16): 2.0**-7}
 TOL_LM_MAX, TOL_LM_MEAN = 1.2e-1, 1e-2
+TOL_CHUNKED_DECODE, TOL_CHUNKED_STAGE, TOL_CHUNKED_WAVE = 1e-5, 2e-5, 2e-5
 
 
 def stage_shapes(vcfg, frames: int):
@@ -146,6 +184,48 @@ def fa_bound_ms(b: int, s: int, h: int, kh: int, hd: int, itemsize: int):
     by_ops = flops / (PEAK_BF16 if itemsize == 2 else PEAK_F32) * 1e3
     by_bytes = nbytes / PEAK_BYTES * 1e3
     return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
+
+
+def stage_bound_ms(stages, batch: int, kernel_sizes):
+    """Least time for fused AMP stages [(C, T), ...] in bf16: per stage 18
+    convs of C x C x k (six of each kernel size) on bf16 operands at the
+    tensor-core rate, 18 float32 activations, the plane in and out once and
+    the weights once. Returns {"bytes": ms, "operations": ms}."""
+    conv = act = nbytes = 0.0
+    for c, t_len in stages:
+        n = batch * c * t_len
+        conv += 2 * c * n * 6 * sum(kernel_sizes)
+        act += 18 * K1_FLOPS_PER_SAMPLE * n
+        nbytes += 2 * n * 2 + 6 * sum(kernel_sizes) * c * c * 2
+    return {"bytes": nbytes / PEAK_BYTES * 1e3,
+            "operations": max(conv / PEAK_BF16, act / PEAK_F32) * 1e3}
+
+
+@torch.no_grad()
+def stagewise_window_error(fused, mel: np.ndarray, dev) -> float:
+    """The chunked-vs-one-shot gate of the serving vocoder, stage by stage:
+    every stage runs on each window's slice of its one-shot input and is
+    held against the same region of its one-shot output, beyond 128
+    samples (more than a stage reaches) from a cut that is not a signal
+    edge. Returns the largest error relative to max(1, max |one-shot|)."""
+    from dmel_codec_tpu_torch.models.streaming import window_positions
+
+    t = mel.shape[1]
+    window = VOCODE_CHUNK + 2 * VOCODE_HALO
+    xs = [fused.pre(torch.from_numpy(mel).to(dev))]
+    for i in range(len(fused.stages)):
+        xs.append(fused.stage(i, xs[-1]))
+    worst = 0.0
+    for _, pos in window_positions(t, VOCODE_CHUNK, VOCODE_HALO):
+        rate = 1
+        for i, u in enumerate(fused.config.upsample_rates):
+            out = fused.stage(i, xs[i][:, :, pos * rate : (pos + window) * rate].contiguous())
+            rate *= u
+            lo = 0 if pos == 0 else 128
+            hi = out.shape[2] - (0 if pos + window == t else 128)
+            want = xs[i + 1][:, :, pos * rate + lo : pos * rate + hi]
+            worst = max(worst, max_err(out[:, :, lo:hi], want) / max(1.0, want.abs().max().item()))
+    return worst
 
 
 def set_flash(model: torch.nn.Module, on: bool) -> None:
@@ -219,7 +299,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from dmel_codec_tpu_torch.cli import infer_lm
+    from dmel_codec_tpu_torch.cli import infer_lm, stream_codec
     from dmel_codec_tpu_torch.dsp.spectrogram import LogMelSpectrogram
     from dmel_codec_tpu_torch.lm.generate import InferenceConfig, SlowFastGenerator
     from dmel_codec_tpu_torch.lm.inputs import TokenGridBuilder, pad_grids_to_batch
@@ -228,9 +308,13 @@ def main() -> None:
     from dmel_codec_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
     from dmel_codec_tpu_torch.models.bigvgan import AMPBlock1, BigVGAN, BigVGANConfig, FusedBigVGAN
     from dmel_codec_tpu_torch.models.codec import DMelCodec, DMelCodecConfig
+    from dmel_codec_tpu_torch.models import streaming
     from dmel_codec_tpu_torch.ops import library
     from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation, anti_alias_activation_reference
-    from dmel_codec_tpu_torch.ops.stage_fused import StageSpec, amp_stage, pack_stage, stage_reference
+    from dmel_codec_tpu_torch.ops.stage_fused import (
+        V1_MAX_CHANNELS, StageSpec, amp_stage, amp_stage_v1, pack_stage, stage_reference, stage_reference_v1,
+    )
+    from dmel_codec_tpu_torch.probes import act_variants
     from dmel_codec_tpu_torch.utils.precision import strict_float32
 
     dev = torch.device(DEVICE)
@@ -256,6 +340,8 @@ def main() -> None:
     vcfg = BigVGANConfig()
     frames = (SECONDS * SR // HOP // 4) * 4
     shapes = {i: (c, t) for i, c, t in stage_shapes(vcfg, frames)}
+    # what one streaming window (B = 1) gives the same kernels
+    win_shapes = {i: (c, t) for i, c, t in stage_shapes(vcfg, VOCODE_CHUNK + 2 * VOCODE_HALO)}
     errs = {"K1": 0.0, "K2": 0.0}
 
     # ---- 3. K1 vs plain: the vocoder's shapes, then ragged ones (snake and
@@ -263,8 +349,11 @@ def main() -> None:
     log("K1 anti-aliased snake vs plain:")
     last = len(shapes) - 1
     k1_shapes = {"act_post": (BATCH, *shapes[last]), "s0": (BATCH, *shapes[0]), "s1": (BATCH, *shapes[1])}
+    k1_win_shapes = {"act_post": (1, *win_shapes[last]), "s0": (1, *win_shapes[0]), "s1": (1, *win_shapes[1])}
     k1_cases = [(name, shape, True, True, (torch.float32, torch.bfloat16))
                 for name, shape in k1_shapes.items()]
+    k1_cases += [(f"window {name}", shape, True, True, (torch.float32, torch.bfloat16))
+                 for name, shape in k1_win_shapes.items()]
     k1_cases += [("ragged snake", (2, 3, 700), False, False, (torch.float32,)),
                  ("ragged snakebeta", (1, 5, 1), True, True, (torch.float32,)),
                  ("ragged snakebeta", (3, 7, 37), False, True, (torch.float32,))]
@@ -300,6 +389,8 @@ def main() -> None:
     stage_packs = {i: random_pack(c) for i, (c, _) in shapes.items() if c <= FUSE_MAX_CHANNELS}
     k2_cases = [(f"s{i}", stage_packs[i], (2, *shapes[i]), (torch.float32, torch.bfloat16))
                 for i in stage_packs]
+    k2_cases += [(f"window s{i}", stage_packs[i], (1, *win_shapes[i]), (torch.float32, torch.bfloat16))
+                 for i in stage_packs]
     k2_cases += [("ragged", random_pack(40), (1, 40, 1000), (torch.float32,)),
                  ("short", stage_packs[last], (2, shapes[last][0], 50), (torch.float32,)),
                  ("one sample", stage_packs[last], (1, shapes[last][0], 1), (torch.float32,))]
@@ -620,45 +711,319 @@ def main() -> None:
         f"{fa_ms[3]:.3f} ms, scaled_dot_product_attention {fa_ms[2]:.3f} ms, bound {fa_bound:.4f} ms by {fa_by} "
         f"(x{n_fa} per forward)")
 
-    # bounds of K1 and K2 per request, from the shapes of this run (bf16)
+
+    # ---- 11. K2-v1 vs plain: the flagship widths it holds, then ragged
+    # lengths (one sample, shorter than the halo, not a multiple of any
+    # tile) and widths that are no multiple of its 8-channel groups
+    log("K2-v1 whole-stage kernel vs plain:")
+    s4, s5 = last - 1, last
+    assert shapes[s4][0] == V1_MAX_CHANNELS == 48 and shapes[s5][0] == 24, shapes
+    v1_cases = [(f"s{i}", stage_packs[i], (2, *shapes[i]), (torch.float32, torch.bfloat16)) for i in (s4, s5)]
+    v1_cases += [(f"window s{i}", stage_packs[i], (1, *win_shapes[i]), (torch.float32, torch.bfloat16))
+                 for i in (s4, s5)]
+    v1_cases += [(f"ragged T = {t_len}", stage_packs[s5], (b, 24, t_len), (torch.float32, torch.bfloat16))
+                 for b, t_len in ((1, 1), (3, 37), (2, 50), (2, 700), (1, 1000))]
+    v1_cases += [("ragged C = 5", random_pack(5), (1, 5, 700), (torch.float32,)),
+                 ("ragged C = 7", random_pack(7), (3, 7, 37), (torch.float32,)),
+                 ("ragged C = 40", random_pack(40), (1, 40, 1000), (torch.float32,))]
+    errs["K2-v1"] = 0.0
+    for name, (spec, packed), shape, dts in v1_cases:
+        x32 = torch.randn(shape, device=dev, generator=gen)
+        for dt in dts:
+            x = x32.to(dt)
+            got = amp_stage_v1(x, packed, spec)
+            torch.cuda.synchronize()
+            want = stage_reference_v1(x, packed, spec)
+            e = check_close(f"{name} {list(shape)} {dt}", got, want, TOL[("K2-v1", dt)])
+            if dt == torch.float32:
+                errs["K2-v1"] = max(errs["K2-v1"], e)
+            del got, want
+    try:
+        amp_stage_v1(torch.zeros((1, 96, 256), device=dev), stage_packs[s4 - 1][1], stage_packs[s4 - 1][0])
+    except ValueError as exc:
+        log(f"  C = 96 on the card is refused: {exc}")
+    else:
+        raise AssertionError("amp_stage_v1 took a stage wider than V1_MAX_CHANNELS")
+    # times at a codec request's shapes (B = 16), then at a streaming
+    # window's (B = 1), which is what the path that launches K2-v1 gives it
+    v1_request = {"K2-v1": 0.0, "K2": 0.0, "plain": 0.0}
+    v1_window = {"K2-v1": 0.0, "K2": 0.0, "plain": 0.0}
+    with torch.no_grad():
+        for what, bsz, shp, total in (("request", BATCH, shapes, v1_request), ("window", 1, win_shapes, v1_window)):
+            for i in (s4, s5):
+                spec, packed = stage_packs[i]
+                c, t_len = shp[i]
+                x = torch.randn((bsz, c, t_len), device=dev, generator=gen).to(torch.bfloat16)
+                t_v1 = [cuda_ms(lambda: amp_stage_v1(x, packed, spec), 3)]
+                t_k2 = cuda_ms(lambda: amp_stage(x, packed, spec), 3)
+                t_v1.append(cuda_ms(lambda: amp_stage_v1(x, packed, spec), 3))
+                t_plain = cuda_ms(lambda: stage_reference_v1(x, packed, spec), 3)
+                log(f"  {what} s{i} [{bsz}, {c}, {t_len}] bf16: K2-v1 {t_v1[0]:.3f} / {t_v1[1]:.3f} ms (1 launch), "
+                    f"K2 {t_k2:.3f} ms (18 launches), plain {t_plain:.3f} ms")
+                total["K2-v1"] += sum(t_v1) / 2
+                total["K2"] += t_k2
+                total["plain"] += t_plain
+        for what, total in (("request", v1_request), ("window", v1_window)):
+            log(f"  s{s4} + s{s5} per {what}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in total.items()))
+        ms["K2-v1"], plain_ms["K2-v1"] = v1_window["K2-v1"], v1_window["plain"]
+
+        # K1 and K2 at the window's shapes, as the streaming path launches them
+        win_ms = {"K1": 0.0, "K2": 0.0}
+        win_plain_ms = {"K1": 0.0, "K2": 0.0}
+        for name, count in (("act_post", 1), ("s0", 18), ("s1", 18)):
+            shape = k1_win_shapes[name]
+            x = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+            a = 0.3 * torch.randn(shape[1], device=dev, generator=gen)
+            k = cuda_ms(lambda: anti_alias_activation(x, a, a, True), 10)
+            p = cuda_ms(lambda: anti_alias_activation_reference(x, a, a, True), 10)
+            log(f"  window K1 {name} {list(shape)} bf16: kernel {k:.3f} ms, plain {p:.3f} ms (x{count} per window)")
+            win_ms["K1"] += count * k
+            win_plain_ms["K1"] += count * p
+        for i, (spec, packed) in stage_packs.items():
+            c, t_len = win_shapes[i]
+            x = torch.randn((1, c, t_len), device=dev, generator=gen).to(torch.bfloat16)
+            k = cuda_ms(lambda: amp_stage(x, packed, spec), 3)
+            p = cuda_ms(lambda: stage_reference(x, packed, spec), 3)
+            log(f"  window K2 s{i} [1, {c}, {t_len}] bf16: kernel {k:.3f} ms (18 launches), plain {p:.3f} ms")
+            win_ms["K2"] += k
+            win_plain_ms["K2"] += p
+    log(f"  per window: K1 {win_ms['K1']:.3f} ms vs plain {win_plain_ms['K1']:.3f} ms; "
+        f"K2 {win_ms['K2']:.3f} ms vs plain {win_plain_ms['K2']:.3f} ms")
+
+    # ---- 12. window invariance
+    log("window invariance, float32: a kernel on x[:, :, 777:3001] against that region of its run on x "
+        "(beyond its reach from the cuts); expected: the same bits")
+    cut_a, cut_b = 777, 3001
+    alpha24 = 0.3 * torch.randn(24, device=dev, generator=gen)
+    inv_cases = [("K1", 24, 6, lambda v: anti_alias_activation(v, alpha24, alpha24, True))]
+    for i in (s5, s4):
+        spec, packed = stage_packs[i]
+        inv_cases += [(f"K2 C = {spec.channels}", spec.channels, spec.receptive,
+                       lambda v, sp=spec, pk=packed: amp_stage(v, pk, sp)),
+                      (f"K2-v1 C = {spec.channels}", spec.channels, spec.receptive,
+                       lambda v, sp=spec, pk=packed: amp_stage_v1(v, pk, sp))]
+    for name, c, reach, fn in inv_cases:
+        x = torch.randn((2, c, 5000), device=dev, generator=gen)
+        whole, part = fn(x), fn(x[:, :, cut_a:cut_b].contiguous())
+        diff = max_err(part[:, :, reach:-reach], whole[:, :, cut_a + reach : cut_b - reach])
+        log(f"  {name}: max abs difference {diff:.3e} over {cut_b - cut_a - 2 * reach} samples")
+        if diff != 0.0:
+            raise AssertionError(f"{name}: the result depends on where the window lies")
+
+    # ---- 13. the streaming path at full width
+    log(f"streaming, chunked vs one-shot on a {EXACT_SECONDS} s clip, float32, flagship codec + vocoder:")
+    torch.manual_seed(0)
+    codec32 = DMelCodec(DMelCodecConfig()).eval().to(dev)
+    rng = np.random.default_rng(1)
+    frames_x = (EXACT_SECONDS * SR // HOP // 4) * 4
+    mel_x = (0.5 * rng.standard_normal((1, frames_x, vcfg.num_mels))).astype(np.float32)
+    noise_x = rng.standard_normal((1, frames_x, ccfg.concat_dim)).astype(np.float32)
+    with torch.no_grad():
+        idx_one, ilen_one = codec32.encode(torch.from_numpy(mel_x).to(dev), torch.full((1,), frames_x, device=dev))
+        mel_one = codec32.decode(idx_one, ilen_one, torch.from_numpy(noise_x).to(dev))
+    idx_chunked = streaming.chunked_encode(codec32, mel_x, chunk_frames=256)
+    flips = int((idx_chunked != idx_one.cpu().numpy()).sum())
+    log(f"  chunked_encode (3 windows of 256 + 2 x 128): {idx_chunked.shape[2]} tokens x {idx_chunked.shape[1]}, "
+        f"{flips} differ from one-shot encode")
+    assert idx_chunked.shape == tuple(idx_one.shape) and flips == 0
+    mel_chunked = streaming.chunked_decode(codec32, idx_chunked, noise=noise_x, chunk_tokens=64)
+    check_close("chunked_decode (3 windows of 64 + 2 x 32 tokens) vs one-shot decode",
+                torch.from_numpy(mel_chunked), mel_one.cpu(), TOL_CHUNKED_DECODE)
+    for use_v2 in (True, False):
+        fused = FusedBigVGAN(voc32, fuse_max_channels=FUSE_MAX_CHANNELS, use_v2=use_v2)
+        with torch.no_grad():
+            one_shot = fused(torch.from_numpy(mel_x).to(dev)).cpu().numpy()
+        chunked = streaming.chunked_vocode(fused, mel_x, VOCODE_CHUNK, VOCODE_HALO)
+        end_to_end = float(np.abs(chunked - one_shot).max())
+        stagewise = stagewise_window_error(fused, mel_x, dev)
+        log(f"  chunked_vocode use_v2={use_v2} routes {fused.routes}: stage by stage max relative error "
+            f"{stagewise:.3e} (tol {TOL_CHUNKED_STAGE:.0e}); end to end max |chunked - one-shot| {end_to_end:.3e} "
+            f"(tol {TOL_CHUNKED_WAVE:.0e}; the JAX package's kernel path: 1.58e-1)")
+        assert chunked.shape == one_shot.shape == (1, frames_x * HOP)
+        if not (stagewise <= TOL_CHUNKED_STAGE and end_to_end <= TOL_CHUNKED_WAVE):
+            raise AssertionError("the chunked vocoder disagrees with its one-shot run")
+    # free what the earlier phases hold, so that peak memory below is the streaming path's
+    del codec32, mel_one, idx_one
+    lm = generator_ = first_only = cache = state = emb = batch = None  # noqa: F841
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    minutes_frames = LONG_MINUTES * 60 * SR // HOP
+    window = VOCODE_CHUNK + 2 * VOCODE_HALO
+    n_windows = -(-minutes_frames // VOCODE_CHUNK)
+    log(f"streaming, {LONG_MINUTES} minutes through chunked_vocode, B = 1, bf16: {minutes_frames} mel frames, "
+        f"{n_windows} windows of {VOCODE_CHUNK} + 2 x {VOCODE_HALO}")
+    mel_long = (0.5 * rng.standard_normal((1, minutes_frames, vcfg.num_mels))).astype(np.float32)
+    stream_stats = {}
+    counters = {"K1": anti_alias_activation, "K2": amp_stage, "K2-v1": amp_stage_v1}
+    for use_v2 in (True, False):
+        fused = FusedBigVGAN(voc16, fuse_max_channels=FUSE_MAX_CHANNELS, use_v2=use_v2)
+        streaming.chunked_vocode(fused, mel_long[:, : 2 * window], VOCODE_CHUNK, VOCODE_HALO)  # warm-up
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        wav = streaming.chunked_vocode(fused, mel_long, VOCODE_CHUNK, VOCODE_HALO)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = {name: fn.launches for name, fn in counters.items()}
+        assert wav.shape == (1, minutes_frames * HOP) and np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+        n_v1 = fused.routes.count("K2-v1")
+        n_k2 = fused.routes.count("K2")
+        assert counts == {"K1": n_windows * want_k1, "K2": n_windows * 18 * n_k2, "K2-v1": n_windows * n_v1}, counts
+        stream_stats[use_v2] = {"seconds": seconds, "xrt": LONG_MINUTES * 60 / seconds, "peak": peak,
+                                "resident": resident, **counts}
+        log(f"  use_v2={use_v2}: {seconds:.3f} s, xRT {LONG_MINUTES * 60 / seconds:.2f} with host staging; peak device "
+            f"memory {peak / 2**20:.1f} MiB ({resident / 2**20:.1f} MiB resident before the run, "
+            f"{(peak - resident) / 2**20:.1f} MiB the run's own); launches K1 {counts['K1']}, K2 {counts['K2']}, "
+            f"K2-v1 {counts['K2-v1']}; rms {float(np.sqrt(np.mean(np.square(wav)))):.4f}")
+        del wav
+    launches["K2-v1"] = stream_stats[False]["K2-v1"]
+    assert launches["K2-v1"] > 0
+    with torch.no_grad():
+        mel_dev = torch.from_numpy(mel_x).to(device=dev, dtype=torch.bfloat16)
+        vocoder(mel_dev)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        vocoder(mel_dev)
+        torch.cuda.synchronize()
+        own = torch.cuda.max_memory_allocated() - resident
+    scaled = own * minutes_frames / frames_x
+    log(f"  one-shot, {EXACT_SECONDS} s clip, bf16, use_v2=True: the run's own peak {own / 2**20:.1f} MiB; scaled by "
+        f"frames to {LONG_MINUTES} minutes: {scaled / 2**30:.2f} GiB (+ {resident / 2**20:.1f} MiB resident)")
+
+    log(f"streaming, {CHAIN_SECONDS} s through chunked_encode -> chunked_decode -> chunked_vocode, bf16:")
+    t_axis = torch.arange(CHAIN_SECONDS * SR, device=dev) / SR
+    tone = 0.5 * torch.sin(2 * math.pi * 220.0 * t_axis) + 0.1 * torch.sin(2 * math.pi * 3.1 * 220.0 * t_axis)
+    mel_chain = mel_tf(tone[None]).cpu().numpy()
+    frames_c = (mel_chain.shape[1] // 4) * 4
+    t0 = time.perf_counter()
+    idx_c = streaming.chunked_encode(codec, mel_chain)
+    t1 = time.perf_counter()
+    gen_c = streaming.chunked_decode(codec, idx_c, seed=0)
+    t2 = time.perf_counter()
+    wav_c = streaming.chunked_vocode(vocoder, gen_c, VOCODE_CHUNK, VOCODE_HALO)
+    t3 = time.perf_counter()
+    log(f"  {mel_chain.shape[1]} frames -> tokens {list(idx_c.shape)} in {t1 - t0:.3f} s -> mel {list(gen_c.shape)} in "
+        f"{t2 - t1:.3f} s -> wave {list(wav_c.shape)} in {t3 - t2:.3f} s; xRT {CHAIN_SECONDS / (t3 - t0):.2f}")
+    assert idx_c.shape == (1, ccfg.dmel_groups * ccfg.n_codebooks, frames_c // 4)
+    assert 0 <= idx_c.min() and idx_c.max() < ccfg.codebook_size
+    assert gen_c.shape == (1, frames_c, ccfg.n_mels) and np.isfinite(gen_c).all()
+    assert wav_c.shape == (1, frames_c * HOP) and np.isfinite(wav_c).all() and np.abs(wav_c).max() <= 1.0
+
+    log(f"streaming through the entry point: stream_codec.main on a {CLI_SECONDS} s WAV, default device, --use-v1")
+    from scipy.io import wavfile
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        wavfile.write(tmp / "in.wav", SR, tone[: CLI_SECONDS * SR].cpu().numpy())
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        stream_codec.main(["--in", str(tmp / "in.wav"), "--tokens-out", str(tmp / "tokens.npy"),
+                           "--out", str(tmp / "out.wav"), "--use-v1"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        cli_counts = {name: fn.launches for name, fn in counters.items()}
+        tokens = np.load(tmp / "tokens.npy")
+        wav_sr, wav = wavfile.read(tmp / "out.wav")
+    frames_cli = (CLI_SECONDS * SR // HOP // 4) * 4
+    log(f"  {wall_s:.2f} s wall with building the models; tokens {list(tokens.shape)}, WAV {wav.shape} at {wav_sr} Hz, "
+        f"rms {float(np.sqrt(np.mean(np.square(wav)))):.4f}; launches {cli_counts}")
+    assert tokens.shape == (1, ccfg.dmel_groups * ccfg.n_codebooks, frames_cli // 4)
+    assert wav_sr == SR and wav.dtype == np.float32 and wav.shape == (frames_cli * HOP,)
+    assert np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+    assert all(n > 0 for n in cli_counts.values()), cli_counts
+
+    # ---- 14. the K1 ablation probe
+    log("K1 ablation probe vs plain:")
+    errs["probe"] = 0.0
+    for shape, with_beta in (((2, 24, 3000), True), ((3, 7, 37), False), ((1, 5, 1), True)):
+        c = shape[1]
+        alpha = 0.3 * torch.randn(c, device=dev, generator=gen)
+        beta = 0.3 * torch.randn(c, device=dev, generator=gen) if with_beta else None
+        x32 = torch.randn(shape, device=dev, generator=gen)
+        for variant in act_variants.VARIANTS:
+            for dt in (torch.float32, torch.bfloat16):
+                got = act_variants.run_variant(x32.to(dt), alpha, beta, variant)
+                torch.cuda.synchronize()
+                want = act_variants.variant_reference(x32.to(dt), alpha, beta, variant)
+                e = check_close(f"{variant} {list(shape)} {dt}", got, want, TOL[("K1", dt)])
+                if dt == torch.float32:
+                    errs["probe"] = max(errs["probe"], e)
+    act_variants.run_variant.launches = 0
+    probe_table = act_variants.main()
+    launches["probe"] = act_variants.run_variant.launches
+    assert launches["probe"] > 0
+    probe_shape = k1_shapes["s1"]
+    assert probe_shape in probe_table, (probe_shape, list(probe_table))
+    with torch.no_grad():
+        x = torch.randn(probe_shape, device=dev, generator=gen).to(torch.bfloat16)
+        a = 0.3 * torch.randn(probe_shape[1], device=dev, generator=gen)
+        probe_plain = {v: cuda_ms(lambda v=v: act_variants.variant_reference(x, a, a, v), 5)
+                       for v in act_variants.VARIANTS}
+    log(f"  plain versions at {list(probe_shape)} bf16: " + ", ".join(f"{v} {t:.3f} ms" for v, t in probe_plain.items()))
+
+    # ---- 15. bounds, from the shapes of this run (bf16)
     k1_bytes = k1_flops = 0.0
     for shape, count in ((k1_shapes["act_post"], 1), (k1_shapes["s0"], 18), (k1_shapes["s1"], 18)):
         k1_bytes += count * 2 * math.prod(shape) * 2
         k1_flops += count * K1_FLOPS_PER_SAMPLE * math.prod(shape)
     k1_bound = {"bytes": k1_bytes / PEAK_BYTES * 1e3, "operations": k1_flops / PEAK_F32 * 1e3}
-    # K2 per stage: 18 convs of C x C x k (k = 3, 7, 11, six each) on bf16
-    # operands, 18 float32 activations, the plane in and out once, the weights once
-    k2_conv = k2_act = k2_bytes = 0.0
-    for i, (spec, _) in stage_packs.items():
-        c, t_len = shapes[i]
-        n = BATCH * c * t_len
-        k2_conv += 2 * c * n * 6 * sum(spec.kernel_sizes)
-        k2_act += 18 * K1_FLOPS_PER_SAMPLE * n
-        k2_bytes += 2 * n * 2 + 6 * sum(spec.kernel_sizes) * c * c * 2
-    k2_bound = {"bytes": k2_bytes / PEAK_BYTES * 1e3,
-                "operations": max(k2_conv / PEAK_BF16, k2_act / PEAK_F32) * 1e3}
+    ksizes = vcfg.resblock_kernel_sizes
+    k2_bound = stage_bound_ms([shapes[i] for i in stage_packs], BATCH, ksizes)
+    # K2-v1: the logical work of its two stages (no halo), as K2's, at the
+    # streaming window's shapes (its `ms`) and at a codec request's
+    v1_bound = stage_bound_ms([win_shapes[s4], win_shapes[s5]], 1, ksizes)
+    v1_request_bound = stage_bound_ms([shapes[s4], shapes[s5]], BATCH, ksizes)
+    # the probe's four variants at one shape: the plane in and out once each
+    # launch; operations where the variant keeps them (full 58 per sample,
+    # no_snake 50, no_fir 4, copy 0)
+    n_probe = math.prod(probe_shape)
+    probe_bound = {"bytes": 4 * 2 * n_probe * 2 / PEAK_BYTES * 1e3,
+                   "operations": (58 + 50 + 4) * n_probe / PEAK_F32 * 1e3}
     bounds = {}
-    for name, bound in (("K1", k1_bound), ("K2", k2_bound)):
+    for name, bound in (("K1", k1_bound), ("K2", k2_bound), ("K2-v1", v1_bound), ("probe", probe_bound)):
         by = max(bound, key=bound.get)
         bounds[name] = (bound[by], by)
-        log(f"  {name} bound per request: {bound['bytes']:.4f} ms by bytes, {bound['operations']:.4f} ms by operations")
+        log(f"  {name} bound: {bound['bytes']:.4f} ms by bytes, {bound['operations']:.4f} ms by operations")
 
     kernels = [
         {"name": "anti_alias_activation (K1)", "route": "cuda", "source": K1_SOURCE,
          "replaces": "dmel_codec_tpu/ops/anti_alias.py:521", "launches": launches["K1"],
          "max_abs_err": errs["K1"], "ms": ms["K1"], "plain_ms": plain_ms["K1"],
          "bound_ms": bounds["K1"][0], "bound_by": bounds["K1"][1], "library_ms": None,
-         "per": f"codec request ({want_k1} launches)"},
+         "per": f"codec request ({want_k1} launches)",
+         "window_ms": win_ms["K1"], "window_plain_ms": win_plain_ms["K1"]},
         {"name": "amp_stage act->conv (K2)", "route": "cuda", "source": K2_SOURCE,
          "replaces": "dmel_codec_tpu/ops/stage_fused.py:806", "launches": launches["K2"],
          "max_abs_err": errs["K2"], "ms": ms["K2"], "plain_ms": plain_ms["K2"],
          "bound_ms": bounds["K2"][0], "bound_by": bounds["K2"][1], "library_ms": None,
-         "per": f"codec request ({want_k2} launches)"},
+         "per": f"codec request ({want_k2} launches)",
+         "window_ms": win_ms["K2"], "window_plain_ms": win_plain_ms["K2"]},
         {"name": "flash_attention (FA)", "route": "cuda", "source": FA_SOURCE,
          "replaces": "dmel_codec_tpu/models/transformer.py:197", "launches": launches["FA"],
          "max_abs_err": errs["FA"], "ms": ms["FA"], "plain_ms": plain_ms["FA"],
          "bound_ms": n_fa * fa_bound, "bound_by": fa_by, "library_ms": library_fa,
          "per": f"LM forward ({n_fa} launches)"},
+        {"name": "amp_stage_v1 whole stage (K2-v1)", "route": "cuda", "source": V1_SOURCE,
+         "replaces": "dmel_codec_tpu/ops/stage_fused.py:984", "launches": launches["K2-v1"],
+         "max_abs_err": errs["K2-v1"], "ms": ms["K2-v1"], "plain_ms": plain_ms["K2-v1"],
+         "bound_ms": bounds["K2-v1"][0], "bound_by": bounds["K2-v1"][1], "library_ms": None,
+         "per": f"s{s4} + s{s5} of one streaming window, B = 1 x {VOCODE_CHUNK + 2 * VOCODE_HALO} frames "
+                f"(2 launches); launches: the {LONG_MINUTES}-minute chunked_vocode with use_v2=False",
+         "k2_same_ms": v1_window["K2"], "request_ms": v1_request["K2-v1"], "request_k2_same_ms": v1_request["K2"],
+         "request_plain_ms": v1_request["plain"], "request_bound_ms": max(v1_request_bound.values())},
+        {"name": "run_variant (K1 ablation probe)", "route": "cuda", "source": K1_SOURCE,
+         "replaces": "scripts/exp_act_variants.py:173", "launches": launches["probe"],
+         "max_abs_err": errs["probe"], "ms": sum(probe_table[probe_shape].values()),
+         "plain_ms": sum(probe_plain.values()),
+         "bound_ms": bounds["probe"][0], "bound_by": bounds["probe"][1], "library_ms": None,
+         "per": f"the four variants once each at {list(probe_shape)} bf16",
+         "variants_ms": {str(list(sh)): row for sh, row in probe_table.items()}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

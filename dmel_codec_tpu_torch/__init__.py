@@ -8,10 +8,12 @@ NVIDIA Hopper. Same layer map as the JAX package:
   ops/       hand-written CUDA kernels (csrc/) with a plain PyTorch version each
   quantize/  FSQ + grouped/residual wrappers + the downsample sandwich
   models/    DMelCodec, the BigVGAN vocoder (module and serving forms), the
-             Qwen2-style decoder and the slow-fast LM
+             Qwen2-style decoder and the slow-fast LM, chunked (streaming)
+             codec inference
   lm/        token grids, tokenizer, sampling, generation
   eval/      the numpy-in/numpy-out codec adapter
-  cli/       entry points (infer_lm)
+  cli/       entry points (infer_lm, stream_codec)
+  probes/    development probes of the kernels (K1 ablations)
   data/      WAV loading
   utils/     masks, precision, YAML configs, logging
   convert.py JAX parameter trees -> this package's state_dicts

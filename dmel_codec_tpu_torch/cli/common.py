@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 
 from dmel_codec_tpu_torch.eval.codecs import DMelCodecAdapter
-from dmel_codec_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
+from dmel_codec_tpu_torch.models.bigvgan import BigVGANConfig, load_torch_checkpoint
 from dmel_codec_tpu_torch.models.codec import DMelCodec, DMelCodecConfig
 from dmel_codec_tpu_torch.models.lm import SlowFastLMConfig
 
@@ -55,8 +55,7 @@ def load_codec_adapter(
     if vocoder_ckpt:
         if not os.path.isfile(vocoder_ckpt):
             raise FileNotFoundError(f"no vocoder checkpoint at {vocoder_ckpt}")
-        vsd = torch.load(vocoder_ckpt, map_location="cpu", weights_only=True)
-        vocoder = load_module(BigVGAN(vocoder_cfg or BigVGANConfig()), vsd.get("generator", vsd), device)
+        vocoder = load_torch_checkpoint(vocoder_ckpt, vocoder_cfg or BigVGANConfig()).to(device)
     return DMelCodecAdapter(codec, vocoder)
 
 

@@ -128,9 +128,12 @@ def bigvgan_state_dict_from_jax(params: dict, cfg: BigVGANConfig) -> Dict[str, t
             n = i * cfg.num_kernels + j
             blk, out = params[f"resblock_{n}"], f"resblocks.{n}"
             for jj in range(len(dils)):
-                _wn(sd, f"{out}.convs1.{jj}", blk[f"conv1_{jj}"], transposed=False)
-                _wn(sd, f"{out}.convs2.{jj}", blk[f"conv2_{jj}"], transposed=False)
-            for a in range(2 * len(dils)):
+                if cfg.resblock == "1":
+                    _wn(sd, f"{out}.convs1.{jj}", blk[f"conv1_{jj}"], transposed=False)
+                    _wn(sd, f"{out}.convs2.{jj}", blk[f"conv2_{jj}"], transposed=False)
+                else:  # AMPBlock2: one conv per activation
+                    _wn(sd, f"{out}.convs.{jj}", blk[f"conv_{jj}"], transposed=False)
+            for a in range((2 if cfg.resblock == "1" else 1) * len(dils)):
                 _act(sd, f"{out}.activations.{a}", blk[f"act_{a}"])
     return sd
 

@@ -27,6 +27,13 @@ constexpr int THREADS = 256;
 constexpr int XH = 8;  // input halo per side (the chain reaches 5)
 constexpr int VH = 3;  // half-rate snake halo per side
 
+// What the kernel computes: FULL is K1; the others are K1 with parts removed,
+// for the ablation probe (probes/act_variants.py): COPY loads the tile and
+// stores its centre, NO_SNAKE runs both FIRs around an identity, NO_FIR
+// applies snake to the input with no filters.
+enum Variant { FULL = 0, COPY = 1, NO_SNAKE = 2, NO_FIR = 3 };
+
+template <int V>
 __global__ void __launch_bounds__(THREADS)
 anti_alias_kernel(const void* __restrict__ x, void* __restrict__ y,
                   const float* __restrict__ alpha, const float* __restrict__ beta,
@@ -55,9 +62,29 @@ anti_alias_kernel(const void* __restrict__ x, void* __restrict__ y,
   }
   __syncthreads();
 
+  if (V == COPY || V == NO_FIR) {
+    for (int i = threadIdx.x; i < TILE && t0 + i < T; i += THREADS) {
+      const float v = xs[XH + i];
+      dmel::store_f(y, off + t0 + i, V == COPY ? v : dmel::snake(v, a, inv_beta), bf16);
+    }
+    return;
+  }
+
   for (int i = threadIdx.x; i < TILE + 2 * VH; i += THREADS) {
     float e, o;
-    dmel::snake_phases(xs, xbase, t0 - VH + i, T, taps, a, inv_beta, e, o);
+    if (V == FULL) {
+      dmel::snake_phases(xs, xbase, t0 - VH + i, T, taps, a, inv_beta, e, o);
+    } else {  // NO_SNAKE: the same phases and edge rule around an identity
+      const int s = t0 - VH + i;
+      if (s < 0) {
+        e = o = dmel::up_even(xs, xbase, 0, taps);
+      } else if (s >= T) {
+        e = o = dmel::up_odd(xs, xbase, T - 1, taps);
+      } else {
+        e = dmel::up_even(xs, xbase, s, taps);
+        o = dmel::up_odd(xs, xbase, s, taps);
+      }
+    }
     ve[i] = e;
     vo[i] = o;
   }
@@ -66,6 +93,18 @@ anti_alias_kernel(const void* __restrict__ x, void* __restrict__ y,
   for (int i = threadIdx.x; i < TILE && t0 + i < T; i += THREADS) {
     dmel::store_f(y, off + t0 + i, dmel::down(ve + i, vo + i, taps), bf16);
   }
+}
+
+template <int V>
+int launch(const void* x, void* y, const float* alpha, const float* beta, int logscale,
+           int B, int C, int T, int bf16, const float* taps, void* stream) {
+  dmel::Taps tp;
+  for (int i = 0; i < 12; ++i) tp.f[i] = taps[i];
+  const dim3 grid(static_cast<unsigned>(B) * static_cast<unsigned>(C),
+                  static_cast<unsigned>((T + TILE - 1) / TILE));
+  anti_alias_kernel<V><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, y, alpha, beta, logscale, C, T, bf16, tp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -80,11 +119,20 @@ extern "C" const char* dmel_error_string(int code) {
 extern "C" int dmel_anti_alias(const void* x, void* y, const float* alpha,
                                const float* beta, int logscale, int B, int C, int T,
                                int bf16, const float* taps, void* stream) {
-  dmel::Taps tp;
-  for (int i = 0; i < 12; ++i) tp.f[i] = taps[i];
-  const dim3 grid(static_cast<unsigned>(B) * static_cast<unsigned>(C),
-                  static_cast<unsigned>((T + TILE - 1) / TILE));
-  anti_alias_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, y, alpha, beta, logscale, C, T, bf16, tp);
-  return static_cast<int>(cudaGetLastError());
+  return launch<FULL>(x, y, alpha, beta, logscale, B, C, T, bf16, taps, stream);
+}
+
+// The ablation probe's entry: the same launch with parts of the kernel
+// removed. variant: 0 full, 1 copy, 2 no_snake, 3 no_fir.
+extern "C" int dmel_anti_alias_variant(const void* x, void* y, const float* alpha,
+                                       const float* beta, int logscale, int B, int C,
+                                       int T, int bf16, const float* taps, int variant,
+                                       void* stream) {
+  switch (variant) {
+    case FULL: return launch<FULL>(x, y, alpha, beta, logscale, B, C, T, bf16, taps, stream);
+    case COPY: return launch<COPY>(x, y, alpha, beta, logscale, B, C, T, bf16, taps, stream);
+    case NO_SNAKE: return launch<NO_SNAKE>(x, y, alpha, beta, logscale, B, C, T, bf16, taps, stream);
+    case NO_FIR: return launch<NO_FIR>(x, y, alpha, beta, logscale, B, C, T, bf16, taps, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,11 +1,13 @@
 """BigVGAN vocoder, mel -> waveform (port of `dmel_codec_tpu/models/bigvgan.py`).
 
 conv_pre (k7) -> N x [weight-norm transposed-conv upsample -> averaged
-parallel AMPBlock1 resblocks] -> anti-aliased snake -> conv_post (k7) ->
+parallel AMP resblocks] -> anti-aliased snake -> conv_post (k7) ->
 clamp (or tanh). Module names are the reference generator's (conv_pre,
-ups.{i}.0, resblocks.{n}.convs1/convs2/activations.{a}.act, activation_post,
-conv_post), so `bigvgan_generator.pt` state_dict keys line up. The
-reference's filter buffers are module constants here (ops/anti_alias.FILT).
+ups.{i}.0, resblocks.{n}.convs1/convs2 (AMPBlock1) or .convs (AMPBlock2),
+.activations.{a}.act, activation_post, conv_post), so
+`bigvgan_generator.pt` state_dict keys line up (`load_torch_checkpoint`,
+`from_pretrained`). The reference's filter buffers are module constants
+here (ops/anti_alias.FILT) and are dropped on load.
 
 Two forwards on the same weights:
   * `BigVGAN.forward` — the module form; every activation goes through
@@ -13,13 +15,17 @@ Two forwards on the same weights:
   * `FusedBigVGAN` — the serving form (the JAX `bigvgan_apply_fused`):
     weight norm materialised once, and every stage with
     C <= fuse_max_channels runs its three resblocks as one fused stage
-    (ops/stage_fused, kernel K2).
+    (ops/stage_fused: kernel K2, or K2-v1 with `use_v2=False` where it
+    holds the stage).
 Input mel [B, T, num_mels], output waveform [B, T * prod(upsample_rates)].
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -29,24 +35,34 @@ import torch.nn.functional as F
 from dmel_codec_tpu_torch.nn.snake import SnakeBeta
 from dmel_codec_tpu_torch.nn.weight_norm import WNConv1d, WNConvTranspose1d
 from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation
-from dmel_codec_tpu_torch.ops.stage_fused import StageSpec, amp_stage, pack_stage
+from dmel_codec_tpu_torch.ops.stage_fused import (
+    V1_MAX_CHANNELS,
+    StageSpec,
+    amp_stage,
+    amp_stage_v1,
+    pack_stage,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class BigVGANConfig:
-    """Defaults = the bigvgan_v2_24khz_100band_256x generator. Only the
-    AMPBlock1 resblock is ported."""
+    """Defaults = the bigvgan_v2_24khz_100band_256x generator."""
 
     num_mels: int = 100
     upsample_rates: Tuple[int, ...] = (4, 4, 2, 2, 2, 2)
     upsample_kernel_sizes: Tuple[int, ...] = (8, 8, 4, 4, 4, 4)
     upsample_initial_channel: int = 1536
+    resblock: str = "1"  # "1": AMPBlock1, "2": AMPBlock2
     resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11)
     resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
     activation: str = "snakebeta"
     snake_logscale: bool = True
     use_bias_at_final: bool = False
     use_tanh_at_final: bool = False
+
+    @property
+    def hop_total(self) -> int:
+        return math.prod(self.upsample_rates)
 
     @property
     def num_kernels(self) -> int:
@@ -102,12 +118,35 @@ class AMPBlock1(nn.Module):
         return x
 
 
+class AMPBlock2(nn.Module):
+    """One dilated conv per anti-aliased snake."""
+
+    def __init__(self, channels: int, kernel_size: int, dilation: Sequence[int], activation: str, logscale: bool):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            WNConv1d(channels, channels, kernel_size, d, _get_padding(kernel_size, d))
+            for d in dilation
+        )
+        self.activations = nn.ModuleList(
+            AliasFreeActivation(channels, activation, logscale) for _ in dilation
+        )
+
+    def forward(self, x: torch.Tensor, weights: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """weights: the convs' materialised weights; computed from (v, g) when absent."""
+        for j, conv in enumerate(self.convs):
+            w = conv.weight() if weights is None else weights[j]
+            xt = F.conv1d(self.activations[j](x), w, conv.bias, padding=conv.padding, dilation=conv.dilation)
+            x = x + xt
+        return x
+
+
 class BigVGAN(nn.Module):
     """mel [B, T, num_mels] -> waveform [B, T * prod(upsample_rates)]."""
 
     def __init__(self, config: BigVGANConfig = BigVGANConfig()):
         super().__init__()
         cfg = self.config = config
+        block_cls = {"1": AMPBlock1, "2": AMPBlock2}[cfg.resblock]
         ch0 = cfg.upsample_initial_channel
         self.conv_pre = WNConv1d(cfg.num_mels, ch0, 7, padding=3)
         self.ups = nn.ModuleList()
@@ -116,12 +155,12 @@ class BigVGAN(nn.Module):
             ch = cfg.stage_channels(i)
             self.ups.append(nn.ModuleList([WNConvTranspose1d(2 * ch, ch, k, u, (k - u) // 2)]))
             for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
-                self.resblocks.append(AMPBlock1(ch, rk, rd, cfg.activation, cfg.snake_logscale))
+                self.resblocks.append(block_cls(ch, rk, rd, cfg.activation, cfg.snake_logscale))
         ch = cfg.stage_channels(len(cfg.upsample_rates) - 1)
         self.activation_post = AliasFreeActivation(ch, cfg.activation, cfg.snake_logscale)
         self.conv_post = WNConv1d(ch, 1, 7, padding=3, bias=cfg.use_bias_at_final)
 
-    def stage_blocks(self, i: int) -> Sequence[AMPBlock1]:
+    def stage_blocks(self, i: int) -> Sequence[nn.Module]:
         nk = self.config.num_kernels
         return self.resblocks[i * nk : (i + 1) * nk]
 
@@ -140,27 +179,40 @@ class BigVGAN(nn.Module):
         return self._finish(x)
 
 
+def _block_convs(block: nn.Module) -> Sequence[WNConv1d]:
+    """A resblock's convs in the order its forward takes their weights."""
+    if isinstance(block, AMPBlock2):
+        return list(block.convs)
+    return [conv for pair in zip(block.convs1, block.convs2) for conv in pair]
+
+
 class FusedBigVGAN:
     """Serving forward of a BigVGAN (port of `bigvgan_apply_fused`).
 
     Built once per weight set: every conv's weight norm is materialised, and
-    each stage with C <= fuse_max_channels is packed for the fused stage
-    op (weights in the model's dtype). Same function as `BigVGAN.forward`.
+    each AMPBlock1 stage with C <= fuse_max_channels is packed for the fused
+    stage op (weights in the model's dtype). Same function as
+    `BigVGAN.forward`. `routes` says, stage by stage, what runs the resblock
+    group: "block" (per block, activations through K1), "K2", or "K2-v1"
+    (`use_v2=False`, for fused stages of at most V1_MAX_CHANNELS channels;
+    wider fused stages stay on K2). The routes are fixed here and no run
+    changes them.
     """
 
     @torch.no_grad()
-    def __init__(self, model: BigVGAN, fuse_max_channels: int = 192):
+    def __init__(self, model: BigVGAN, fuse_max_channels: int = 192, use_v2: bool = True):
         self.model = model
-        cfg = model.config
+        cfg = self.config = model.config
         dtype = model.conv_pre.weight_v.dtype
         self.conv_pre = model.conv_pre.weight()
         self.conv_post = model.conv_post.weight()
         self.ups = [up[0].weight() for up in model.ups]
+        self.routes = []
         self.stages = []  # per stage: (spec, packed) fused, or (None, weights) per-block
         for i in range(len(cfg.upsample_rates)):
             ch = cfg.stage_channels(i)
             blocks = model.stage_blocks(i)
-            if ch <= fuse_max_channels:
+            if cfg.resblock == "1" and ch <= fuse_max_channels:
                 spec = StageSpec(
                     channels=ch,
                     kernel_sizes=tuple(cfg.resblock_kernel_sizes),
@@ -171,12 +223,19 @@ class FusedBigVGAN:
                 packed = pack_stage(blocks, spec)
                 packed["w"] = [w.to(dtype) for w in packed["w"]]
                 self.stages.append((spec, packed))
+                self.routes.append("K2" if use_v2 or ch > V1_MAX_CHANNELS else "K2-v1")
             else:
-                weights = [
-                    [conv.weight() for pair in zip(b.convs1, b.convs2) for conv in pair]
-                    for b in blocks
-                ]
+                weights = [[conv.weight() for conv in _block_convs(b)] for b in blocks]
                 self.stages.append((None, weights))
+                self.routes.append("block")
+
+    @property
+    def device(self) -> torch.device:
+        return self.conv_pre.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.conv_pre.dtype
 
     @torch.no_grad()
     def pre(self, mel: torch.Tensor) -> torch.Tensor:
@@ -190,7 +249,8 @@ class FusedBigVGAN:
         x = F.conv_transpose1d(x, self.ups[i], up.bias, stride=up.stride, padding=up.padding)
         spec, arg = self.stages[i]
         if spec is not None:
-            return amp_stage(x, arg, spec)
+            stage_fn = amp_stage_v1 if self.routes[i] == "K2-v1" else amp_stage
+            return stage_fn(x, arg, spec)
         blocks = self.model.stage_blocks(i)
         return sum(b(x, w) for b, w in zip(blocks, arg)) / len(blocks)
 
@@ -206,3 +266,60 @@ class FusedBigVGAN:
             x = self.stage(i, x)
         return self.post(x)
 
+
+# ---- the reference's checkpoint format ---------------------------------------
+
+# Persistent buffers of the reference's Activation1d; constants here.
+_FILTER_BUFFERS = (".upsample.filter", ".downsample.lowpass.filter")
+
+
+def _module_state_dict(sd: dict) -> dict:
+    """A reference generator state_dict in this module's names: the filter
+    buffers dropped, and weight norm's parametrization keys
+    (`parametrizations.weight.original0/1` = g / v) as `weight_g` / `weight_v`."""
+    out = {}
+    for key, value in sd.items():
+        if key.endswith(_FILTER_BUFFERS):
+            continue
+        key = key.replace(".parametrizations.weight.original0", ".weight_g")
+        key = key.replace(".parametrizations.weight.original1", ".weight_v")
+        out[key] = value
+    return out
+
+
+def load_torch_checkpoint(path: str, config: BigVGANConfig) -> BigVGAN:
+    """A `bigvgan_generator.pt` file (`{"generator": state_dict}` or a bare
+    state_dict) -> BigVGAN in the checkpoint's dtype, on the CPU, in eval
+    mode. Apart from the filter buffers the keys must match exactly."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = _module_state_dict(ckpt.get("generator", ckpt))
+    model = BigVGAN(config)
+    model.to(next(v.dtype for v in sd.values() if v.is_floating_point()))
+    model.load_state_dict(sd, strict=True)
+    return model.eval()
+
+
+def from_pretrained(model_dir: str) -> BigVGAN:
+    """A BigVGAN release from a local directory holding `config.json` and
+    `bigvgan_generator.pt`. A hub id is not resolved: nothing is downloaded."""
+    if not os.path.isdir(model_dir):
+        raise FileNotFoundError(
+            f"{model_dir!r} is not a directory; from_pretrained loads a local directory with "
+            "config.json and bigvgan_generator.pt and does not download hub ids"
+        )
+    with open(os.path.join(model_dir, "config.json")) as f:
+        h = json.load(f)
+    config = BigVGANConfig(
+        num_mels=h["num_mels"],
+        upsample_rates=tuple(h["upsample_rates"]),
+        upsample_kernel_sizes=tuple(h["upsample_kernel_sizes"]),
+        upsample_initial_channel=h["upsample_initial_channel"],
+        resblock=str(h["resblock"]),
+        resblock_kernel_sizes=tuple(h["resblock_kernel_sizes"]),
+        resblock_dilation_sizes=tuple(tuple(d) for d in h["resblock_dilation_sizes"]),
+        activation=h["activation"],
+        snake_logscale=bool(h["snake_logscale"]),
+        use_bias_at_final=bool(h.get("use_bias_at_final", True)),
+        use_tanh_at_final=bool(h.get("use_tanh_at_final", True)),
+    )
+    return load_torch_checkpoint(os.path.join(model_dir, "bigvgan_generator.pt"), config)

@@ -38,6 +38,12 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _P, _P,
     ],
     "dmel_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "dmel_anti_alias_variant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "dmel_stage_v1": [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
+    ],
+    "dmel_stage_v1_scratch_floats": [],
+    "dmel_stage_v1_smem_bytes": [],
 }
 
 

@@ -142,8 +142,9 @@ def test_slice_end_to_end(models, jax_codec):
 
 
 def test_port_runs_without_jax():
-    """Every port module imports, and the small codec slice and an LM
-    generation run, with jax and flax blocked."""
+    """Every port module imports, and the small codec slice, a chunked
+    vocode, a probe variant and an LM generation run, with jax and flax
+    blocked."""
     root = Path(__file__).resolve().parents[1]
     script = textwrap.dedent(
         """
@@ -170,6 +171,14 @@ def test_port_runs_without_jax():
             mel = codec.decode(idx, ilen, generator=torch.Generator().manual_seed(0))
             wav = FusedBigVGAN(voc, fuse_max_channels=8)(mel)
         assert idx.shape == (2, 2, 8) and wav.shape == (2, 128) and torch.isfinite(wav).all()
+        from dmel_codec_tpu_torch.cli import stream_codec
+        from dmel_codec_tpu_torch.models import streaming
+        from dmel_codec_tpu_torch.probes import act_variants
+        fused_v1 = FusedBigVGAN(voc, fuse_max_channels=8, use_v2=False)
+        chunked = streaming.chunked_vocode(fused_v1, mel.numpy(), chunk_frames=8, halo_frames=8)
+        assert fused_v1.routes == ["block", "K2-v1"] and chunked.shape == (2, 128)
+        assert act_variants.run_variant(mel, torch.zeros(32), None, "no_fir").shape == mel.shape
+        assert callable(stream_codec.main)
         import numpy as np
         from dmel_codec_tpu_torch.lm.generate import InferenceConfig, SlowFastGenerator
         from dmel_codec_tpu_torch.lm.inputs import TokenGridBuilder
