@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths once on one CUDA card: the codec
-(log-mel -> dMel tokens -> BigVGAN), the slow-fast LM in front of it, and
-the codec on long audio, window by window.
+"""Drive the PyTorch port's serving and training paths once on one CUDA card:
+the codec (log-mel -> dMel tokens -> BigVGAN), the slow-fast LM in front of
+it, the codec on long audio, window by window, and LM training.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
 
@@ -28,7 +28,7 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      12 x 480, vocabulary 151936; seeded random bf16 weights) on a batch of
      2 x 2048 grid positions: FA launch count, finite losses, logits with
      the flash kernel on against off, both timed;
-  9. LM serving through the entry point: `cli.infer_lm.main` on state_dicts
+  9. LM serving through the entry point: `cli.infer_lm.main` on checkpoints
      written to a temporary directory, text prompt -> 128 frames -> codec
      decode -> vocoder -> WAV, with output checks and K1 / K2 launch
      counts; then `generate` (B = 1) and `generate_batched` (B = 16) timed,
@@ -53,7 +53,27 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      vocode, and `cli.stream_codec.main` on a WAV written here;
  14. the K1 ablation probe: each variant against its plain version, and
      the probe's own table of times;
- 15. every kernel's bound on this card.
+ 15. every kernel's bound on this card;
+ 16. FA's backward kernels (FA-dKV, FA-dQ) against their plain versions at
+     the slow decoder's head layout (B = 2 x S = 2048 and the trainer's
+     2 x 1024), ragged lengths, the fast decoder's head size and head size
+     128, float32 and bfloat16; two runs bit-equal; the forward's
+     log-sum-exp against the plain scores';
+ 17. LM training at full width through the trainer (float32 parameters,
+     flash attention on, B = 2 x S = 1024 token-grid batches,
+     accumulate_grad = 2, 4 micro-steps = 2 updates): launch counts of FA,
+     FA-dKV and FA-dQ per micro-step, the loss and the first micro-step's
+     gradients with the kernels on against `flash_attention=False`,
+     parameters changing only on update steps, a LoRA step leaving the base
+     untouched; then ms per micro-step, peak memory and tokens/s with the
+     kernels (and a torch.profiler breakdown of one accumulation cycle), without
+     them and with `remat`, and at 2 x 2048 with and without `remat`;
+ 18. LM training through the entry point: `cli.train_lm.main` on 8 synthetic
+     WAVs with a small LM (the flagship codec tokenizes), checkpoints, a
+     resumed run, then `cli.infer_lm.main` on the result;
+ 19. FA-dKV and FA-dQ timed beside their plain versions and the backward of
+     PyTorch's scaled_dot_product_attention (a yardstick only), and their
+     bounds.
 The comparison phases run with TF32 off for cuBLAS and cuDNN. The
 line before the last is one JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.
@@ -82,10 +102,12 @@ DEVICE = "cuda:0"
 K1_SOURCE = "dmel_codec_tpu_torch/csrc/anti_alias.cu"
 K2_SOURCE = "dmel_codec_tpu_torch/csrc/stage_fused.cu"
 FA_SOURCE = "dmel_codec_tpu_torch/csrc/flash_attention.cu"
+FA_BWD_SOURCE = "dmel_codec_tpu_torch/csrc/flash_attention_bwd.cu"
 V1_SOURCE = "dmel_codec_tpu_torch/csrc/stage_fused_v1.cu"
 LONG_MINUTES, CHAIN_SECONDS, CLI_SECONDS, EXACT_SECONDS = 10, 60, 20, 8
 VOCODE_CHUNK, VOCODE_HALO = 480, 40
 LM_BATCH, LM_SEQ, LM_FRAMES, SERVE_BATCH = 2, 2048, 128, 16
+TRAIN_SEQ, TRAIN_ACCUMULATE, TRAIN_MICRO_STEPS = 1024, 2, 4
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data
 # sheet): bf16 tensor cores, float32 outside them, HBM3.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -155,6 +177,12 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
 #  FA bf16: both sides compute in float32 from the same bf16 inputs and
 #    round once; a result next to a rounding boundary may round the other
 #    way: one bf16 ulp, 2^-7.
+#  FA-dKV / FA-dQ f32: both sides float32 and the same recomputation from
+#    the same L and D; sums of up to ~2000 x 7 terms in another order:
+#    2e-5 (of max(1, max |grad|)).
+#  FA-dKV / FA-dQ bf16: both sides compute in float32 from the same bf16
+#    inputs and round once; a gradient is a sum over up to 14,000 products,
+#    so a result may land two roundings away: two bf16 ulps, 2^-6.
 #  LM logits, flash on vs off, bf16: the einsum path rounds scores and
 #    probabilities to bf16 (2^-8 relative each) in each of 24 layers where
 #    FA keeps them float32; the differences add up along the residual
@@ -163,7 +191,13 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
 TOL = {("K1", torch.float32): 1e-6, ("K1", torch.bfloat16): 2.0**-7,
        ("K2", torch.float32): 2e-5, ("K2", torch.bfloat16): 5e-2,
        ("K2-v1", torch.float32): 2e-5, ("K2-v1", torch.bfloat16): 2.0**-6,
-       ("FA", torch.float32): 2e-5, ("FA", torch.bfloat16): 2.0**-7}
+       ("FA", torch.float32): 2e-5, ("FA", torch.bfloat16): 2.0**-7,
+       ("FA-bwd", torch.float32): 2e-5, ("FA-bwd", torch.bfloat16): 2.0**-6}
+# LM training, kernels on vs `flash_attention=False`, float32: the loss is a
+# mean over ~20,000 positions of values that agree to ~1e-6: 1e-4 relative.
+# A parameter's gradient sums such differences over 2048 positions and up to
+# 36 layers: 1e-3 of the tensor's largest gradient.
+TOL_TRAIN_LOSS, TOL_TRAIN_GRAD = 1e-4, 1e-3
 TOL_LM_MAX, TOL_LM_MEAN = 1.2e-1, 1e-2
 TOL_CHUNKED_DECODE, TOL_CHUNKED_STAGE, TOL_CHUNKED_WAVE = 1e-5, 2e-5, 2e-5
 
@@ -299,12 +333,13 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from dmel_codec_tpu_torch.cli import infer_lm, stream_codec
+    from dmel_codec_tpu_torch.cli import infer_lm, stream_codec, train_lm
     from dmel_codec_tpu_torch.dsp.spectrogram import LogMelSpectrogram
     from dmel_codec_tpu_torch.lm.generate import InferenceConfig, SlowFastGenerator
     from dmel_codec_tpu_torch.lm.inputs import TokenGridBuilder, pad_grids_to_batch
     from dmel_codec_tpu_torch.lm.tokenizer import ByteTokenizer
     from dmel_codec_tpu_torch.models.lm import ChatMusicLM, SlowFastLMConfig
+    from dmel_codec_tpu_torch.ops import flash_attention as fa_ops
     from dmel_codec_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
     from dmel_codec_tpu_torch.models.bigvgan import AMPBlock1, BigVGAN, BigVGANConfig, FusedBigVGAN
     from dmel_codec_tpu_torch.models.codec import DMelCodec, DMelCodecConfig
@@ -315,6 +350,9 @@ def main() -> None:
         V1_MAX_CHANNELS, StageSpec, amp_stage, amp_stage_v1, pack_stage, stage_reference, stage_reference_v1,
     )
     from dmel_codec_tpu_torch.probes import act_variants
+    from dmel_codec_tpu_torch.train.checkpoint import CheckpointManager
+    from dmel_codec_tpu_torch.train.lm_trainer import LMTrainConfig, LMTrainer
+    from dmel_codec_tpu_torch.train.lora import LoRAConfig
     from dmel_codec_tpu_torch.utils.precision import strict_float32
 
     dev = torch.device(DEVICE)
@@ -609,9 +647,8 @@ def main() -> None:
     seed = 3
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for name, module in (("lm", lm), ("codec", codec)):
-            (tmp / name).mkdir()
-            torch.save(module.state_dict(), tmp / name / "model.pt")
+        CheckpointManager(str(tmp / "lm")).save(0, {"step": 0, "params": lm.state_dict()})
+        CheckpointManager(str(tmp / "codec")).save(0, {"gen_params": codec.state_dict()})
         torch.save({"generator": voc16.state_dict()}, tmp / "vocoder.pt")
         (tmp / "infer.yaml").write_text(
             f"lm_ckpt_dir: {tmp / 'lm'}\ncodec_ckpt_dir: {tmp / 'codec'}\nvocoder_ckpt: {tmp / 'vocoder.pt'}\n"
@@ -991,6 +1028,330 @@ def main() -> None:
         bounds[name] = (bound[by], by)
         log(f"  {name} bound: {bound['bytes']:.4f} ms by bytes, {bound['operations']:.4f} ms by operations")
 
+    # ---- 16. FA-dKV and FA-dQ vs plain
+    log("FA backward kernels (FA-dKV, FA-dQ) vs plain:")
+    trainer_shape = (LM_BATCH, TRAIN_SEQ, heads, kv_heads, hd)
+    bwd_cases = [(LM_BATCH, LM_SEQ, heads, kv_heads, hd), trainer_shape, (2, 1, heads, kv_heads, hd),
+                 (3, 37, heads, kv_heads, hd), (2, 700, heads, kv_heads, hd), (1, 1000, heads, kv_heads, hd),
+                 (2, 700, 10, 2, 48), (1, 300, 4, 2, 128)]
+    errs["FA-dKV"] = errs["FA-dQ"] = 0.0
+    counters_fa = {"FA": flash_attention, "FA-dKV": fa_ops.flash_attention_dkv, "FA-dQ": fa_ops.flash_attention_dq}
+    for b, sq, h, kh, d in bwd_cases:
+        q32, k32, v32 = (torch.randn((b, sq, n, d), device=dev, generator=gen) for n in (h, kh, kh))
+        g32 = torch.randn((b, sq, h, d), device=dev, generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, g = (t.to(dt, copy=True).requires_grad_() for t in (q32, k32, v32, g32))
+            for fn in counters_fa.values():
+                fn.launches = 0
+            out = flash_attention(q, k, v)  # under autograd: the forward stores L
+            got = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+            again = torch.autograd.grad(out, (q, k, v), g)
+            torch.cuda.synchronize()
+            assert {n_: fn.launches for n_, fn in counters_fa.items()} == {"FA": 1, "FA-dKV": 2, "FA-dQ": 2}
+            q, k, v, g = (t.detach() for t in (q, k, v, g))
+            out_k, lse = fa_ops._launch(q, k, v, with_lse=True)
+            out_p, lse_p = fa_ops.flash_attention_forward_reference(q, k, v)
+            tag = f"q {[b, sq, h, d]} kv heads {kh} {dt}"
+            assert torch.equal(out_k, out.detach())  # the L store changes no bit of the output
+            e_out = check_close(f"out (with the L store) {tag}", out_k, out_p, TOL[("FA", dt)])
+            check_close(f"L {[b, h, sq]} hd {d} {dt}", lse, lse_p, TOL[("FA", torch.float32)])
+            # the plain backward takes the plain forward's out and L, so
+            # nothing of the kernels enters the numbers they are held against
+            dk_p, dv_p = fa_ops.flash_attention_dkv_reference(q, k, v, out_p, lse_p, g)
+            dq_p = fa_ops.flash_attention_dq_reference(q, k, v, out_p, lse_p, g)
+            e_q = check_close(f"dq {tag}", got[0], dq_p, TOL[("FA-bwd", dt)])
+            e_kv = max(check_close(f"dk {tag}", got[1], dk_p, TOL[("FA-bwd", dt)]),
+                       check_close(f"dv {tag}", got[2], dv_p, TOL[("FA-bwd", dt)]))
+            if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+                raise AssertionError(f"{tag}: two runs of the backward kernels differ")
+            if dt == torch.float32:
+                errs["FA-dQ"], errs["FA-dKV"] = max(errs["FA-dQ"], e_q), max(errs["FA-dKV"], e_kv)
+                errs["FA"] = max(errs["FA"], e_out)
+            del got, again, out, out_k, out_p, lse, lse_p, dk_p, dv_p, dq_p
+    log("  two runs of FA-dKV and FA-dQ gave the same bits in every case")
+    # an independent derivation: autograd through the plain forward (softmax
+    # backward), at the trainer's shape and a ragged one
+    for b, sq in ((LM_BATCH, TRAIN_SEQ), (2, 700)):
+        q, k, v, g = (torch.randn((b, sq, n, hd), device=dev, generator=gen)
+                      for n in (heads, kv_heads, kv_heads, heads))
+        ins = [t.requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(flash_attention(*ins), ins, g)
+        want = torch.autograd.grad(flash_attention_reference(*ins), ins, g)
+        for name, a_, w_ in zip(("dq", "dk", "dv"), got, want):
+            check_close(f"{name} vs autograd of the plain forward, {[b, sq, heads, hd]} float32", a_, w_,
+                        TOL[("FA-bwd", torch.float32)])
+        del q, k, v, g, ins, got, want
+
+    # ---- 17. LM training at full width
+    log(f"LM training: LMTrainer at full width, float32 parameters, flash attention on, "
+        f"B = {LM_BATCH} x S = {TRAIN_SEQ}, accumulate_grad = {TRAIN_ACCUMULATE}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_cfg = LMTrainConfig(accumulate_grad=TRAIN_ACCUMULATE, num_warmup_steps=0)
+    flash_cfg = dataclasses.replace(lm_cfg, text_weight=0.01,
+                                    slow=dataclasses.replace(lm_cfg.slow, flash_attention=True))
+    trainer = LMTrainer(flash_cfg, train_cfg, device=dev)
+    state = trainer.init_state(0)
+    n_train = sum(p.numel() for p in state.params.values())
+    assert n_train == n_params and all(p.dtype == torch.float32 and p.is_cuda for p in state.params.values())
+
+    def decoder_options(**changes) -> None:
+        """Switch options of the trainer's decoders (both for `remat`, the slow one for flash)."""
+        from dmel_codec_tpu_torch.models.transformer import Attention, Decoder
+
+        decoders = [trainer.model.slow_decoder] + ([trainer.model.fast_decoder] if "remat" in changes else [])
+        for decoder in decoders:
+            for m in decoder.modules():
+                if isinstance(m, (Attention, Decoder)):
+                    m.config = dataclasses.replace(m.config, **changes)
+
+    def token_batches(seq: int, n: int, seed: int):
+        rng_ = np.random.default_rng(seed)
+        out = []
+        for _ in range(n):
+            grids_ = [gridder.build_train_grid(rng_.integers(0, 151643, size=lt), rng_.integers(0, 175, size=(la, 10)))
+                      for lt, la in ((34, seq - 48), (20, seq - 148))]
+            out.append(trainer.device_batch(pad_grids_to_batch(grids_, lm_cfg, pad_to=seq)))
+        return out
+
+    train_batches = token_batches(TRAIN_SEQ, 2, seed=4)
+    assert train_batches[0]["text_tokens"].shape == (LM_BATCH, TRAIN_SEQ)
+    names = list(state.params)
+    n_layers = lm_cfg.slow.num_layers
+
+    def reset_counts():
+        for fn in counters_fa.values():
+            fn.launches = 0
+
+    def counts():
+        return {n_: fn.launches for n_, fn in counters_fa.items()}
+
+    # the first micro-step's loss and gradients, kernels on against flash_attention=False
+    reset_counts()
+    (loss_on, _), grads_on = trainer.loss_fn(state.params, train_batches[0], wrt=list(state.params.values()))
+    torch.cuda.synchronize()
+    assert counts() == {"FA": n_layers, "FA-dKV": n_layers, "FA-dQ": n_layers}, counts()
+    decoder_options(flash_attention=False)
+    (loss_off, _), grads_off = trainer.loss_fn(state.params, train_batches[0], wrt=list(state.params.values()))
+    torch.cuda.synchronize()
+    assert counts() == {"FA": n_layers, "FA-dKV": n_layers, "FA-dQ": n_layers}  # the einsum path launches none
+    decoder_options(flash_attention=True)
+    loss_on, loss_off = loss_on.item(), loss_off.item()
+    log(f"  loss, kernels on {loss_on:.6f} vs flash_attention=False {loss_off:.6f} "
+        f"(tol {TOL_TRAIN_LOSS:.0e} relative)")
+    assert math.isfinite(loss_on) and abs(loss_on - loss_off) <= TOL_TRAIN_LOSS * abs(loss_off)
+    worst = ("", 0.0)
+    for name, g_on, g_off in zip(names, grads_on, grads_off):
+        rel = max_err(g_on, g_off) / max(g_off.abs().max().item(), 1e-30)
+        if rel > worst[1]:
+            worst = (name, rel)
+    log(f"  gradients of {len(names)} tensors, kernels on vs off: worst max error relative to the tensor's "
+        f"largest gradient {worst[1]:.3e} at {worst[0]} (tol {TOL_TRAIN_GRAD:.0e})")
+    assert worst[1] <= TOL_TRAIN_GRAD, worst
+    del grads_on, grads_off
+
+    # 4 micro-steps = 2 updates through train_step
+    snapshot = {n_: p.detach().clone() for n_, p in state.params.items()}
+    reset_counts()
+    for i in range(TRAIN_MICRO_STEPS):
+        state, metrics = trainer.train_step(state, train_batches[i % 2])
+        torch.cuda.synchronize()
+        seen = counts()
+        want_n = (i + 1) * n_layers
+        assert seen == {"FA": want_n, "FA-dKV": want_n, "FA-dQ": want_n}, (i, seen)
+        vals = {k_: float(v_) for k_, v_ in metrics.items()}
+        assert all(math.isfinite(x) for x in vals.values()), vals
+        changed = sum(not torch.equal(snapshot[n_], p) for n_, p in state.params.items())
+        is_update = (i + 1) % TRAIN_ACCUMULATE == 0
+        log(f"  micro-step {i + 1}: loss {vals['train/loss']:.4f} (text {vals['train/text_loss']:.4f}, audio "
+            f"{vals['train/audio_loss']:.4f}), grad norm {vals['train/grad_norm']:.4f}, lr {vals['train/lr']:.2e}, "
+            f"top-1 {vals['train/audio_top1_acc']:.4f}; {changed} of {len(names)} tensors changed "
+            f"({'an update' if is_update else 'no update'} step)")
+        assert changed == (len(names) if is_update else 0), (i, changed)
+        if is_update:
+            snapshot = {n_: p.detach().clone() for n_, p in state.params.items()}
+        if i == 0:
+            assert abs(vals["train/loss"] - loss_on) <= 1e-5 * abs(loss_on)
+    launches.update({"FA-dKV": seen["FA-dKV"], "FA-dQ": seen["FA-dQ"], "FA train": seen["FA"]})
+    log(f"  launches over {TRAIN_MICRO_STEPS} micro-steps: {seen} ({n_layers} each per micro-step)")
+    assert state.step == TRAIN_MICRO_STEPS and state.opt_state.gradient_step == TRAIN_MICRO_STEPS // TRAIN_ACCUMULATE
+
+    # a LoRA update changes no base parameter
+    lora_state = trainer.init_lora_state(1, LoRAConfig(), base_params=state.params)
+    for i in range(TRAIN_ACCUMULATE):
+        lora_state, metrics = trainer.lora_train_step(lora_state, train_batches[i % 2])
+    torch.cuda.synchronize()
+    base_changed = sum(not torch.equal(snapshot[n_], p) for n_, p in state.params.items())
+    moved = sum(bool(ab["b"].abs().sum() > 0) for ab in lora_state.lora.values())
+    log(f"  LoRA, {TRAIN_ACCUMULATE} micro-steps = 1 update: loss {float(metrics['train/loss']):.4f}, "
+        f"{moved} of {len(lora_state.lora)} adapters moved, {base_changed} base tensors changed")
+    assert base_changed == 0 and moved == len(lora_state.lora) and lora_state.opt_state.gradient_step == 1
+    del lora_state, snapshot
+
+    def time_micro_steps(batches_, what: str, fa_per_step: int):
+        """ms per micro-step (CUDA events around each of 6 micro-steps; the
+        mean of the last 4, which are two whole accumulation cycles: an
+        update step costs an AdamW pass more than the one before it), the
+        run's peak device memory, tokens/s."""
+        assert state.step % TRAIN_ACCUMULATE == 0  # every variant starts on a cycle's first micro-step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        events = []
+        for i in range(6):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            trainer.train_step(state, batches_[i % 2])
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        times = [s_.elapsed_time(e_) for s_, e_ in events[2:]]
+        step_ms = sum(times) / len(times)
+        tokens = batches_[0]["text_tokens"].numel()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        assert counts()["FA"] == 6 * fa_per_step and counts()["FA-dKV"] == counts()["FA-dQ"] == 6 * min(fa_per_step, n_layers)
+        log(f"  {what}: {step_ms:.2f} ms per micro-step (last 4: {', '.join(f'{t_:.2f}' for t_ in times)}; every "
+            f"second one updates), {tokens / step_ms * 1e3:.0f} tokens/s, peak device memory {peak:.2f} GiB")
+        return step_ms, peak
+
+    train_stats = {}
+    train_stats["kernels"] = time_micro_steps(train_batches, f"{LM_BATCH} x {TRAIN_SEQ}, kernels on", n_layers)
+    profile_once(f"one accumulation cycle ({TRAIN_ACCUMULATE} micro-steps, 1 update), kernels on",
+                 lambda: [trainer.train_step(state, b_) for b_ in train_batches])
+    decoder_options(flash_attention=False)
+    train_stats["off"] = time_micro_steps(train_batches, f"{LM_BATCH} x {TRAIN_SEQ}, flash_attention=False", 0)
+    decoder_options(flash_attention=True, remat=True)
+    train_stats["remat"] = time_micro_steps(train_batches, f"{LM_BATCH} x {TRAIN_SEQ}, kernels on, remat=True",
+                                            2 * n_layers)
+    long_batches = token_batches(LM_SEQ, 2, seed=5)
+    train_stats["long remat"] = time_micro_steps(long_batches, f"{LM_BATCH} x {LM_SEQ}, kernels on, remat=True "
+                                                 f"(phase 8's forward alone: {ms_on_1:.2f} ms in bf16)", 2 * n_layers)
+    decoder_options(remat=False)
+    train_stats["long"] = time_micro_steps(long_batches, f"{LM_BATCH} x {LM_SEQ}, kernels on, no remat", n_layers)
+    assert all(torch.isfinite(p).all() for p in state.params.values())
+    del long_batches, train_batches, state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 18. LM training through the entry point
+    log("LM training through the entry point: train_lm.main on 8 synthetic WAVs, a small LM, the flagship codec")
+    small_lm = ("slow_lm: {hidden_size: 256, intermediate_size: 512, num_layers: 4, num_heads: 4, num_kv_heads: 2, "
+                "flash_attention: true, flash_min_seq: 64}\n"
+                "fast_lm: {hidden_size: 128, intermediate_size: 256, num_layers: 2, num_heads: 4, num_kv_heads: 2}\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        CheckpointManager(str(tmp / "codec")).save(0, {"gen_params": codec.state_dict()})
+        torch.save({"generator": voc16.state_dict()}, tmp / "vocoder.pt")
+        wav_rng = np.random.default_rng(6)
+        with open(tmp / "train.jsonl", "w") as f:
+            for i in range(8):
+                dur = 3.0 + 0.25 * i
+                t_w = np.arange(int(SR * dur)) / SR
+                wave = 0.4 * np.sin(2 * math.pi * (180 + 35 * i) * t_w) + 0.05 * wav_rng.standard_normal(len(t_w))
+                wavfile.write(tmp / f"clip{i}.wav", SR, wave.astype(np.float32))
+                f.write(json.dumps({"id": f"c{i}", "audio_path": str(tmp / f"clip{i}.wav"), "duration": dur,
+                                    "text": f"tone number {i}"}) + "\n")
+
+        def train_yaml(max_steps: int) -> str:
+            path_ = tmp / f"lm_{max_steps}.yaml"
+            path_.write_text(
+                f"codec_ckpt_dir: {tmp / 'codec'}\ntext_tokenizer_path: null\n" + small_lm +
+                "train: {accumulate_grad: 2, num_warmup_steps: 1, skip_nonfinite_updates: 5}\n"
+                f"fit: {{max_steps: {max_steps}, val_interval: 2, log_every: 1, ckpt_dir: {tmp / 'lm_ckpt'}, "
+                f"log_dir: {tmp / 'lm_logs'}, seed: 1}}\n"
+                f"data: {{train_manifest: {tmp / 'train.jsonl'}, max_duration: 16.0}}\n")
+            return str(path_)
+
+        reset_counts()
+        t0 = time.perf_counter()
+        train_lm.main(["--config", train_yaml(4)])  # the default device: the card
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        cli_counts = counts()
+        mgr = CheckpointManager(str(tmp / "lm_ckpt"))
+        assert mgr.all_steps() == [2, 4], mgr.all_steps()
+        first = mgr.restore_latest_fields(None, ("params", "step", "opt_state"))
+        assert first["step"] == 4 and first["opt_state"]["gradient_step"] == 2
+        t0 = time.perf_counter()
+        train_lm.main(["--config", train_yaml(6)])
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        second = mgr.restore_latest_fields(None, ("params", "step", "opt_state"))
+        assert mgr.all_steps() == [4, 6] and second["step"] == 6 and second["opt_state"]["gradient_step"] == 3
+        moved = sum(not torch.equal(first["params"][n_], p) for n_, p in second["params"].items())
+        steps_logged = [json.loads(line)["step"] for line in open(tmp / "lm_logs" / "metrics.jsonl")]
+        log(f"  first run {first_s:.2f} s wall to step 4 (checkpoints at 2 and 4; launches {cli_counts}), resumed run "
+            f"{second_s:.2f} s to step 6 ({moved} of {len(second['params'])} tensors moved); logged steps {steps_logged}")
+        assert steps_logged == [1, 2, 3, 4, 5, 6] and moved == len(second["params"])
+        assert all(torch.isfinite(p).all() for p in second["params"].values())
+        assert all(n_ > 0 for n_ in cli_counts.values()), cli_counts
+        (tmp / "infer.yaml").write_text(
+            f"lm_ckpt_dir: {tmp / 'lm_ckpt'}\ncodec_ckpt_dir: {tmp / 'codec'}\nvocoder_ckpt: {tmp / 'vocoder.pt'}\n"
+            "text_tokenizer_path: null\n" + small_lm +
+            "inference: {max_new_tokens: 16, max_seq_len: 256, cache_dtype: float32}\n")
+        infer_lm.main(["--config", str(tmp / "infer.yaml"), "--prompt", "tone number 3", "--out", str(tmp / "out.wav"),
+                       "--seed", "1"])
+        wav_sr, wav = wavfile.read(tmp / "out.wav")
+    log(f"  infer_lm.main on the trained checkpoint: WAV {wav.shape} at {wav_sr} Hz, rms "
+        f"{float(np.sqrt(np.mean(np.square(wav)))):.4f}")
+    assert wav_sr == SR and wav.dtype == np.float32 and wav.size > 0 and np.isfinite(wav).all()
+
+    # ---- 19. FA-dKV, FA-dQ, their plain versions and the library's backward; bounds
+    def bwd_bound_ms(b, s, h, kh, d, itemsize, products, outputs):
+        """Least time for one backward kernel: q, k, v, dO, L and D read once
+        and its outputs written once, against `products` 64-wide products
+        per visible (query, key) pair at the rate of the inputs' type."""
+        nbytes = (2 * b * s * h * d + 2 * b * s * kh * d + outputs) * itemsize + 2 * b * h * s * 4
+        flops = products * 2 * d * b * h * s * (s + 1) // 2
+        by_ops = flops / (PEAK_BF16 if itemsize == 2 else PEAK_F32) * 1e3
+        by_bytes = nbytes / PEAK_BYTES * 1e3
+        return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
+
+    bwd_ms = {}
+    for shape, dt in ((trainer_shape, torch.float32), ((LM_BATCH, LM_SEQ, heads, kv_heads, hd), torch.float32),
+                      ((LM_BATCH, LM_SEQ, heads, kv_heads, hd), torch.bfloat16)):
+        b, sq, h, kh, d = shape
+        q, k, v, g = (torch.randn((b, sq, n, d), device=dev, generator=gen).to(dt) for n in (h, kh, kh, h))
+        with torch.no_grad():
+            out, lse = fa_ops._launch(q, k, v, with_lse=True)
+            delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            t_dkv = [cuda_ms(lambda: fa_ops.flash_attention_dkv(q, k, v, g, lse, delta), 10)]
+            t_dq = [cuda_ms(lambda: fa_ops.flash_attention_dq(q, k, v, g, lse, delta), 10)]
+            t_plain_dkv = cuda_ms(lambda: fa_ops.flash_attention_dkv_reference(q, k, v, out, lse, g), 5)
+            t_plain_dq = cuda_ms(lambda: fa_ops.flash_attention_dq_reference(q, k, v, out, lse, g), 5)
+            t_dkv.append(cuda_ms(lambda: fa_ops.flash_attention_dkv(q, k, v, g, lse, delta), 10))
+            t_dq.append(cuda_ms(lambda: fa_ops.flash_attention_dq(q, k, v, g, lse, delta), 10))
+            t_delta = cuda_ms(lambda: (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous(), 10)
+            t_fwd = (cuda_ms(lambda: fa_ops._launch(q, k, v, with_lse=True), 10), cuda_ms(lambda: flash_attention(q, k, v), 10))
+        qt, kt, vt = (t_.transpose(1, 2).detach().requires_grad_() for t_ in (q, k, v))
+        out_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        gt = g.transpose(1, 2)
+        t_lib = cuda_ms(lambda: torch.autograd.grad(out_lib, (qt, kt, vt), gt, retain_graph=True), 10)
+        lib = torch.autograd.grad(out_lib, (qt, kt, vt), gt)
+        ours = fa_ops.flash_attention_backward(q, k, v, out, lse, g)
+        for name, a_, w_ in zip(("dq", "dk", "dv"), ours, lib):
+            check_close(f"library backward vs kernels, {name} {list(shape)} {dt}", w_.transpose(1, 2), a_,
+                        5e-3 if dt == torch.float32 else 2.0**-4)
+        bound_dkv = bwd_bound_ms(b, sq, h, kh, d, q.element_size(), 4, 2 * b * sq * kh * d)
+        bound_dq = bwd_bound_ms(b, sq, h, kh, d, q.element_size(), 3, b * sq * h * d)
+        pair_bound = bwd_bound_ms(b, sq, h, kh, d, q.element_size(), 5, b * sq * h * d + 2 * b * sq * kh * d)
+        bwd_ms[(shape, dt)] = {"dkv": sum(t_dkv) / 2, "dq": sum(t_dq) / 2, "plain_dkv": t_plain_dkv,
+                               "plain_dq": t_plain_dq, "library": t_lib, "bound_dkv": bound_dkv, "bound_dq": bound_dq,
+                               "fwd": t_fwd[0]}
+        log(f"  {[b, sq, h, d]} {dt}, per launch: FA-dKV {t_dkv[0]:.3f} / {t_dkv[1]:.3f} ms (plain {t_plain_dkv:.3f}, "
+            f"bound {bound_dkv[0]:.4f} by {bound_dkv[1]}), FA-dQ {t_dq[0]:.3f} / {t_dq[1]:.3f} ms (plain "
+            f"{t_plain_dq:.3f}, bound {bound_dq[0]:.4f} by {bound_dq[1]}), D = rowsum(dO * O) {t_delta:.3f} ms, FA forward "
+            f"{t_fwd[0]:.3f} ms storing L ({t_fwd[1]:.3f} without); "
+            f"scaled_dot_product_attention backward (dq, dk, dv in one call) {t_lib:.3f} ms; bound of the pair "
+            f"with the minimal 5 products {pair_bound[0]:.4f} ms")
+        del q, k, v, g, out, lse, delta, qt, kt, vt, out_lib, gt, lib, ours
+    main_bwd = bwd_ms[(trainer_shape, torch.float32)]
+    n_bwd = launches["FA-dKV"] // TRAIN_MICRO_STEPS
+    log(f"  per micro-step ({n_bwd} launches each at {list(trainer_shape[:3])} float32): FA-dKV "
+        f"{n_bwd * main_bwd['dkv']:.2f} ms, FA-dQ {n_bwd * main_bwd['dq']:.2f} ms, FA forward "
+        f"{n_bwd * main_bwd['fwd']:.2f} ms of the step's "
+        f"{train_stats['kernels'][0]:.2f} ms")
+
     kernels = [
         {"name": "anti_alias_activation (K1)", "route": "cuda", "source": K1_SOURCE,
          "replaces": "dmel_codec_tpu/ops/anti_alias.py:521", "launches": launches["K1"],
@@ -1008,7 +1369,26 @@ def main() -> None:
          "replaces": "dmel_codec_tpu/models/transformer.py:197", "launches": launches["FA"],
          "max_abs_err": errs["FA"], "ms": ms["FA"], "plain_ms": plain_ms["FA"],
          "bound_ms": n_fa * fa_bound, "bound_by": fa_by, "library_ms": library_fa,
-         "per": f"LM forward ({n_fa} launches)"},
+         "per": f"LM forward ({n_fa} launches)", "train_launches": launches["FA train"],
+         "train_ms": n_bwd * main_bwd["fwd"]},
+        {"name": "flash_attention_dkv (FA-dKV)", "route": "cuda", "source": FA_BWD_SOURCE,
+         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 (_flash_attention_bwd_dkv), reached "
+                     "under jax.grad from dmel_codec_tpu/models/transformer.py:197",
+         "launches": launches["FA-dKV"], "max_abs_err": errs["FA-dKV"], "ms": n_bwd * main_bwd["dkv"],
+         "plain_ms": n_bwd * main_bwd["plain_dkv"], "bound_ms": n_bwd * main_bwd["bound_dkv"][0],
+         "bound_by": main_bwd["bound_dkv"][1], "library_ms": n_bwd * main_bwd["library"],
+         "library_is": "scaled_dot_product_attention backward: dq, dk and dv in one call",
+         "per": f"LM train micro-step, {list(trainer_shape)} float32 ({n_bwd} launches); launches: "
+                f"{TRAIN_MICRO_STEPS} micro-steps"},
+        {"name": "flash_attention_dq (FA-dQ)", "route": "cuda", "source": FA_BWD_SOURCE,
+         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 (_flash_attention_bwd_dq), reached "
+                     "under jax.grad from dmel_codec_tpu/models/transformer.py:197",
+         "launches": launches["FA-dQ"], "max_abs_err": errs["FA-dQ"], "ms": n_bwd * main_bwd["dq"],
+         "plain_ms": n_bwd * main_bwd["plain_dq"], "bound_ms": n_bwd * main_bwd["bound_dq"][0],
+         "bound_by": main_bwd["bound_dq"][1], "library_ms": n_bwd * main_bwd["library"],
+         "library_is": "scaled_dot_product_attention backward: dq, dk and dv in one call",
+         "per": f"LM train micro-step, {list(trainer_shape)} float32 ({n_bwd} launches); launches: "
+                f"{TRAIN_MICRO_STEPS} micro-steps"},
         {"name": "amp_stage_v1 whole stage (K2-v1)", "route": "cuda", "source": V1_SOURCE,
          "replaces": "dmel_codec_tpu/ops/stage_fused.py:984", "launches": launches["K2-v1"],
          "max_abs_err": errs["K2-v1"], "ms": ms["K2-v1"], "plain_ms": plain_ms["K2-v1"],
@@ -1025,7 +1405,8 @@ def main() -> None:
          "per": f"the four variants once each at {list(probe_shape)} bf16",
          "variants_ms": {str(list(sh)): row for sh, row in probe_table.items()}},
     ]
-    print(json.dumps({"kernels": kernels}))
+    train_step = {name: {"ms": v[0], "peak_gib": v[1]} for name, v in train_stats.items()}
+    print(json.dumps({"kernels": kernels, "train_step": train_step}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 

@@ -10,11 +10,12 @@ NVIDIA Hopper. Same layer map as the JAX package:
   models/    DMelCodec, the BigVGAN vocoder (module and serving forms), the
              Qwen2-style decoder and the slow-fast LM, chunked (streaming)
              codec inference
-  lm/        token grids, tokenizer, sampling, generation
+  lm/        token grids, tokenizer, sampling, generation, audio -> grid batches
+  train/     the LM trainer (full and LoRA), its fit loop, schedules, checkpoints
   eval/      the numpy-in/numpy-out codec adapter
-  cli/       entry points (infer_lm, stream_codec)
+  cli/       entry points (infer_lm, stream_codec, train_lm)
   probes/    development probes of the kernels (K1 ablations)
-  data/      WAV loading
+  data/      WAV loading, cut manifests, the bucketed batch loader
   utils/     masks, precision, YAML configs, logging
   convert.py JAX parameter trees -> this package's state_dicts
 

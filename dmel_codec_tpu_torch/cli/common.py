@@ -1,16 +1,18 @@
 """Shared CLI helpers: checkpoint -> model / adapter loading.
 
-Checkpoints here are state_dicts written by `torch.save`: `model.pt` under
-a checkpoint directory for the LM and the codec, one file for the BigVGAN
-generator (bare, or under a "generator" key as the original release has
-it). A model runs in the dtype its checkpoint was saved in.
+LM and codec checkpoints are `train/checkpoint.py` directories
+(`step_<N>/<field>.pt`): serving reads the newest step's `params` (LM; what
+`train_lm` writes) or `gen_params` (codec), a state_dict of the module, and
+never the optimizer state beside it. The BigVGAN generator is one
+`torch.save` file (bare, or under a "generator" key as the original release
+has it). A model runs in the dtype its checkpoint was saved in.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -18,15 +20,28 @@ from dmel_codec_tpu_torch.eval.codecs import DMelCodecAdapter
 from dmel_codec_tpu_torch.models.bigvgan import BigVGANConfig, load_torch_checkpoint
 from dmel_codec_tpu_torch.models.codec import DMelCodec, DMelCodecConfig
 from dmel_codec_tpu_torch.models.lm import SlowFastLMConfig
+from dmel_codec_tpu_torch.train.checkpoint import CheckpointManager
+from dmel_codec_tpu_torch.utils.logging import RankedLogger
 
-CHECKPOINT_FILE = "model.pt"
+log = RankedLogger(__name__)
 
 
-def load_state_dict(ckpt_dir: str, what: str) -> dict:
-    path = os.path.join(ckpt_dir, CHECKPOINT_FILE)
-    if not os.path.isfile(path):
+def restore_fields(ckpt_dir: str, fields: Sequence[str], what: str) -> dict:
+    """The named train-state fields of the newest checkpoint under
+    `ckpt_dir` (the module's `load_state_dict` checks them afterwards)."""
+    restored = None
+    if os.path.isdir(ckpt_dir):
+        restored = CheckpointManager(ckpt_dir).restore_latest_fields(None, fields)
+    if restored is None:
         raise FileNotFoundError(f"no {what} checkpoint under {ckpt_dir}")
-    return torch.load(path, map_location="cpu", weights_only=True)
+    return restored
+
+
+def load_lm_params(ckpt_dir: str) -> dict:
+    """The LM's state_dict from the newest `train_lm` checkpoint."""
+    restored = restore_fields(ckpt_dir, ("params", "step"), "LM")
+    log.info(f"LM checkpoint: step {restored['step']} under {ckpt_dir}")
+    return restored["params"]
 
 
 def float_dtype(sd: dict) -> torch.dtype:
@@ -46,8 +61,8 @@ def load_codec_adapter(
     vocoder_cfg: Optional[BigVGANConfig] = None,
     device="cuda",
 ) -> DMelCodecAdapter:
-    sd = load_state_dict(ckpt_dir, "codec")
     codec_cfg = codec_cfg or DMelCodecConfig()
+    sd = restore_fields(ckpt_dir, ("gen_params",), "codec")["gen_params"]
     if float_dtype(sd) == torch.bfloat16:
         codec_cfg = dataclasses.replace(codec_cfg, compute_dtype="bfloat16")
     codec = load_module(DMelCodec(codec_cfg), sd, device)
@@ -68,15 +83,23 @@ def build_lm_config(cfg: dict) -> SlowFastLMConfig:
         audio_weight=cfg.get("audio_weight", 1.0),
     )
     base = SlowFastLMConfig()
-    if cfg.get("slow_lm"):
-        kwargs["slow"] = dataclasses.replace(
-            base.slow, **dataclass_from_dict_overrides(cfg["slow_lm"])
-        )
-    if cfg.get("fast_lm"):
-        kwargs["fast"] = dataclasses.replace(
-            base.fast, **dataclass_from_dict_overrides(cfg["fast_lm"])
-        )
+    for section, field in (("slow_lm", "slow"), ("fast_lm", "fast")):
+        if cfg.get(section):
+            overrides = dataclass_from_dict_overrides(without_jax_only(cfg[section]))
+            kwargs[field] = dataclasses.replace(getattr(base, field), **overrides)
     return SlowFastLMConfig(**kwargs)
+
+
+# Keys of the JAX package's YAMLs that name XLA devices with no counterpart
+# here: `scan_layers` (one compiled layer body) in `slow_lm:` / `fast_lm:`,
+# `use_mesh` (a device mesh; one process on one device here) in `fit:`.
+JAX_ONLY_KEYS = ("scan_layers", "use_mesh")
+
+
+def without_jax_only(section: Optional[dict]) -> dict:
+    """A YAML section without the JAX-only keys, so that the same file
+    drives both packages."""
+    return {k: v for k, v in (section or {}).items() if k not in JAX_ONLY_KEYS}
 
 
 def dataclass_from_dict_overrides(d: dict) -> dict:

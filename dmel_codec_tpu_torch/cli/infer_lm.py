@@ -6,8 +6,10 @@ text+audio (the audio prompt is tokenized through the codec).
     python -m dmel_codec_tpu_torch.cli.infer_lm --config configs/lm_infer.yaml \
         --prompt "hello there" [--prompt-audio clip.wav] --out out.wav
 
-`lm_ckpt_dir` and `codec_ckpt_dir` each hold a `model.pt` state_dict,
-`vocoder_ckpt` is a BigVGAN generator state_dict (cli/common.py). Optional
+`lm_ckpt_dir` is a `train_lm` checkpoint directory (the newest step's
+`params` are read), `codec_ckpt_dir` a codec checkpoint directory
+(`gen_params`), `vocoder_ckpt` a BigVGAN generator state_dict
+(cli/common.py). Optional
 YAML sections `model:` (DMelCodecConfig), `vocoder:` (BigVGANConfig) and
 `slow_lm:` / `fast_lm:` size the models; without them they are the
 flagship ones. Runs on `--device` (default cuda).
@@ -24,8 +26,8 @@ from scipy.io import wavfile
 from dmel_codec_tpu_torch.cli.common import (
     build_lm_config,
     load_codec_adapter,
+    load_lm_params,
     load_module,
-    load_state_dict,
 )
 from dmel_codec_tpu_torch.data.audio import load_audio
 from dmel_codec_tpu_torch.lm.generate import InferenceConfig, SlowFastGenerator
@@ -63,8 +65,7 @@ def main(argv=None):
         prompt = "who are you?"
 
     lm_cfg = build_lm_config(cfg)
-    lm_sd = load_state_dict(cfg["lm_ckpt_dir"], "LM")
-    model = load_module(ChatMusicLM(lm_cfg), lm_sd, device)
+    model = load_module(ChatMusicLM(lm_cfg), load_lm_params(cfg["lm_ckpt_dir"]), device)
 
     vocoder_cfg = cfg.get("vocoder")
     codec = load_codec_adapter(

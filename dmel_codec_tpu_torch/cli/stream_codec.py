@@ -6,8 +6,8 @@
 
 WAV in -> log-mel -> `chunked_encode` -> tokens (`.npy`, [1, G*R, L]) and/or
 tokens -> `chunked_decode` -> `chunked_vocode` -> WAV out. The host holds
-the clip, the device one window. `--codec-ckpt` is a directory with a
-`model.pt` state_dict, `--vocoder-dir` a BigVGAN release directory
+the clip, the device one window. `--codec-ckpt` is a codec checkpoint
+directory (cli/common.py), `--vocoder-dir` a BigVGAN release directory
 (config.json + bigvgan_generator.pt); without them the weights are random,
 from `--seed`. Optional `--config` YAML sections `model:` (DMelCodecConfig)
 and `vocoder:` (BigVGANConfig) size the models. Runs on `--device`

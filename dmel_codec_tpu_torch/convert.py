@@ -14,7 +14,8 @@ reference's 1x1 convs); conv [k, in, out] -> [out, in, k]; transposed conv
 `rvqs.{g}`; quantizer up stage idx -> Sequential position n - 1 - idx;
 `nn.Embed.embedding` -> `Embedding.weight`; the LM's `audio_projector`
 DenseGeneral kernel [C, H, H_out] -> Linear [H_out, C * H], the order in
-which the port flattens the codebook embeddings.
+which the port flattens the codebook embeddings. A LoRA adapter tree keeps
+its `a` [in, r] and `b` [r, out]; only the names change.
 """
 
 from __future__ import annotations
@@ -176,3 +177,17 @@ def lm_state_dict_from_jax(params: dict, cfg: SlowFastLMConfig) -> Dict[str, tor
     for name, tcfg in (("slow_decoder", cfg.slow), ("fast_decoder", cfg.fast)):
         _put(sd, name, decoder_state_dict_from_jax(params[name], tcfg.num_layers))
     return sd
+
+
+def lora_from_jax(lora: dict) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX LoRA adapter tree ({"slow_decoder/layers_0/self_attn/q_proj/kernel":
+    {"a", "b"}}) -> `dmel_codec_tpu_torch.train.lora`'s tree, keyed by this
+    package's parameter names; `a` [in, r] and `b` [r, out] as they are."""
+    out = {}
+    for path, ab in lora.items():
+        parts = path.split("/")
+        if parts[-1] != "kernel":
+            raise ValueError(f"LoRA target {path!r} is not a Dense kernel")
+        parts = [p.replace("layers_", "layers.") for p in parts[:-1]] + ["weight"]
+        out[".".join(parts)] = {"a": _t(ab["a"]), "b": _t(ab["b"])}
+    return out

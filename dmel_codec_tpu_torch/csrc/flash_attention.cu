@@ -30,46 +30,28 @@
 // registers. Shared rows are padded so that the float4 reads of Q, K and P
 // and the float2 reads of V are free of bank conflicts. Scores, softmax and
 // accumulation are float32; the output is rounded once to the input dtype.
+// For training the kernel also stores L = m + log(l) per row (float32): the
+// backward kernels (flash_attention_bwd.cu) recompute P = exp(S - L) from it.
+// The tiling constants and the tile loader are in flash_common.cuh.
 #include <math.h>
 
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BM = 64;       // queries per block
-constexpr int BN = 64;       // keys per tile (== BM: every walked tile shows each row a key)
-constexpr int THREADS = 128;
-constexpr int TX = 8;        // threads across a tile's columns
-constexpr int TY = 16;       // threads down its rows
-constexpr int RI = BM / TY;  // rows per thread, r = ty + TY * i
-constexpr int CJ = BN / TX;  // score columns per thread, c = tx + TX * j
-constexpr int PS = BN + 4;   // row stride of the P tile
+using namespace dmel_flash;
 
 template <int HD>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (BM * (HD + 4) + BN * (HD + 4) + BN * HD + BM * PS);
 }
 
-// Rows [row0, row0 + 64) of head `head` of a [B, S, NH, HD] tensor into
-// dst[r * stride + d] as float32; rows at or beyond S are zero.
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, int stride, const void* src,
-                                          long long b, int S, int NH, int head,
-                                          int row0, int bf16) {
-  for (int idx = threadIdx.x; idx < 64 * HD; idx += THREADS) {
-    const int r = idx / HD, d = idx % HD;
-    const int s = row0 + r;
-    float val = 0.f;
-    if (s < S) val = dmel::load_f(src, ((b * S + s) * NH + head) * HD + d, bf16);
-    dst[r * stride + d] = val;
-  }
-}
-
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
                        const void* __restrict__ v, void* __restrict__ out,
-                       int S, int H, int KH, int bf16, float scale) {
+                       float* __restrict__ lse, int S, int H, int KH, int bf16,
+                       float scale) {
   constexpr int QS = HD + 4;   // row stride of the Q and K tiles
   constexpr int OP = HD / 16;  // output column pairs per thread, c = 16 jp + 2 tx + {0, 1}
   extern __shared__ float4 smem4[];
@@ -201,12 +183,13 @@ flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
       dmel::store_f(out, base + 16 * jp + 2 * tx, o[i][jp][0] * inv, bf16);
       dmel::store_f(out, base + 16 * jp + 2 * tx + 1, o[i][jp][1] * inv, bf16);
     }
+    if (lse != nullptr && tx == 0) lse[(b * H + h) * S + row] = m[i] + logf(l[i]);
   }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-           int KH, int bf16, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+           int H, int KH, int bf16, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   const cudaError_t e = cudaFuncSetAttribute(
       flash_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -214,7 +197,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>((S + BM - 1) / BM), static_cast<unsigned>(H),
                   static_cast<unsigned>(B));
-  flash_attention_kernel<HD><<<grid, THREADS, smem, stream>>>(q, k, v, out, S, H, KH,
+  flash_attention_kernel<HD><<<grid, THREADS, smem, stream>>>(q, k, v, out, lse, S, H, KH,
                                                               bf16, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -223,21 +206,25 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 
 // q, out: [B, S, H, HD]; k, v: [B, S, KH, HD]; all contiguous, float32
 // (bf16 = 0) or bfloat16 (bf16 = 1). HD a multiple of 16 up to 128, H a
-// multiple of KH, H and B at most 65535. Returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue for a head size it was not built for).
+// multiple of KH, H and B at most 65535. lse: null, or float32 [B, H, S]
+// that receives each row's log-sum-exp of its scaled visible scores (what
+// the backward kernels recompute the probabilities from). Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a head
+// size it was not built for).
 extern "C" int dmel_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                    int B, int S, int H, int KH, int HD, int bf16,
-                                    float scale, void* stream) {
+                                    void* lse, int B, int S, int H, int KH, int HD,
+                                    int bf16, float scale, void* stream) {
+  float* const ls = static_cast<float*>(lse);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (HD) {
-    case 16: return launch<16>(q, k, v, out, B, S, H, KH, bf16, scale, st);
-    case 32: return launch<32>(q, k, v, out, B, S, H, KH, bf16, scale, st);
-    case 48: return launch<48>(q, k, v, out, B, S, H, KH, bf16, scale, st);
-    case 64: return launch<64>(q, k, v, out, B, S, H, KH, bf16, scale, st);
-    case 80: return launch<80>(q, k, v, out, B, S, H, KH, bf16, scale, st);
-    case 96: return launch<96>(q, k, v, out, B, S, H, KH, bf16, scale, st);
-    case 112: return launch<112>(q, k, v, out, B, S, H, KH, bf16, scale, st);
-    case 128: return launch<128>(q, k, v, out, B, S, H, KH, bf16, scale, st);
+    case 16: return launch<16>(q, k, v, out, ls, B, S, H, KH, bf16, scale, st);
+    case 32: return launch<32>(q, k, v, out, ls, B, S, H, KH, bf16, scale, st);
+    case 48: return launch<48>(q, k, v, out, ls, B, S, H, KH, bf16, scale, st);
+    case 64: return launch<64>(q, k, v, out, ls, B, S, H, KH, bf16, scale, st);
+    case 80: return launch<80>(q, k, v, out, ls, B, S, H, KH, bf16, scale, st);
+    case 96: return launch<96>(q, k, v, out, ls, B, S, H, KH, bf16, scale, st);
+    case 112: return launch<112>(q, k, v, out, ls, B, S, H, KH, bf16, scale, st);
+    case 128: return launch<128>(q, k, v, out, ls, B, S, H, KH, bf16, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -115,11 +115,13 @@ class ChatMusicLM(nn.Module):
         self.reset_parameters()
 
     @torch.no_grad()
-    def reset_parameters(self, std: float = 0.02) -> None:
+    def reset_parameters(
+        self, std: float = 0.02, generator: Optional[torch.Generator] = None
+    ) -> None:
         """HF Qwen2's scheme: N(0, std) weights, zero biases, unit norms."""
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Embedding)):
-                m.weight.normal_(0.0, std)
+                m.weight.normal_(0.0, std, generator=generator)
                 if getattr(m, "bias", None) is not None:
                     m.bias.zero_()
             elif isinstance(m, RMSNorm):

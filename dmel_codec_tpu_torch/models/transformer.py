@@ -14,13 +14,17 @@ loads into `Decoder` directly.
   * Attention outside the flash kernel is einsum-based with a float32
     softmax; GQA goes through a group axis, K/V are never repeated.
   * With `flash_attention=True`, the cache-less causal path at
-    S >= flash_min_seq runs `ops.flash_attention` (kernel FA on a CUDA
-    tensor).
+    S >= flash_min_seq runs `ops.flash_attention` (on a CUDA tensor kernel
+    FA forward and, under autograd, FA-dKV and FA-dQ backward).
+  * With `remat=True` the cache-less path checkpoints each block
+    (`torch.utils.checkpoint`, non-reentrant): a block keeps only its input
+    for the backward pass and runs its forward a second time there, as
+    `nn.remat` does in the JAX package.
   * RoPE is applied in float32 and returned in the input dtype, so that the
     cache and the flash kernel see one dtype (the JAX function leaves the
     float32 promotion in place; in float32 the two are the same).
-`scan_layers` and `remat` of the JAX config are XLA devices and have no
-counterpart here.
+`scan_layers` of the JAX config (one compiled layer body under `nn.scan`)
+is an XLA device and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dmel_codec_tpu_torch.ops.flash_attention import flash_attention
 
@@ -52,6 +57,9 @@ class TransformerConfig:
     # materialised [S, S] score matrix.
     flash_attention: bool = False
     flash_min_seq: int = 512
+    # remat: recompute each block's activations in the backward pass instead
+    # of keeping them (training memory; cache-less path only).
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -249,8 +257,12 @@ class Decoder(nn.Module):
 
         x = inputs_embeds
         for i, layer in enumerate(self.layers):
-            layer_cache = (cache["k"][i], cache["v"][i]) if cache is not None else None
-            x = layer(x, cos, sin, attn_mask, layer_cache, index, mask_is_causal)
+            if cache is not None:
+                x = layer(x, cos, sin, attn_mask, (cache["k"][i], cache["v"][i]), index, mask_is_causal)
+            elif cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, cos, sin, attn_mask, None, 0, mask_is_causal, use_reentrant=False)
+            else:
+                x = layer(x, cos, sin, attn_mask, None, 0, mask_is_causal)
         x = self.norm(x)
 
         if cache is not None:

@@ -37,7 +37,11 @@ _SIGNATURES = {
         _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _F, _I,
         _I, _I, _I, _I, _I, _I, _P, _P,
     ],
-    "dmel_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "dmel_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "dmel_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "dmel_flash_attention_bwd_dkv": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
+    ],
     "dmel_anti_alias_variant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
     "dmel_stage_v1": [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
@@ -139,6 +143,30 @@ def check_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"batch {b} and heads {h} must fit the launch grid (65535)")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+
+
+def check_attention_grad(
+    q: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, grad: torch.Tensor
+) -> None:
+    """Beside q, k, v that passed `check_attention`, the backward kernels
+    take the forward's output and the output's gradient, contiguous, of q's
+    shape, dtype and device, and the forward's float32 log-sum-exp
+    [B, H, S]."""
+    b, s, h, _ = q.shape
+    for name, t in (("out", out), ("grad", grad)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"{name} must be {tuple(q.shape)} {q.dtype} on {q.device}, "
+                f"got {tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(
+            f"lse must be float32 {(b, h, s)} on {q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}"
+        )
+    if not lse.is_contiguous():
+        raise ValueError("lse must be contiguous")
 
 
 def channel_vector(p: torch.Tensor, like: torch.Tensor, n: int) -> torch.Tensor:

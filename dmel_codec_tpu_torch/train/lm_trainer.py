@@ -1,0 +1,426 @@
+"""Slow-fast LM trainer (port of `dmel_codec_tpu/train/lm_trainer.py`): the
+train step with gradient accumulation, and the adapter-only LoRA step.
+
+AdamW lr 1e-4, betas (0.8, 0.99), eps 1e-5, weight decay 0.08 on everything
+EXCEPT biases and norm weights (embeddings are decayed), cosine schedule
+with warmup 1000 -> 60k steps and floor 0.2, gradient accumulation over 60
+micro-steps, clip-norm 1.0, loss weights text 0.01 / audio 1.0, top-k
+accuracies with ignore ids {-100, slow_audio_pad}.
+
+A train state holds tensors that the steps update IN PLACE (which is what
+buffer donation gives the JAX trainer): `train_step(state, batch)` returns
+the same state object, advanced. A full state's `params` are the trainer's
+own model parameters, so a trainer carries one full state at a time.
+
+The optimizer chain has optax's semantics (`LMOptimizer`): gradients are
+averaged over `accumulate_grad` micro-steps, the clip acts on the average,
+the schedule advances once per update, and with `skip_nonfinite_updates`
+a non-finite micro-step is dropped, up to N in a row.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from dmel_codec_tpu_torch.models.lm import IGNORE_INDEX, ChatMusicLM, SlowFastLMConfig
+from dmel_codec_tpu_torch.train.lora import (
+    LoRAConfig,
+    init_lora,
+    lora_leaves,
+    loss_and_grads_lora,
+    merge_lora,
+)
+from dmel_codec_tpu_torch.train.schedule import cosine_schedule_with_warmup
+
+BATCH_KEYS = ("text_tokens", "audio_tokens", "text_labels", "audio_labels", "valid")
+
+
+@dataclasses.dataclass(frozen=True)
+class LMTrainConfig:
+    learning_rate: float = 1e-4
+    betas: Tuple[float, float] = (0.8, 0.99)
+    eps: float = 1e-5
+    weight_decay: float = 0.08
+    grad_clip: float = 1.0
+    num_warmup_steps: int = 1000
+    num_training_steps: int = 60_000
+    final_lr_ratio: float = 0.2
+    accumulate_grad: int = 60
+    topk: Tuple[int, ...] = (1, 2, 5, 10, 20, 50)
+    # > 0: a micro-step whose gradient is not finite is dropped (up to N in
+    # a row; then the optimizer gives up and takes it)
+    skip_nonfinite_updates: int = 0
+
+
+def _decay_mask(params: Dict[str, torch.Tensor]) -> Dict[str, bool]:
+    """True = apply weight decay. No decay for biases and norm weights;
+    embeddings are decayed (see the JAX package's `_decay_mask`)."""
+
+    def decayed(name: str) -> bool:
+        parts = name.split(".")
+        if parts[-1] == "bias":
+            return False
+        return not (parts[-1] == "weight" and any("norm" in p.lower() for p in parts))
+
+    return {name: decayed(name) for name in params}
+
+
+def topk_accuracy(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    ks: Sequence[int],
+    ignore_ids: Sequence[int] = (IGNORE_INDEX,),
+) -> Dict[int, torch.Tensor]:
+    """Shifted next-token top-k accuracy. logits [..., S, V], labels
+    [..., S]. A label counts as a hit at k when fewer than k logits come
+    before it in a stable descending order (ties go to the lower index, as
+    `jax.lax.top_k` breaks them)."""
+    logits = logits[..., :-1, :]
+    labels = labels[..., 1:]
+    vocab = logits.shape[-1]
+    valid = torch.ones_like(labels, dtype=torch.bool)
+    for ig in ignore_ids:
+        valid &= labels != ig
+    n_valid = valid.sum().clamp(min=1)
+    in_range = (labels >= 0) & (labels < vocab)
+    lab = labels.clamp(0, vocab - 1)[..., None]
+    lab_logit = logits.gather(-1, lab)
+    index = torch.arange(vocab, device=logits.device)
+    rank = ((logits > lab_logit) | ((logits == lab_logit) & (index < lab))).sum(-1)
+    return {k: ((rank < k) & valid & in_range).sum() / n_valid for k in ks}
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
+
+
+class LMOptimizer:
+    """clip-by-global-norm -> AdamW(schedule), behind gradient accumulation
+    and the non-finite guard, with the semantics of the JAX trainer's
+    `optax.apply_if_finite(optax.MultiSteps(optax.chain(clip, adamw), k), n)`:
+
+      * `update(grads)` is one micro-step. The accumulator keeps the running
+        MEAN of the micro-step gradients; on every k-th micro-step the mean
+        is clipped, AdamW takes one step at lr = schedule(number of updates
+        so far), and the accumulator is cleared.
+      * With `skip_nonfinite_updates` = n > 0, a micro-step whose gradient
+        holds a NaN or Inf changes nothing (not even the accumulator's
+        count), unless n such micro-steps came directly before it: then it
+        is taken like any other, and the update it is part of turns every
+        parameter non-finite (optax does that on the micro-step itself, also
+        where no update is emitted: its masked update is 0 * NaN; here the
+        parameters follow at the cycle's emitting micro-step).
+    `torch.optim.AdamW` is optax's `adamw`: decay decoupled and times the
+    scheduled lr, eps outside the root after bias correction. Parameters
+    are updated in place."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], decay: Dict[str, bool], config: LMTrainConfig, schedule):
+        self.config = config
+        self.schedule = schedule
+        self.names = list(params)
+        self.params = [params[n] for n in self.names]
+        groups = [
+            {"params": [params[n] for n in self.names if decay[n]], "weight_decay": config.weight_decay},
+            {"params": [params[n] for n in self.names if not decay[n]], "weight_decay": 0.0},
+        ]
+        self.adamw = torch.optim.AdamW(
+            [g for g in groups if g["params"]], lr=config.learning_rate, betas=tuple(config.betas), eps=config.eps
+        )
+        self.k = max(1, config.accumulate_grad)
+        self.acc_grads = [torch.zeros_like(p) for p in self.params] if self.k > 1 else None
+        self.mini_step = 0
+        self.gradient_step = 0
+        self.notfinite_count = 0
+        self.total_notfinite = 0
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor]) -> None:
+        """One micro-step; `grads` (in the order of the parameters) are
+        consumed: the accumulation and the clip work in place on them."""
+        grads = list(grads)
+        limit = self.config.skip_nonfinite_updates
+        if limit > 0:
+            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+            self.notfinite_count = 0 if finite else self.notfinite_count + 1
+            self.total_notfinite += 0 if finite else 1
+            if not (finite or self.notfinite_count > limit):
+                return
+        if self.acc_grads is not None:
+            # acc += (g - acc) / (n + 1): the running mean over the micro-steps
+            torch._foreach_sub_(grads, self.acc_grads)
+            torch._foreach_div_(grads, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc_grads, grads)
+            emit = self.mini_step == self.k - 1
+            self.mini_step = (self.mini_step + 1) % self.k
+            if not emit:
+                return
+            grads = self.acc_grads
+        norm = float(global_norm(grads))
+        if not norm < self.config.grad_clip:
+            torch._foreach_div_(grads, norm)
+            torch._foreach_mul_(grads, self.config.grad_clip)
+        lr = self.schedule(self.gradient_step)
+        for group in self.adamw.param_groups:
+            group["lr"] = lr
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        self.adamw.step()
+        for p in self.params:
+            p.grad = None
+        self.gradient_step += 1
+        if self.acc_grads is not None:
+            torch._foreach_zero_(self.acc_grads)
+
+    def state_dict(self) -> dict:
+        acc = None
+        if self.acc_grads is not None:
+            acc = dict(zip(self.names, self.acc_grads))
+        return {
+            "adamw": self.adamw.state_dict(),
+            "acc_grads": acc,
+            "mini_step": self.mini_step,
+            "gradient_step": self.gradient_step,
+            "notfinite_count": self.notfinite_count,
+            "total_notfinite": self.total_notfinite,
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        self.adamw.load_state_dict(sd["adamw"])
+        if (sd["acc_grads"] is None) != (self.acc_grads is None):
+            raise ValueError("the checkpoint's accumulate_grad setting differs from this optimizer's")
+        if self.acc_grads is not None:
+            for name, acc in zip(self.names, self.acc_grads):
+                acc.copy_(sd["acc_grads"][name])
+        for key in ("mini_step", "gradient_step", "notfinite_count", "total_notfinite"):
+            setattr(self, key, int(sd[key]))
+
+
+def _detached(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach() for k, v in tree.items()}
+
+
+@torch.no_grad()
+def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor], what: str) -> None:
+    if set(dst) != set(src):
+        raise ValueError(f"{what}: the checkpoint's tensors differ from the state's ({sorted(set(dst) ^ set(src))[:5]})")
+    for name, t in dst.items():
+        t.copy_(src[name])
+
+
+@dataclasses.dataclass
+class LMTrainState:
+    """`step` counts micro-steps. `params` maps names to the trained
+    tensors; `opt_state` is the `LMOptimizer` over them."""
+
+    step: int
+    params: Dict[str, torch.Tensor]
+    opt_state: LMOptimizer
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "params": _detached(self.params), "opt_state": self.opt_state.state_dict()}
+
+    def load_state_dict(self, fields: dict) -> None:
+        _copy_into(self.params, fields["params"], "params")
+        self.opt_state.load_state_dict(fields["opt_state"])
+        self.step = int(fields["step"])
+
+
+@dataclasses.dataclass
+class LoRATrainState:
+    """Finetune state: the base params stay frozen (no optimizer moments for
+    them), only the adapter tree trains. Checkpointing `lora` alone is a
+    LoRA-only checkpoint."""
+
+    step: int
+    base_params: Dict[str, torch.Tensor]
+    lora: Dict[str, Dict[str, torch.Tensor]]
+    opt_state: LMOptimizer
+
+    def state_dict(self) -> dict:
+        return {
+            "step": self.step,
+            "base_params": _detached(self.base_params),
+            "lora": {name: _detached(ab) for name, ab in self.lora.items()},
+            "opt_state": self.opt_state.state_dict(),
+        }
+
+    def load_state_dict(self, fields: dict) -> None:
+        _copy_into(self.base_params, fields["base_params"], "base_params")
+        _copy_into(lora_leaves(self.lora), lora_leaves(fields["lora"]), "lora")
+        self.opt_state.load_state_dict(fields["opt_state"])
+        self.step = int(fields["step"])
+
+
+class _LossModule(nn.Module):
+    """The trainer's loss as a module, so that `functional_call` can run it
+    on any parameter tree. With `wrt` the gradients are taken INSIDE the
+    call: under `remat` the backward pass runs the blocks again, and must
+    find the same swapped-in parameters."""
+
+    def __init__(self, lm: ChatMusicLM):
+        super().__init__()
+        self.lm = lm
+
+    def forward(self, batch: Dict[str, torch.Tensor], wrt: Optional[Sequence[torch.Tensor]] = None):
+        embeds = self.lm.embed_inputs(batch["text_tokens"], batch["audio_tokens"])
+        embeds = embeds * batch["valid"][..., None].to(embeds.dtype)
+        out = self.lm(embeds, batch["text_labels"], batch["audio_labels"])
+        if wrt is None:
+            return out
+        return out, torch.autograd.grad(out["loss"], list(wrt))
+
+
+class LMTrainer:
+    def __init__(
+        self,
+        lm_config: SlowFastLMConfig = SlowFastLMConfig(text_weight=0.01),
+        train_config: LMTrainConfig = LMTrainConfig(),
+        device="cuda",
+    ):
+        self.lm_config = lm_config
+        self.config = train_config
+        self.device = torch.device(device)
+        with torch.device(self.device):
+            self.model = ChatMusicLM(lm_config)
+        self.model.train()
+        self._loss_module = _LossModule(self.model)
+        c = train_config
+        self.schedule = cosine_schedule_with_warmup(
+            c.learning_rate, c.num_warmup_steps, c.num_training_steps, final_lr_ratio=c.final_lr_ratio
+        )
+
+    # ---- states ------------------------------------------------------------
+    def make_optimizer(self, params: Dict[str, torch.Tensor], *, adapter: bool = False) -> LMOptimizer:
+        """`adapter=True`: LoRA a/b matrices get NO weight decay (decaying
+        `a` while b == 0 shrinks the init with zero loss signal)."""
+        decay = {name: False for name in params} if adapter else _decay_mask(params)
+        return LMOptimizer(params, decay, self.config, self.schedule)
+
+    def init_params(self, seed: int = 0) -> Dict[str, torch.Tensor]:
+        """The model's parameters, re-initialised from `seed` (no optimizer
+        state): name -> the model's own parameter tensor."""
+        self.model.reset_parameters(generator=torch.Generator(device=self.device).manual_seed(seed))
+        return dict(self.model.named_parameters())
+
+    def init_state(self, seed: int = 0) -> LMTrainState:
+        params = self.init_params(seed)
+        return LMTrainState(step=0, params=params, opt_state=self.make_optimizer(params))
+
+    def device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """A host batch (numpy arrays or tensors) on the trainer's device,
+        ids and labels as int64."""
+        out = {}
+        for key in BATCH_KEYS:
+            t = torch.as_tensor(batch[key])
+            out[key] = t.to(self.device, torch.float32 if key == "valid" else torch.long)
+        return out
+
+    # ---- loss and metrics --------------------------------------------------
+    def loss_fn(self, params: Dict[str, torch.Tensor], batch, wrt: Optional[Sequence[torch.Tensor]] = None):
+        """(loss, out) of the model run on `params`; with `wrt`, also the
+        gradients of the loss with respect to those tensors:
+        ((loss, out), grads)."""
+        named = {f"lm.{k}": v for k, v in params.items()}
+        if wrt is None:
+            out = functional_call(self._loss_module, named, (batch,))
+            return out["loss"], out
+        out, grads = functional_call(self._loss_module, named, (batch, wrt))
+        return (out["loss"], out), grads
+
+    def _depth_labels(self, batch) -> torch.Tensor:
+        b, s = batch["text_labels"].shape
+        c = self.lm_config.audio_codebook_count
+        return torch.cat(
+            [
+                batch["text_labels"][:, 1:].reshape(b * (s - 1), 1),
+                batch["audio_labels"][:, 1:, :].reshape(b * (s - 1), c),
+            ],
+            dim=1,
+        )
+
+    def _audio_accuracy(self, out, batch, prefix: str) -> Dict[str, torch.Tensor]:
+        acc = topk_accuracy(
+            out["audio_logits"].detach(),
+            self._depth_labels(batch),
+            self.config.topk,
+            ignore_ids=(IGNORE_INDEX, self.lm_config.slow_audio_pad_id),
+        )
+        return {f"{prefix}/audio_top{k}_acc": v for k, v in acc.items()}
+
+    def _train_metrics(self, step: int, loss, out, grads) -> Dict[str, Any]:
+        return {
+            "train/grad_norm": global_norm(grads),
+            "train/loss": loss.detach(),
+            "train/text_loss": out["text_loss"].detach(),
+            "train/audio_loss": out["audio_loss"].detach(),
+            "train/lr": self.schedule(step // max(1, self.config.accumulate_grad)),
+        }
+
+    @torch.no_grad()
+    def eval_metrics(self, params: Dict[str, torch.Tensor], batch) -> Dict[str, torch.Tensor]:
+        """Validation metrics: losses + the top-k accuracy set."""
+        loss, out = self.loss_fn(params, batch)
+        metrics = {"val/loss": loss, "val/text_loss": out["text_loss"], "val/audio_loss": out["audio_loss"]}
+        return metrics | self._audio_accuracy(out, batch, "val")
+
+    # ---- steps -------------------------------------------------------------
+    def train_step(self, state: LMTrainState, batch) -> Tuple[LMTrainState, Dict[str, Any]]:
+        """One micro-step on a device batch. The state is advanced in
+        place and returned. `train/grad_norm` is the norm of this
+        micro-step's own gradient, before averaging and clipping."""
+        (loss, out), grads = self.loss_fn(state.params, batch, wrt=list(state.params.values()))
+        metrics = self._train_metrics(state.step, loss, out, grads)
+        metrics |= self._audio_accuracy(out, batch, "train")
+        del out
+        state.opt_state.update(grads)
+        state.step += 1
+        return state, metrics
+
+    # ---- LoRA finetuning ---------------------------------------------------
+    def _require_lora_setup(self) -> None:
+        if not hasattr(self, "lora_config"):
+            raise RuntimeError(
+                "LoRA training requires init_lora_state(seed, lora_config, base_params) first: it "
+                "fixes the adapters' rank and targets. To resume from a checkpoint, call "
+                "init_lora_state with the SAME LoRAConfig, then restore the state over it."
+            )
+
+    def init_lora_state(
+        self, seed: int = 0, lora_config: Optional[LoRAConfig] = None,
+        base_params: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> LoRATrainState:
+        """Base params (frozen) + adapters with b = 0: the merged model
+        starts exactly at the base model. Pass `base_params` to finetune
+        from loaded weights (e.g. the Qwen2 foundation)."""
+        self.lora_config = lora_config or LoRAConfig()
+        base = base_params if base_params is not None else self.init_params(seed)
+        gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        lora = init_lora(base, self.lora_config, gen)
+        return LoRATrainState(
+            step=0, base_params=base, lora=lora,
+            opt_state=self.make_optimizer(lora_leaves(lora), adapter=True),
+        )
+
+    def lora_train_step(self, state: LoRATrainState, batch) -> Tuple[LoRATrainState, Dict[str, Any]]:
+        self._require_lora_setup()
+        (loss, out), grads = loss_and_grads_lora(
+            self.loss_fn, state.base_params, state.lora, self.lora_config, batch
+        )
+        flat = list(lora_leaves(grads).values())
+        metrics = self._train_metrics(state.step, loss, out, flat)
+        del out
+        state.opt_state.update(flat)
+        state.step += 1
+        return state, metrics
+
+    def merged_lora_params(self, state: LoRATrainState) -> Dict[str, torch.Tensor]:
+        """Base + adapters folded in: for generation / eval after finetune."""
+        self._require_lora_setup()
+        with torch.no_grad():
+            return merge_lora(state.base_params, state.lora, self.lora_config)

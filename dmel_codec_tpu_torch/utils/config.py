@@ -6,6 +6,7 @@ which has no JAX in it; this package imports nothing of that one).
   * `dataclass_from_dict(cls, d)` recursively instantiates nested frozen
     dataclasses, tuple-izing list fields and rejecting unknown keys
   * `${...}` interpolation over top-level scalars
+  * `print_config_tree(cfg)` renders a config dict as an indented tree
 """
 
 from __future__ import annotations
@@ -101,3 +102,16 @@ def _tuple_ize(value):
     if isinstance(value, list):
         return tuple(_tuple_ize(v) for v in value)
     return value
+
+
+def print_config_tree(cfg: Dict, indent: int = 0) -> str:
+    """Plain-text tree render of a config dict."""
+    lines = []
+    pad = "  " * indent
+    for k, v in cfg.items():
+        if isinstance(v, dict):
+            lines.append(f"{pad}{k}:")
+            lines.append(print_config_tree(v, indent + 1))
+        else:
+            lines.append(f"{pad}{k}: {v}")
+    return "\n".join(lines)

@@ -1,10 +1,17 @@
-"""Rank-aware logging (the `RankedLogger` of `dmel_codec_tpu/utils/logging.py`)."""
+"""Rank-aware logging and metric writing (the `RankedLogger` and
+`MetricsWriter` of `dmel_codec_tpu/utils/logging.py`). The writer's backend
+is tensorboardX when importable, always mirrored to a metrics.jsonl for
+machine consumption."""
 
 from __future__ import annotations
 
+import json
 import logging
-from typing import Optional
+import os
+import time
+from typing import Dict, Optional
 
+import numpy as np
 import torch.distributed as dist
 
 
@@ -31,3 +38,47 @@ class RankedLogger(logging.LoggerAdapter):
                 return
             msg, kwargs = self.process(f"[rank {rank}] {msg}", kwargs)
             self.logger.log(level, msg, *args, **kwargs)
+
+
+class MetricsWriter:
+    """Scalars/figures/audio to TensorBoard (if available) + metrics.jsonl."""
+
+    def __init__(self, log_dir: str, enable_tensorboard: bool = True):
+        os.makedirs(log_dir, exist_ok=True)
+        self.log_dir = log_dir
+        self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+        self._tb = None
+        if enable_tensorboard:
+            try:
+                from tensorboardX import SummaryWriter
+
+                self._tb = SummaryWriter(log_dir)
+            except ImportError:
+                pass
+
+    def scalars(self, step: int, values: Dict[str, float]) -> None:
+        rec = {"step": int(step), "time": time.time()}
+        rec |= {k: float(v) for k, v in values.items()}
+        self._jsonl.write(json.dumps(rec) + "\n")
+        self._jsonl.flush()
+        if self._tb:
+            for k, v in values.items():
+                self._tb.add_scalar(k, float(v), int(step))
+
+    def figure(self, step: int, tag: str, fig) -> None:
+        if self._tb:
+            self._tb.add_figure(tag, fig, int(step))
+
+    def audio(self, step: int, tag: str, audio: np.ndarray, sample_rate: int) -> None:
+        if self._tb:
+            try:
+                self._tb.add_audio(
+                    tag, np.asarray(audio).reshape(-1, 1), int(step), sample_rate
+                )
+            except ImportError:
+                pass  # tensorboardX audio needs soundfile; skip media only
+
+    def close(self) -> None:
+        self._jsonl.close()
+        if self._tb:
+            self._tb.close()

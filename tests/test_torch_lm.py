@@ -131,10 +131,10 @@ def _apply(model, params, *args, method=None):
 
 def test_configs_mirror_the_jax_defaults():
     """Every field of the port's configs has the JAX default; the JAX
-    TransformerConfig's two extra fields are XLA devices."""
+    TransformerConfig's one extra field (`scan_layers`) is an XLA device."""
     jt = dataclasses.asdict(jax_tf.SLOW_LM_CONFIG)
     assert {k: jt[k] for k in dataclasses.asdict(port_tf.SLOW_LM_CONFIG)} == dataclasses.asdict(port_tf.SLOW_LM_CONFIG)
-    assert set(jt) - set(dataclasses.asdict(port_tf.SLOW_LM_CONFIG)) == {"scan_layers", "remat"}
+    assert set(jt) - set(dataclasses.asdict(port_tf.SLOW_LM_CONFIG)) == {"scan_layers"}
     jf = dataclasses.asdict(jax_tf.FAST_LM_CONFIG)
     assert {k: jf[k] for k in dataclasses.asdict(port_tf.FAST_LM_CONFIG)} == dataclasses.asdict(port_tf.FAST_LM_CONFIG)
     jl, pl_ = dataclasses.asdict(jax_lm.SlowFastLMConfig()), dataclasses.asdict(port_lm.SlowFastLMConfig())
@@ -278,6 +278,9 @@ def test_flash_plain_version_is_causal_gqa_softmax(shape):
 
 
 def test_flash_backward_differentiates_the_plain_version():
+    """On the CPU the gradient comes from the backward kernels' plain version
+    (`flash_attention_backward_reference`; tests/test_torch_train_fa.py holds
+    it against autograd and against the JAX package's backward kernels)."""
     rng = np.random.default_rng(8)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 6, n, 16)).astype(np.float32)).requires_grad_() for n in (4, 2, 2))
     flash_attention(q, k, v).square().sum().backward()

@@ -10,6 +10,8 @@ do occur, as they do with untrained weights.
 
 from __future__ import annotations
 
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,7 @@ from dmel_codec_tpu_torch.cli import infer_lm
 from dmel_codec_tpu_torch.eval.codecs import DMelCodecAdapter
 from dmel_codec_tpu_torch.lm.generate import InferenceConfig, SlowFastGenerator
 from dmel_codec_tpu_torch.lm.inputs import TokenGridBuilder
+from dmel_codec_tpu_torch.train.checkpoint import CheckpointManager
 from tests.test_torch_lm import FAST_KW, JAX_TINY, PORT_TINY, SLOW_KW, build_lm, lm_params
 from tests.test_torch_support import (  # noqa: F401  (strict_f32 is a fixture)
     CODEC_KW,
@@ -221,7 +224,7 @@ def test_codec_adapter_and_audio_loading(tmp_path):
 
 
 def test_infer_lm_slice(lm, tmp_path, monkeypatch):
-    """`cli.infer_lm.main --device cpu` on small state_dicts against the JAX
+    """`cli.infer_lm.main --device cpu` on small checkpoints against the JAX
     chain generate -> deshift -> clip -> DMelCodecAdapter.decode on the same
     weights, greedy, fed the JAX adapter's noise. 2e-4 abs on a waveform in
     [-1, 1]: the codec decode agrees to 1e-5 and the vocoder's two forms to
@@ -231,9 +234,8 @@ def test_infer_lm_slice(lm, tmp_path, monkeypatch):
     # the LM speaks 10 codebooks; give the small codec 10 dMel groups of 2 mels
     codec_kw = dict(CODEC_KW, dmel_groups=10)
     _, cparams, cport = _codec_with(codec_kw)
-    for name, module in (("lm", pm), ("codec", cport)):
-        (tmp_path / name).mkdir()
-        torch.save(module.state_dict(), tmp_path / name / "model.pt")
+    CheckpointManager(str(tmp_path / "lm")).save(5, {"step": 5, "params": pm.state_dict()})
+    CheckpointManager(str(tmp_path / "codec")).save(0, {"gen_params": cport.state_dict()})
     torch.save({"generator": vport.state_dict()}, tmp_path / "vocoder.pt")
     cfg = {
         "lm_ckpt_dir": str(tmp_path / "lm"),
@@ -270,7 +272,7 @@ def test_infer_lm_slice(lm, tmp_path, monkeypatch):
     np.testing.assert_allclose(got, want[0], atol=2e-4)
 
     with pytest.raises(FileNotFoundError):
-        (tmp_path / "lm" / "model.pt").unlink()
+        shutil.rmtree(tmp_path / "lm" / "step_5")
         infer_lm.main(["--config", str(tmp_path / "infer.yaml"), "--device", "cpu"])
 
 

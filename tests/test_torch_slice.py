@@ -143,8 +143,8 @@ def test_slice_end_to_end(models, jax_codec):
 
 def test_port_runs_without_jax():
     """Every port module imports, and the small codec slice, a chunked
-    vocode, a probe variant and an LM generation run, with jax and flax
-    blocked."""
+    vocode, a probe variant, an LM generation and an LM train step run, with
+    jax and flax blocked."""
     root = Path(__file__).resolve().parents[1]
     script = textwrap.dedent(
         """
@@ -194,6 +194,21 @@ def test_port_runs_without_jax():
         batch_audio, _ = gen.generate_batched(np.stack([grid[0]] * 2), np.stack([grid[1]] * 2),
                                               torch.Generator().manual_seed(0))
         assert audio.shape[1] == 10 and 1 <= len(audio) == len(text) <= 3 and len(batch_audio) == 2
+        from dmel_codec_tpu_torch.cli import train_lm
+        from dmel_codec_tpu_torch.lm.inputs import pad_grids_to_batch
+        from dmel_codec_tpu_torch.train.lm_trainer import LMTrainConfig, LMTrainer
+        train_cfg = SlowFastLMConfig(slow=TransformerConfig(151936, 32, 64, 2, 4, 2, flash_attention=True,
+                                                            flash_min_seq=16, remat=True),
+                                     fast=TransformerConfig(1800, 24, 48, 2, 4, 2))
+        trainer = LMTrainer(train_cfg, LMTrainConfig(accumulate_grad=1, num_warmup_steps=0), device="cpu")
+        state = trainer.init_state(0)
+        rng = np.random.default_rng(0)
+        grids = [TokenGridBuilder(config=train_cfg).build_train_grid(rng.integers(0, 1000, size=4),
+                                                                     rng.integers(0, 175, size=(9, 10)))]
+        before = state.params["audio_head.weight"].detach().clone()
+        state, metrics = trainer.train_step(state, trainer.device_batch(pad_grids_to_batch(grids, train_cfg)))
+        assert state.step == 1 and np.isfinite(float(metrics["train/loss"])) and float(metrics["train/grad_norm"]) > 0
+        assert not torch.equal(before, state.params["audio_head.weight"]) and callable(train_lm.main)
         assert not any(n.split(".")[0] in ("jax", "flax", "dmel_codec_tpu") for n in sys.modules
                        if sys.modules[n] is not None)
         print("ok")
