@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths once on one CUDA card:
 the codec (log-mel -> dMel tokens -> BigVGAN), the slow-fast LM in front of
-it, the codec on long audio, window by window, and LM training.
+it, the codec on long audio, window by window, LM training, codec GAN
+training, and the kernel probes.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
 
@@ -74,6 +75,28 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
  19. FA-dKV and FA-dQ timed beside their plain versions and the backward of
      PyTorch's scaled_dot_product_attention (a yardstick only), and their
      bounds.
+ 20. the probe kernels P1 (channels-first anti-aliased snake with a
+     run-time window), P2 / P3 (row-shifted sums of a resident plane) and
+     P4 (11-tap conv as a tap matmul on mma.sync) against their plain
+     versions at every shape, window and plane count the probes' tables
+     time and at ragged ones, P1 against K1 in the interior, then the
+     probes' own checks and tables of times, bounds and the library call's
+     time (P4: one F.conv1d, a yardstick only);
+ 21. codec GAN training at full width through `CodecTrainer` (float32,
+     B = 16 clips x 4 s from a numpy seed, one clip of half length, given
+     decoder noise): 4 checked steps (nine finite metrics, nothing moves at
+     the first update's lr 0, both networks move at the second), a second
+     run from the same state and noise, `freeze_encoder`, then ms per step,
+     seconds of audio per second, peak memory (split into what is
+     allocated between steps and what a step adds), the step by kernel and part by part
+     (torch.profiler over the trainer's ranges), the same with PyTorch's
+     default TF32 convs, and the flagship's 210 s batch (52 x 4 s);
+ 22. codec training through the entry point: `cli.train_codec.main` on 8
+     synthetic WAVs at the flagship width, checkpoints at 2 and 4, a resumed
+     run to 6, then `cli.stream_codec.main` serving the `gen_params` it wrote;
+ 23. overfit: one fixed synthetic batch (sums of sines and noise bursts), a
+     raised learning rate, up to 250 steps or 60 s: `val_loss` falls below
+     a stated fraction of its start.
 The comparison phases run with TF32 off for cuBLAS and cuDNN. The
 line before the last is one JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.
@@ -96,6 +119,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# the CUDA-event timer and the card's published peaks, shared with the probes' tables
+from dmel_codec_tpu_torch.probes.timing import PEAK_BF16, PEAK_BYTES, PEAK_F32, cuda_ms
+
 SECONDS, BATCH, SR, HOP = 4, 16, 24000, 256
 FUSE_MAX_CHANNELS = 192
 DEVICE = "cuda:0"
@@ -104,13 +130,12 @@ K2_SOURCE = "dmel_codec_tpu_torch/csrc/stage_fused.cu"
 FA_SOURCE = "dmel_codec_tpu_torch/csrc/flash_attention.cu"
 FA_BWD_SOURCE = "dmel_codec_tpu_torch/csrc/flash_attention_bwd.cu"
 V1_SOURCE = "dmel_codec_tpu_torch/csrc/stage_fused_v1.cu"
+PROBES_SOURCE = "dmel_codec_tpu_torch/csrc/probes.cu"
+CODEC_TRAIN_BATCH, CODEC_TRAIN_BIG_BATCH, OVERFIT_SECONDS, OVERFIT_STEPS, OVERFIT_LR = 16, 52, 60.0, 250, 3e-3
 LONG_MINUTES, CHAIN_SECONDS, CLI_SECONDS, EXACT_SECONDS = 10, 60, 20, 8
 VOCODE_CHUNK, VOCODE_HALO = 480, 40
 LM_BATCH, LM_SEQ, LM_FRAMES, SERVE_BATCH = 2, 2048, 128, 16
 TRAIN_SEQ, TRAIN_ACCUMULATE, TRAIN_MICRO_STEPS = 1024, 2, 4
-# Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data
-# sheet): bf16 tensor cores, float32 outside them, HBM3.
-PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # K1's arithmetic per output sample: two 6-tap polyphase up FIRs (24 flops)
 # and their gain (2), two snakes (mul, sin, mul, fma: 8), one 12-tap down
 # FIR (24).
@@ -134,20 +159,6 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, rel: float) ->
     if not err <= rel * scale:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return err
-
-
-def cuda_ms(fn, reps: int, warm: bool = True) -> float:
-    """Mean milliseconds per call, CUDA events, after one warm-up call."""
-    if warm:
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 # Tolerances, relative to max(1, max |plain|):
@@ -200,6 +211,26 @@ TOL = {("K1", torch.float32): 1e-6, ("K1", torch.bfloat16): 2.0**-7,
 TOL_TRAIN_LOSS, TOL_TRAIN_GRAD = 1e-4, 1e-3
 TOL_LM_MAX, TOL_LM_MEAN = 1.2e-1, 1e-2
 TOL_CHUNKED_DECODE, TOL_CHUNKED_STAGE, TOL_CHUNKED_WAVE = 1e-5, 2e-5, 2e-5
+# The probes, relative to max(1, max |plain|):
+#  P1 f32: sinf and 6-tap sums in another order than the plain version's
+#    sliced sums, ~1e-7 relative per op (K1's 1e-6 would do): 2e-5, the gate
+#    of the JAX probe it replaces. P1 bf16: one bf16 ulp, as K1.
+#  P1 vs K1 beyond 16 samples from the ends, f32: the same helpers in the
+#    same order (measured 0): 2e-5.
+#  P2, P3: the plain version's additions in the same order: the same bits.
+#  P4: bf16 operands are exact in float32, so only the order of 11 x 96
+#    float32 additions per output differs between the tensor cores and the
+#    plain float32 product (TF32 off): ~1e-6 of max |y| measured; 1e-4 of
+#    max |y| (1e-2 would still tell a wrong fragment layout apart).
+TOL_P1 = {torch.float32: 2e-5, torch.bfloat16: 2.0**-7}
+TOL_P4 = 1e-4
+# Codec training: a second run from the same state, batches and noise. cuDNN
+# may pick a backward algorithm that adds with atomics, so runs need not be
+# bit-equal; the losses are means over ~10^5 values that agree to ~1e-6:
+# 1e-4 relative. Overfit: the lowest val_loss reading (masked mel L1 at
+# quality 2.0, every 50 steps) must fall below this fraction of its value at
+# step 0, and the last reading below that value.
+TOL_RERUN, OVERFIT_FRACTION = 1e-4, 0.3
 
 
 def stage_shapes(vcfg, frames: int):
@@ -271,10 +302,16 @@ def set_flash(model: torch.nn.Module, on: bool) -> None:
             m.config = dataclasses.replace(m.config, flash_attention=on)
 
 
-def profile_once(what: str, fn) -> None:
+def profile_once(what: str, fn, parts: str = "") -> dict:
     """Device kernel time by name over one call (torch.profiler, CUDA
     activity). Busy share = summed kernel time / the call's wall time under
-    the profiler (its own host overhead inflates the idle share)."""
+    the profiler (its own host overhead inflates the idle share). A
+    `record_function` range shows on the device's timeline too, under its
+    own name, from its first kernel's start to its last kernel's end: those
+    are left out of the kernels' sum. The ranges whose name starts with
+    `parts` (if given) are logged and returned as {part: ms}; a range nested
+    in one of them (the optimizer's own) takes its kernels from it, so a
+    part ends where the last range that began inside it ends."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -282,23 +319,40 @@ def profile_once(what: str, fn) -> None:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # one small kernel first: the device tracing may miss what is launched right after it starts
+        torch.zeros(1, device=DEVICE).add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = defaultdict(lambda: [0.0, 0])
+    host_names = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
+    by_name, ranges = defaultdict(lambda: [0.0, 0]), []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
-            by_name[e.name][1] += 1
+            if e.name in host_names:  # a range's span on the device, not a kernel
+                ranges.append([e.time_range.start, e.time_range.end, e.name])
+            else:
+                by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+                by_name[e.name][1] += 1
     busy_ms = sum(v[0] for v in by_name.values())
     if not by_name:
         log(f"  profile of {what}: no device time recorded (not measured)")
-        return
+        return {}
     log(f"  profile of {what}: wall {wall_ms:.2f} ms, kernels {busy_ms:.2f} ms, "
         f"device idle share {1 - busy_ms / wall_ms:.3f}")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"    {ms:9.3f} ms  x{n:<5d} {name[:100]}")
+    spans = sorted(r for r in ranges if parts and r[2].startswith(parts))
+    for start, end, name in ranges:
+        inside = [r for r in spans if r[0] <= start] if not (parts and name.startswith(parts)) else []
+        if inside:
+            inside[-1][1] = max(inside[-1][1], end)
+    by_part = {name[len(parts):]: (end - start) / 1e3 for start, end, name in spans}
+    if by_part:
+        log(f"  {what} by part (each range's span on the device, {sum(by_part.values()):.2f} ms in all): "
+            + "; ".join(f"{k} {v:.2f} ms ({v / sum(by_part.values()):.1%})" for k, v in by_part.items()))
+    return by_part
 
 
 @torch.no_grad()
@@ -333,7 +387,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from dmel_codec_tpu_torch.cli import infer_lm, stream_codec, train_lm
+    from dmel_codec_tpu_torch.cli import infer_lm, stream_codec, train_codec, train_lm
     from dmel_codec_tpu_torch.dsp.spectrogram import LogMelSpectrogram
     from dmel_codec_tpu_torch.lm.generate import InferenceConfig, SlowFastGenerator
     from dmel_codec_tpu_torch.lm.inputs import TokenGridBuilder, pad_grids_to_batch
@@ -349,7 +403,8 @@ def main() -> None:
     from dmel_codec_tpu_torch.ops.stage_fused import (
         V1_MAX_CHANNELS, StageSpec, amp_stage, amp_stage_v1, pack_stage, stage_reference, stage_reference_v1,
     )
-    from dmel_codec_tpu_torch.probes import act_variants
+    from dmel_codec_tpu_torch.probes import act_variants, cf_act, sublane_ops
+    from dmel_codec_tpu_torch.train.codec_trainer import CodecTrainConfig, CodecTrainer
     from dmel_codec_tpu_torch.train.checkpoint import CheckpointManager
     from dmel_codec_tpu_torch.train.lm_trainer import LMTrainConfig, LMTrainer
     from dmel_codec_tpu_torch.train.lora import LoRAConfig
@@ -974,6 +1029,7 @@ def main() -> None:
     assert wav_sr == SR and wav.dtype == np.float32 and wav.shape == (frames_cli * HOP,)
     assert np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
     assert all(n > 0 for n in cli_counts.values()), cli_counts
+    cli_counts_stream = dict(cli_counts)  # phase 22 serves a trained checkpoint the same way
 
     # ---- 14. the K1 ablation probe
     log("K1 ablation probe vs plain:")
@@ -1352,6 +1408,388 @@ def main() -> None:
         f"{n_bwd * main_bwd['fwd']:.2f} ms of the step's "
         f"{train_stats['kernels'][0]:.2f} ms")
 
+    # ---- 20. the probe kernels P1..P4
+    log("probe kernels vs plain: P1 channels-first anti-aliased snake with a run-time window")
+    errs.update({"P1": 0.0, "P2": 0.0, "P3": 0.0, "P4": 0.0})
+    p1_cases = [((2, 24, 4096), (1024,), (torch.float32,))]
+    # the probe's main path: its three shapes at every window it times (bfloat16); float32 at one
+    p1_cases += [(shape, cf_act.WINDOWS, (torch.bfloat16,)) for shape in cf_act.SHAPES]
+    p1_cases += [(shape, (2048,), (torch.float32,)) for shape in cf_act.SHAPES]
+    p1_cases += [((b, c, t_len), (1, 16, 256, 1000, 4096, cf_act.MAX_WINDOW), (torch.float32, torch.bfloat16))
+                 for b, c, t_len in ((1, 5, 1), (3, 7, 37), (2, 3, 700))]
+    p1_cases += [((2, 96, 5000), cf_act.WINDOWS, (torch.float32, torch.bfloat16))]
+    for shape, windows, dts in p1_cases:
+        c = shape[1]
+        alpha = torch.exp(0.1 * torch.randn(c, device=dev, generator=gen))
+        beta = torch.exp(0.1 * torch.randn(c, device=dev, generator=gen))
+        inv_beta = 1.0 / (beta + 1e-9)
+        x32 = torch.randn(shape, device=dev, generator=gen)
+        for dt in dts:
+            x = x32.to(dt)
+            want = cf_act.cf_act_reference(x, alpha, inv_beta)
+            for w_ in windows:
+                got = cf_act.cf_act_windowed(x, alpha[None, :, None], inv_beta[None, :, None], w_)
+                torch.cuda.synchronize()
+                e = check_close(f"P1 {list(shape)} w = {w_} {dt}", got, want, TOL_P1[dt])
+                if dt == torch.float32:
+                    errs["P1"] = max(errs["P1"], e)
+            del want, got
+        if shape[2] > 32 and torch.float32 in dts:
+            got = cf_act.cf_act_windowed(x32, alpha, inv_beta, windows[0])
+            k1 = anti_alias_activation(x32, alpha, beta, False)
+            check_close(f"P1 vs K1 beyond 16 samples from the ends {list(shape)} float32",
+                        got[:, :, 16:-16], k1[:, :, 16:-16], TOL_P1[torch.float32])
+            edge = max_err(got, k1)
+            log(f"  P1 vs K1 over the whole signal: max abs difference {edge:.3e} (interior semantics: the ends differ)")
+            assert edge > 1e-4
+            del got, k1
+        del x32
+    log("probe kernels vs plain: P2 / P3 row-shifted sums, P4 tap matmul")
+    for shape, out_rows in (((sublane_ops.ROWS, sublane_ops.LANES), sublane_ops.OUT_ROWS),
+                            ((3, sublane_ops.ROWS, sublane_ops.LANES), sublane_ops.OUT_ROWS),
+                            ((sublane_ops.FILL_PLANES, sublane_ops.ROWS, sublane_ops.LANES), sublane_ops.OUT_ROWS),
+                            ((2, 50, 33), 17), ((1, 10, 1), 1), ((2, 5000, 300), 1000)):
+        x = torch.randn(shape, device=dev, generator=gen)
+        for name, fn, ref in (("P2", sublane_ops.slice_rows, sublane_ops.slice_reference),
+                              ("P3", sublane_ops.roll_rows, sublane_ops.roll_reference)):
+            got, want = fn(x, out_rows), ref(x, out_rows)
+            torch.cuda.synchronize()
+            e = max_err(got, want)
+            log(f"  {name} {list(shape)} -> {out_rows} rows: max abs err {e:.3e} (expected: the same bits)")
+            errs[name] = max(errs[name], e)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name}: kernel disagrees with its plain version")
+        if shape[-2] == sublane_ops.ROWS:  # two functions: the roll wraps to the plane's end
+            apart = max_err(sublane_ops.roll_rows(x), sublane_ops.slice_rows(x))
+            log(f"  P3 vs P2 {list(shape)}: max abs difference {apart:.2f}")
+            assert apart > 1.0, apart
+    for x_shape, w_shape, out_rows, taps, step in (
+            ((sublane_ops.MM_ROWS, 96), (96, 96), sublane_ops.MM_OUT, sublane_ops.TAPS, sublane_ops.STEP),
+            ((3, sublane_ops.MM_ROWS, 96), (96, 96), sublane_ops.MM_OUT, sublane_ops.TAPS, sublane_ops.STEP),
+            ((sublane_ops.FILL_PLANES, sublane_ops.MM_ROWS, 96), (96, 96), sublane_ops.MM_OUT, sublane_ops.TAPS,
+             sublane_ops.STEP),
+            ((2, 300, 32), (32, 24), 100, 5, 3), ((1, 16, 16), (16, 8), 1, 1, 8), ((2, 700, 128), (128, 128), 130, 7, 8)):
+        x = torch.randn(x_shape, device=dev, generator=gen).to(torch.bfloat16)
+        w_ = torch.randn(w_shape, device=dev, generator=gen).to(torch.bfloat16)
+        got = sublane_ops.tap_matmul(x, w_, out_rows, taps, step)
+        torch.cuda.synchronize()
+        want = sublane_ops.tap_matmul_reference(x, w_, out_rows, taps, step)
+        e = check_close(f"P4 x {list(x_shape)} @ w {list(w_shape)}, {taps} taps of step {step} -> {out_rows} rows",
+                        got, want, TOL_P4)
+        if x_shape[-2:] == (sublane_ops.MM_ROWS, 96):
+            errs["P4"] = max(errs["P4"], e)
+    probe_fns = {"P1": cf_act.cf_act_windowed, "P2": sublane_ops.slice_rows, "P3": sublane_ops.roll_rows,
+                 "P4": sublane_ops.tap_matmul}
+    for fn in probe_fns.values():
+        fn.launches = 0
+    cf_table = cf_act.main()  # each raises if a kernel disagrees with plain at a shape it times
+    rows_table = sublane_ops.main()
+    launches.update({name: fn.launches for name, fn in probe_fns.items()})
+    assert all(launches[name] > 0 for name in probe_fns), launches
+    # the plain versions and the library call at the probes' shapes
+    p1_shape, p1_window = cf_act.SHAPES[0], 2048
+    fill = sublane_ops.FILL_PLANES
+    with torch.no_grad():
+        x = torch.randn(p1_shape, device=dev, generator=gen).to(torch.bfloat16)
+        a = torch.exp(0.1 * torch.randn(p1_shape[1], device=dev, generator=gen))
+        p1_plain = cuda_ms(lambda: cf_act.cf_act_reference(x, a, a), 3)
+        del x
+        rows_plain, mm_plain, mm_library = {}, {}, {}
+        for planes in (1, fill):
+            x = torch.randn((planes, sublane_ops.ROWS, sublane_ops.LANES), device=dev, generator=gen)
+            rows_plain[planes] = {"slice": cuda_ms(lambda: sublane_ops.slice_reference(x), 10),
+                                  "roll": cuda_ms(lambda: sublane_ops.roll_reference(x), 10)}
+            xb = torch.randn((planes, sublane_ops.MM_ROWS, 96), device=dev, generator=gen).to(torch.bfloat16)
+            w_ = torch.randn((96, 96), device=dev, generator=gen).to(torch.bfloat16)
+            mm_plain[planes] = cuda_ms(lambda: sublane_ops.tap_matmul_reference(xb, w_), 5)
+            # the library call: one bf16 conv with the 11 taps all holding w, dilation 8
+            x_cf = xb[:, : sublane_ops.MM_OUT + sublane_ops.STEP * (sublane_ops.TAPS - 1)].transpose(1, 2).contiguous()
+            kernel = w_.T[:, :, None].expand(96, 96, sublane_ops.TAPS).contiguous()
+
+            def conv():
+                return torch.nn.functional.conv1d(x_cf, kernel, dilation=sublane_ops.STEP)
+
+            mm_library[planes] = cuda_ms(conv, 10)
+            check_close(f"library conv1d vs P4, P = {planes}", conv().transpose(1, 2), sublane_ops.tap_matmul(xb, w_),
+                        2.0**-7)  # the library rounds its result to bf16
+            del x, xb, x_cf
+    p1_bound = cf_act.bound_ms(p1_shape)
+    mm_bound = {planes: sublane_ops.tap_matmul_bound_ms(planes) for planes in (1, fill)}
+    log(f"  P1 {list(p1_shape)} bf16 w = {p1_window}: kernel {cf_table[p1_shape][p1_window]:.4f} ms, K1 "
+        f"{cf_table[p1_shape]['K1']:.4f} ms, plain {p1_plain:.3f} ms, bound {p1_bound:.4f} ms by bytes")
+    for planes in (1, fill):
+        log(f"  P = {planes}: P2 {rows_table[planes]['slice']:.4f} ms (plain {rows_plain[planes]['slice']:.4f}), P3 "
+            f"{rows_table[planes]['roll']:.4f} ms (plain {rows_plain[planes]['roll']:.4f}), bound "
+            f"{sublane_ops.rows_bound_ms(planes):.5f} ms by bytes; P4 {rows_table[planes]['matmul']:.4f} ms (plain "
+            f"{mm_plain[planes]:.4f}, F.conv1d {mm_library[planes]:.4f}), bound {mm_bound[planes]['operations']:.5f} ms "
+            f"by operations, {mm_bound[planes]['bytes']:.5f} by bytes")
+
+    # ---- 21. codec GAN training at full width
+    log(f"codec training: CodecTrainer at the flagship width, float32, B = {CODEC_TRAIN_BATCH} x {SECONDS} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def synthetic_clips(n: int, seconds: float, seed: int, floor: float = 0.0) -> np.ndarray:
+        """Sums of four sines and a 0.1 s noise burst per clip, over white
+        noise of amplitude `floor`, from a numpy seed."""
+        rng_ = np.random.default_rng(seed)
+        n_samples = int(seconds * SR)
+        t_ = np.arange(n_samples) / SR
+        clips = np.zeros((n, n_samples), np.float32)
+        for i in range(n):
+            for amp, freq in zip(rng_.uniform(0.05, 0.3, 4), rng_.uniform(100.0, 4000.0, 4)):
+                clips[i] += (amp * np.sin(2 * math.pi * freq * t_)).astype(np.float32)
+            start = rng_.integers(0, n_samples - SR // 10)
+            clips[i, start : start + SR // 10] += (0.2 * rng_.standard_normal(SR // 10)).astype(np.float32)
+            clips[i] += (floor * rng_.standard_normal(n_samples)).astype(np.float32)
+        return clips
+
+    def codec_batches(trainer_, n: int, batch: int, seconds: float, seed: int):
+        """Device batches with given decoder noise; the last clip has half length."""
+        rng_ = np.random.default_rng(seed + 1000)
+        n_samples = int(seconds * SR)
+        lengths = np.full((batch,), n_samples)
+        lengths[-1] = n_samples // 2
+        return [trainer_.device_batch({
+            "audios": synthetic_clips(batch, seconds, seed + i), "audio_lengths": lengths,
+            "noise": rng_.standard_normal((batch, n_samples // HOP, ccfg.concat_dim)).astype(np.float32)})
+            for i in range(n)]
+
+    held_before = torch.cuda.memory_allocated() / 2**30  # the earlier phases' models and leftovers
+    ct_cfg = CodecTrainConfig(num_warmup_steps=2)
+    ctrainer = CodecTrainer(DMelCodecConfig(), ct_cfg, device=dev)
+    cstate = ctrainer.init_state(0)
+    n_gen = sum(p.numel() for p in cstate.gen_params.values())
+    n_disc = sum(p.numel() for p in cstate.disc_params.values())
+    log(f"  generator {n_gen / 1e6:.1f} M parameters, discriminator {n_disc / 1e6:.1f} M; lr {ct_cfg.learning_rate:g}, "
+        f"warmup {ct_cfg.num_warmup_steps}")
+    assert all(p.dtype == torch.float32 and p.is_cuda for p in (*cstate.gen_params.values(), *cstate.disc_params.values()))
+    state_gib = 3 * 4 * (n_gen + n_disc) / 2**30  # float32 parameters and AdamW's two moments
+    log(f"  device memory allocated: {held_before:.2f} GiB before the trainer was built, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after")
+    cbatches = codec_batches(ctrainer, 2, CODEC_TRAIN_BATCH, SECONDS, seed=7)
+    metric_names = ("train/grad_norm/generator", "train/grad_norm/discriminator", "train/discriminator/loss",
+                    "train/discriminator/loss_real", "train/discriminator/loss_fake", "train/generator/loss",
+                    "train/generator/loss_mel", "train/generator/loss_adv", "train/lr")
+
+    def changed(state_, snap) -> dict:
+        return {which: sum(not torch.equal(snap[which][n_], p) for n_, p in getattr(state_, which).items())
+                for which in ("gen_params", "disc_params")}
+
+    def snapshot(state_) -> dict:
+        return {which: {n_: p.detach().clone() for n_, p in getattr(state_, which).items()}
+                for which in ("gen_params", "disc_params")}
+
+    def checked_steps(trainer_, state_, what: str):
+        history = []
+        snap = snapshot(state_)
+        for i in range(4):
+            state_, metrics = trainer_.train_step(state_, cbatches[i % 2])
+            torch.cuda.synchronize()
+            vals = {k_: float(v_) for k_, v_ in metrics.items()}
+            assert set(vals) == set(metric_names) and all(math.isfinite(x_) for x_ in vals.values()), vals
+            moved_ = changed(state_, snap)
+            log(f"  {what} step {i + 1}: D loss {vals['train/discriminator/loss']:.6f} (real "
+                f"{vals['train/discriminator/loss_real']:.6f}, fake {vals['train/discriminator/loss_fake']:.6f}), G loss "
+                f"{vals['train/generator/loss']:.6f} (mel {vals['train/generator/loss_mel']:.6f}, adv "
+                f"{vals['train/generator/loss_adv']:.6f}), grad norms G {vals['train/grad_norm/generator']:.4f} D "
+                f"{vals['train/grad_norm/discriminator']:.4f}, lr {vals['train/lr']:.2e}; tensors moved so far: "
+                f"generator {moved_['gen_params']} of {len(state_.gen_params)}, discriminator "
+                f"{moved_['disc_params']} of {len(state_.disc_params)}")
+            history.append((vals, moved_))
+        return state_, history
+
+    cstate, first_run = checked_steps(ctrainer, cstate, "run 1")
+    # the first update has lr 0 (LambdaLR semantics): nothing moves; from the second on, both networks do
+    assert first_run[0][1] == {"gen_params": 0, "disc_params": 0}, first_run[0][1]
+    assert first_run[1][1] == {"gen_params": len(cstate.gen_params), "disc_params": len(cstate.disc_params)}
+    assert cstate.step == 4 and cstate.gen_opt_state.gradient_step == 4 and cstate.disc_opt_state.gradient_step == 4
+    assert all(p.grad is None for p in (*ctrainer.codec.parameters(), *ctrainer.discriminator.parameters()))
+    cstate = ctrainer.init_state(0)  # the same weights again, fresh optimizers
+    cstate, second_run = checked_steps(ctrainer, cstate, "run 2")
+    worst_rerun = 0.0
+    for (a_, _), (b_, _) in zip(first_run, second_run):
+        for k_ in metric_names[2:8]:
+            worst_rerun = max(worst_rerun, abs(a_[k_] - b_[k_]) / max(abs(a_[k_]), 1e-12))
+    log(f"  a second run from the same state, batches and noise: the six losses of 4 steps agree to "
+        f"{worst_rerun:.3e} relative (tol {TOL_RERUN:.0e})")
+    assert worst_rerun <= TOL_RERUN
+
+    def time_codec_steps(trainer_, state_, batches_, what: str, n: int = 6):
+        """ms per step (CUDA events around each of n steps, the mean of all
+        but the first), the run's peak device memory, seconds of audio per second."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        between = torch.cuda.memory_allocated() / 2**30
+        events = []
+        for i in range(n):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            trainer_.train_step(state_, batches_[i % len(batches_)])
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        times = [s_.elapsed_time(e_) for s_, e_ in events]
+        step_ms = sum(times[1:]) / (n - 1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        audio_s = batches_[0]["audios"].shape[0] * batches_[0]["audios"].shape[1] / SR
+        log(f"  {what}: {step_ms:.2f} ms per step ({', '.join(f'{t_:.2f}' for t_ in times)}; the first not counted), "
+            f"{audio_s / step_ms * 1e3:.1f} s of audio per second, peak device memory {peak:.2f} GiB = {between:.2f} GiB "
+            f"allocated between steps ({state_gib:.2f} GiB of it the trainer's parameters and Adam moments, the rest "
+            f"batches and what earlier phases left) + {peak - between:.2f} GiB during the step: the trainer's own peak is "
+            f"{state_gib + peak - between:.2f} GiB")
+        return step_ms, peak, audio_s / step_ms * 1e3
+
+    codec_stats = {}
+    codec_stats["float32"] = time_codec_steps(ctrainer, cstate, cbatches, f"{CODEC_TRAIN_BATCH} x {SECONDS} s, float32 (TF32 off)")
+    # the step by kernel and part by part (the trainer's record_function ranges)
+    parts = profile_once("one codec train step, float32", lambda: ctrainer.train_step(cstate, cbatches[1]), parts="codec/")
+    # the preamble's few kernels come first, where the device tracing has at times recorded no range
+    if "preamble" not in parts:
+        log("  one codec train step by part: no range was recorded on the device for the preamble in this run")
+    assert len(parts) - ("preamble" in parts) == 7 and abs(sum(parts.values()) / codec_stats["float32"][0] - 1) < 0.15, parts
+    # PyTorch's default: cuDNN convs in TF32 (the float32 matmuls stay float32)
+    torch.backends.cudnn.allow_tf32 = True
+    codec_stats["tf32 convs"] = time_codec_steps(ctrainer, cstate, cbatches,
+                                                 f"{CODEC_TRAIN_BATCH} x {SECONDS} s, cuDNN convs in TF32 (PyTorch's default)")
+    strict_float32()
+    assert all(torch.isfinite(p).all() for p in (*cstate.gen_params.values(), *cstate.disc_params.values()))
+
+    # the flagship's batch of 210 s of audio: 52 clips x 4 s
+    big = None
+    try:
+        big_batches = codec_batches(ctrainer, 1, CODEC_TRAIN_BIG_BATCH, SECONDS, seed=9)
+        big = time_codec_steps(ctrainer, cstate, big_batches,
+                               f"{CODEC_TRAIN_BIG_BATCH} x {SECONDS} s (the flagship's 210 s batch), float32", n=3)
+        codec_stats["float32, 52 x 4 s"] = big
+    except torch.cuda.OutOfMemoryError as exc:
+        log(f"  {CODEC_TRAIN_BIG_BATCH} x {SECONDS} s, float32: out of device memory ({str(exc)[:200]})")
+    big_batches = None
+    del cstate, ctrainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # freeze_encoder: the encoder and the quantizer stay bit-unchanged, the rest trains
+    ftrainer = CodecTrainer(DMelCodecConfig(), dataclasses.replace(ct_cfg, freeze_encoder=True), device=dev)
+    fstate = ftrainer.init_state(0)
+    fsnap = snapshot(fstate)
+    for i in range(3):
+        fstate, fmetrics = ftrainer.train_step(fstate, cbatches[i % 2])
+    torch.cuda.synchronize()
+    frozen = [n_ for n_ in fstate.gen_params if n_.startswith(("encoder.", "quantizer."))]
+    frozen_moved = sum(not torch.equal(fsnap["gen_params"][n_], fstate.gen_params[n_]) for n_ in frozen)
+    rest_moved = sum(not torch.equal(fsnap["gen_params"][n_], p) for n_, p in fstate.gen_params.items() if n_ not in frozen)
+    log(f"  freeze_encoder=True, 3 steps: {frozen_moved} of {len(frozen)} encoder / quantizer tensors changed, "
+        f"{rest_moved} of {len(fstate.gen_params) - len(frozen)} others; logged generator grad norm "
+        f"{float(fmetrics['train/grad_norm/generator']):.4f} (over all subtrees)")
+    assert frozen and frozen_moved == 0 and rest_moved == len(fstate.gen_params) - len(frozen)
+    assert len(fstate.gen_opt_state.params) == len(fstate.gen_params) - len(frozen)
+    del fstate, ftrainer, fsnap, cbatches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 22. codec training through the entry point
+    log("codec training through the entry point: train_codec.main on 8 synthetic WAVs at the flagship width")
+    all_counters = {**counters, **counters_fa}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        clips = synthetic_clips(8, 4.75, seed=12)
+        with open(tmp / "train.jsonl", "w") as f:
+            for i in range(8):
+                dur = 3.0 + 0.25 * i
+                wavfile.write(tmp / f"clip{i}.wav", SR, clips[i, : int(SR * dur)])
+                f.write(json.dumps({"id": f"c{i}", "audio_path": str(tmp / f"clip{i}.wav"), "duration": dur,
+                                    "text": ""}) + "\n")
+
+        def codec_yaml(max_steps: int) -> str:
+            path_ = tmp / f"codec_{max_steps}.yaml"
+            path_.write_text(
+                "train: {learning_rate: 1.0e-4, num_warmup_steps: 1}\n"
+                f"fit: {{max_steps: {max_steps}, val_interval: 2, log_every: 1, ckpt_dir: {tmp / 'codec_ckpt'}, "
+                f"log_dir: {tmp / 'codec_logs'}, seed: 1}}\n"
+                f"data: {{train_manifest: {tmp / 'train.jsonl'}, val_manifest: {tmp / 'train.jsonl'}, "
+                "max_duration: 16.0}\n")
+            return str(path_)
+
+        t0 = time.perf_counter()
+        train_codec.main(["--config", codec_yaml(4)])  # the default device: the card; `model:` absent = the flagship
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        mgr = CheckpointManager(str(tmp / "codec_ckpt"))
+        fields = ("step", "gen_params", "disc_params", "gen_opt_state", "disc_opt_state")
+        assert mgr.all_steps() == [2, 4], mgr.all_steps()
+        first = mgr.restore_latest_fields(None, fields)
+        assert first["step"] == 4 and first["gen_opt_state"]["gradient_step"] == 4
+        assert sum(v.numel() for v in first["gen_params"].values()) == n_gen
+        t0 = time.perf_counter()
+        train_codec.main(["--config", codec_yaml(6)])
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        second = mgr.restore_latest_fields(None, fields)
+        assert mgr.all_steps() == [4, 6] and second["step"] == 6 and second["disc_opt_state"]["gradient_step"] == 6
+        moved = {which: sum(not torch.equal(first[which][n_], p) for n_, p in second[which].items())
+                 for which in ("gen_params", "disc_params")}
+        records = [json.loads(line) for line in open(tmp / "codec_logs" / "metrics.jsonl")]
+        val_losses = {r["step"]: r["val_loss"] for r in records if "val_loss" in r}
+        log(f"  first run {first_s:.2f} s wall to step 4 (checkpoints at 2 and 4), resumed run {second_s:.2f} s to step 6 "
+            f"({moved['gen_params']} of {len(second['gen_params'])} generator and {moved['disc_params']} of "
+            f"{len(second['disc_params'])} discriminator tensors moved); val_loss by step {val_losses}")
+        assert [r["step"] for r in records if "train/lr" in r] == [1, 2, 3, 4, 5, 6] and sorted(val_losses) == [2, 4, 6]
+        assert moved == {"gen_params": len(second["gen_params"]), "disc_params": len(second["disc_params"])}
+        assert all(torch.isfinite(p).all() and p.dtype == torch.float32 for p in second["gen_params"].values())
+        assert all(math.isfinite(v) for v in val_losses.values())
+        # the serving path loads the generator it wrote
+        wavfile.write(tmp / "in.wav", SR, tone[: CLI_SECONDS * SR].cpu().numpy())
+        for fn in all_counters.values():
+            fn.launches = 0
+        stream_codec.main(["--in", str(tmp / "in.wav"), "--tokens-out", str(tmp / "tokens.npy"),
+                           "--out", str(tmp / "out.wav"), "--codec-ckpt", str(tmp / "codec_ckpt"), "--use-v1"])
+        torch.cuda.synchronize()
+        served = {name: fn.launches for name, fn in all_counters.items()}
+        tokens = np.load(tmp / "tokens.npy")
+        wav_sr, wav = wavfile.read(tmp / "out.wav")
+    log(f"  stream_codec.main on the trained checkpoint: tokens {list(tokens.shape)}, WAV {wav.shape} at {wav_sr} Hz, rms "
+        f"{float(np.sqrt(np.mean(np.square(wav)))):.4f}; launches {served}")
+    assert tokens.shape == (1, ccfg.dmel_groups * ccfg.n_codebooks, frames_cli // 4)
+    assert wav_sr == SR and wav.shape == (frames_cli * HOP,) and np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+    assert served == {**cli_counts_stream, "FA": 0, "FA-dKV": 0, "FA-dQ": 0}, (served, cli_counts_stream)
+    del first, second
+
+    # ---- 23. overfit one fixed batch
+    # The clips lie over a white-noise floor so that every mel band is
+    # occupied and the training quality scalar is 1.0: val_loss is taken at
+    # the fixed quality 2.0, and on clips with empty bands (quality -5.7) it
+    # does not follow the training loss at all.
+    log(f"overfit: one fixed batch of 4 x 2 s at the flagship width, lr {OVERFIT_LR:g}, up to {OVERFIT_STEPS} steps or "
+        f"{OVERFIT_SECONDS:.0f} s; val_loss = masked mel L1 at quality 2.0 with fixed noise")
+    otrainer = CodecTrainer(DMelCodecConfig(), CodecTrainConfig(learning_rate=OVERFIT_LR, num_warmup_steps=20), device=dev)
+    ostate = otrainer.init_state(0)
+    obatch = otrainer.device_batch({"audios": synthetic_clips(4, 2.0, seed=13, floor=0.003),
+                                    "audio_lengths": np.array([2 * SR, 2 * SR, 2 * SR, SR])})
+    ogen = torch.Generator(device=dev).manual_seed(0)
+
+    def val_loss() -> float:
+        return float(otrainer.eval_step(ostate, obatch, torch.Generator(device=dev).manual_seed(1))["val_loss"])
+
+    curve = {0: val_loss()}
+    t0 = time.perf_counter()
+    while ostate.step < OVERFIT_STEPS and time.perf_counter() - t0 < OVERFIT_SECONDS:
+        ostate, ometrics = otrainer.train_step(ostate, obatch, ogen)
+        if ostate.step % 50 == 0:
+            curve[ostate.step] = val_loss()
+            log(f"  step {ostate.step}: val_loss {curve[ostate.step]:.4f}, train mel loss "
+                f"{float(ometrics['train/generator/loss_mel']):.4f}, D loss {float(ometrics['train/discriminator/loss']):.4f} "
+                f"({time.perf_counter() - t0:.1f} s)")
+    overfit_steps, overfit_s = ostate.step, time.perf_counter() - t0
+    curve[overfit_steps] = val_loss()
+    best = min(v for step_, v in curve.items() if step_ > 0)
+    log(f"  val_loss {curve[0]:.4f} -> {curve[overfit_steps]:.4f} after {overfit_steps} steps in {overfit_s:.1f} s, lowest "
+        f"reading {best:.4f} (the lowest must fall below {OVERFIT_FRACTION:g} of the start, the last below the start: "
+        f"the adversarial term makes single readings jump)")
+    assert overfit_steps >= 100, overfit_steps
+    assert best < OVERFIT_FRACTION * curve[0] and curve[overfit_steps] < curve[0], curve
+    del otrainer, ostate
+
     kernels = [
         {"name": "anti_alias_activation (K1)", "route": "cuda", "source": K1_SOURCE,
          "replaces": "dmel_codec_tpu/ops/anti_alias.py:521", "launches": launches["K1"],
@@ -1404,9 +1842,42 @@ def main() -> None:
          "bound_ms": bounds["probe"][0], "bound_by": bounds["probe"][1], "library_ms": None,
          "per": f"the four variants once each at {list(probe_shape)} bf16",
          "variants_ms": {str(list(sh)): row for sh, row in probe_table.items()}},
+        {"name": "cf_act_windowed (P1)", "route": "cuda", "source": PROBES_SOURCE,
+         "replaces": "scripts/exp_cf_act.py:181", "launches": launches["P1"], "max_abs_err": errs["P1"],
+         "ms": cf_table[p1_shape][p1_window], "plain_ms": p1_plain, "bound_ms": p1_bound, "bound_by": "bytes",
+         "library_ms": None, "per": f"one launch at {list(p1_shape)} bf16, w = {p1_window}; launches: one run of the probe",
+         "k1_same_ms": cf_table[p1_shape]["K1"],
+         "windows_ms": {str(list(sh)): {str(k_): v_ for k_, v_ in row.items()} for sh, row in cf_table.items()}},
+        {"name": "slice_rows (P2)", "route": "cuda", "source": PROBES_SOURCE,
+         "replaces": "scripts/exp_sublane_ops.py:63 (k_slice)", "launches": launches["P2"], "max_abs_err": errs["P2"],
+         "ms": rows_table[1]["slice"], "plain_ms": rows_plain[1]["slice"], "bound_ms": sublane_ops.rows_bound_ms(1),
+         "bound_by": "bytes", "library_ms": None,
+         "per": f"one launch on one [{sublane_ops.ROWS}, {sublane_ops.LANES}] float32 plane; launches: one run of the probe",
+         "fill_planes": fill, "fill_ms": rows_table[fill]["slice"], "fill_plain_ms": rows_plain[fill]["slice"],
+         "fill_bound_ms": sublane_ops.rows_bound_ms(fill)},
+        {"name": "roll_rows (P3)", "route": "cuda", "source": PROBES_SOURCE,
+         "replaces": "scripts/exp_sublane_ops.py:63 (k_roll)", "launches": launches["P3"], "max_abs_err": errs["P3"],
+         "ms": rows_table[1]["roll"], "plain_ms": rows_plain[1]["roll"], "bound_ms": sublane_ops.rows_bound_ms(1),
+         "bound_by": "bytes", "library_ms": None,
+         "per": f"one launch on one [{sublane_ops.ROWS}, {sublane_ops.LANES}] float32 plane; launches: one run of the probe",
+         "fill_planes": fill, "fill_ms": rows_table[fill]["roll"], "fill_plain_ms": rows_plain[fill]["roll"],
+         "fill_bound_ms": sublane_ops.rows_bound_ms(fill)},
+        {"name": "tap_matmul (P4)", "route": "cuda", "source": PROBES_SOURCE,
+         "replaces": "scripts/exp_sublane_ops.py:80", "launches": launches["P4"], "max_abs_err": errs["P4"],
+         "ms": rows_table[1]["matmul"], "plain_ms": mm_plain[1], "bound_ms": max(mm_bound[1].values()),
+         "bound_by": max(mm_bound[1], key=mm_bound[1].get), "library_ms": mm_library[1],
+         "library_is": "F.conv1d, bf16, 11 taps all holding w, dilation 8",
+         "per": f"one launch, x [{sublane_ops.MM_ROWS}, 96] @ w [96, 96], {sublane_ops.TAPS} taps, bf16; launches: one "
+                f"run of the probe",
+         "fill_planes": fill, "fill_ms": rows_table[fill]["matmul"], "fill_plain_ms": mm_plain[fill],
+         "fill_bound_ms": max(mm_bound[fill].values()), "fill_library_ms": mm_library[fill]},
     ]
     train_step = {name: {"ms": v[0], "peak_gib": v[1]} for name, v in train_stats.items()}
-    print(json.dumps({"kernels": kernels, "train_step": train_step}))
+    codec_train_step = {name: {"ms": v[0], "peak_gib": v[1], "audio_s_per_s": v[2]} for name, v in codec_stats.items()}
+    codec_train_step["parts_ms"] = parts
+    codec_train_step["state_gib"] = state_gib
+    codec_train_step["overfit"] = {"steps": overfit_steps, "seconds": overfit_s, "val_loss": curve}
+    print(json.dumps({"kernels": kernels, "train_step": train_step, "codec_train_step": codec_train_step}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 

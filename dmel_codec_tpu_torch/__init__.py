@@ -11,10 +11,12 @@ NVIDIA Hopper. Same layer map as the JAX package:
              Qwen2-style decoder and the slow-fast LM, chunked (streaming)
              codec inference
   lm/        token grids, tokenizer, sampling, generation, audio -> grid batches
-  train/     the LM trainer (full and LoRA), its fit loop, schedules, checkpoints
+  train/     the LM trainer (full and LoRA) and the codec GAN trainer, their fit
+             loops, losses, the optimizer, schedules, checkpoints
   eval/      the numpy-in/numpy-out codec adapter
-  cli/       entry points (infer_lm, stream_codec, train_lm)
-  probes/    development probes of the kernels (K1 ablations)
+  cli/       entry points (infer_lm, stream_codec, train_lm, train_codec)
+  probes/    development probes of the kernels (K1 ablations, K1's tiling,
+             row-shifted reads, the tap-matmul form of a conv)
   data/      WAV loading, cut manifests, the bucketed batch loader
   utils/     masks, precision, YAML configs, logging
   convert.py JAX parameter trees -> this package's state_dicts

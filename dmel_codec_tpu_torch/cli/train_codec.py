@@ -1,0 +1,91 @@
+"""Codec GAN training entry point (port of `dmel_codec_tpu/cli/train_codec.py`;
+reads the same YAML).
+
+    python -m dmel_codec_tpu_torch.cli.train_codec --config configs/codec.yaml
+
+YAML sections: model (DMelCodecConfig), train (CodecTrainConfig), fit
+(FitConfig), data {train_manifest, val_manifest, max_duration,
+val_max_duration, seed}. Checkpoints go to `fit.ckpt_dir` as
+`step_<N>/{step,gen_params,disc_params,gen_opt_state,disc_opt_state}.pt`
+(train/checkpoint.py); a run resumes from the newest one, and serving
+(`cli/common.load_codec_adapter`) reads its `gen_params`. Runs on `--device`
+(default cuda) in one process: `--distributed`, or a `distributed:` section
+with `enabled: true`, is refused until data parallelism is ported (ROADMAP
+item 13).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from dmel_codec_tpu_torch.cli.common import without_jax_only
+from dmel_codec_tpu_torch.data.loader import DataLoader
+from dmel_codec_tpu_torch.data.manifest import load_manifest
+from dmel_codec_tpu_torch.models.codec import DMelCodecConfig
+from dmel_codec_tpu_torch.train.codec_trainer import CodecTrainConfig, CodecTrainer
+from dmel_codec_tpu_torch.train.loop import CodecFitLoop, FitConfig
+from dmel_codec_tpu_torch.utils.config import dataclass_from_dict, load_yaml, print_config_tree
+from dmel_codec_tpu_torch.utils.logging import RankedLogger
+
+log = RankedLogger(__name__)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Train the dMel codec (GAN)")
+    parser.add_argument("--config", required=True)
+    parser.add_argument(
+        "--distributed",
+        action="store_true",
+        help="multi-process training; not available yet (ROADMAP item 13) and refused",
+    )
+    parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
+    args = parser.parse_args(argv)
+    device = torch.device(args.device)
+
+    cfg = load_yaml(args.config)
+    log.info("config:\n" + print_config_tree(cfg))
+
+    if args.distributed or (cfg.get("distributed") or {}).get("enabled"):
+        raise NotImplementedError(
+            "distributed codec training (--distributed / `distributed: {enabled: true}`) is not ported "
+            "yet: data parallelism over torch.distributed is ROADMAP item 13. Run one process on one "
+            "device, or remove the setting."
+        )
+
+    codec_cfg = dataclass_from_dict(DMelCodecConfig, cfg.get("model"))
+    train_cfg = dataclass_from_dict(CodecTrainConfig, cfg.get("train"))
+    fit_cfg = dataclass_from_dict(FitConfig, without_jax_only(cfg.get("fit")))
+    data = cfg.get("data", {})
+
+    train_cuts = load_manifest(data["train_manifest"])
+
+    def train_batches(epoch):
+        return DataLoader(
+            train_cuts,
+            sample_rate=codec_cfg.sample_rate,
+            max_duration=data.get("max_duration", 210.0),
+            seed=data.get("seed", 0),
+        ).epoch(epoch)
+
+    val_batches = None
+    if data.get("val_manifest"):
+        val_cuts = load_manifest(data["val_manifest"])
+
+        def val_batches():
+            return iter(
+                DataLoader(
+                    val_cuts,
+                    sample_rate=codec_cfg.sample_rate,
+                    max_duration=data.get("val_max_duration", 4.0),
+                    shuffle=False,
+                )
+            )
+
+    trainer = CodecTrainer(codec_cfg, train_cfg, device=device)
+    CodecFitLoop(trainer, train_batches, val_batches, fit_cfg).run()
+
+
+if __name__ == "__main__":
+    main()

@@ -11,7 +11,8 @@ values are CPU float tensors for `load_state_dict`.
 Layouts: Dense [in, out] -> Linear [out, in] (or [out, in, 1] for the
 reference's 1x1 convs); conv [k, in, out] -> [out, in, k]; transposed conv
 [k, in, out] -> [in, out, k]; vmapped `rvqs` leading group axis ->
-`rvqs.{g}`; quantizer up stage idx -> Sequential position n - 1 - idx;
+`rvqs.{g}`; 2-D conv [k_mel, k_time, in, out] -> [out, in, k_mel, k_time];
+the discriminator's `conv_{i}` -> `blocks.{2i}`; quantizer up stage idx -> Sequential position n - 1 - idx;
 `nn.Embed.embedding` -> `Embedding.weight`; the LM's `audio_projector`
 DenseGeneral kernel [C, H, H_out] -> Linear [H_out, C * H], the order in
 which the port flattens the codebook embeddings. A LoRA adapter tree keeps
@@ -137,6 +138,30 @@ def bigvgan_state_dict_from_jax(params: dict, cfg: BigVGANConfig) -> Dict[str, t
             for a in range((2 if cfg.resblock == "1" else 1) * len(dils)):
                 _act(sd, f"{out}.activations.{a}", blk[f"act_{a}"])
     return sd
+
+
+def discriminator_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """MelDiscriminator flax params ->
+    `dmel_codec_tpu_torch.models.discriminator.MelDiscriminator` state_dict:
+    the inverse of the JAX package's `discriminator_params_from_torch`."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(len(params)):
+        p, out = params[f"conv_{i}"], f"blocks.{2 * i}"
+        sd[f"{out}.weight_v"] = _t(np.transpose(p["v"], (3, 2, 0, 1)))
+        sd[f"{out}.weight_g"] = _t(np.asarray(p["g"]).reshape(-1, 1, 1, 1))
+        sd[f"{out}.bias"] = _t(p["bias"])
+    return sd
+
+
+def codec_train_state_from_jax(trainer, gen_params: dict, disc_params: dict):
+    """A `CodecTrainState` of `trainer` (a
+    `dmel_codec_tpu_torch.train.codec_trainer.CodecTrainer`) at step 0 that
+    holds the JAX trainer's `gen_params` and `disc_params` (numpy trees),
+    with fresh optimizer states."""
+    state = trainer.init_state(0)
+    trainer.codec.load_state_dict(codec_state_dict_from_jax(gen_params))
+    trainer.discriminator.load_state_dict(discriminator_state_dict_from_jax(disc_params))
+    return state
 
 
 def _dense(p: dict) -> Dict[str, torch.Tensor]:

@@ -7,8 +7,7 @@ quality_projection.), so its checkpoints load directly.
 
 Public layouts are the JAX package's: mels [B, T, M], masks [B, T, 1],
 features/conditions/noise [B, T, C], indices [B, G*R, L]. The WaveNets and
-the quantizer's conv stacks run channels-first inside. The training forward
-is not ported yet.
+the quantizer's conv stacks run channels-first inside.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ import torch
 from torch import nn
 
 from dmel_codec_tpu_torch.nn.wavenet import WaveNet
-from dmel_codec_tpu_torch.quantize.downsample_fsq import DownsampleFiniteScalarQuantize
+from dmel_codec_tpu_torch.quantize.downsample_fsq import DownsampleFiniteScalarQuantize, FSQResult
 from dmel_codec_tpu_torch.utils.masks import sequence_mask
 
 
@@ -111,6 +110,27 @@ class DMelCodec(nn.Module):
     def project_quality(self, quality: torch.Tensor) -> torch.Tensor:
         """quality [B, 1] -> [B, 1, concat]."""
         return self.quality_projection(quality)[:, None, :]
+
+    # ---- training forward ---------------------------------------------------
+    def forward(
+        self,
+        encode_mels: torch.Tensor,
+        mel_masks: torch.Tensor,
+        quality: torch.Tensor,
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, FSQResult]:
+        """Training-path forward: encode_mels [B, T, M], mel_masks
+        [B, T, 1], quality [B, 1] -> (gen_mel [B, T, M], vq_result).
+
+        noise [B, T, concat]; when absent it is drawn from `generator`, a
+        `torch.Generator` on the module's device."""
+        features = self.encode_features(encode_mels, mel_masks)
+        vq_result = self.quantizer(features.transpose(1, 2))
+        z = vq_result.z.transpose(1, 2) * mel_masks + self.project_quality(quality)
+        if noise is None:
+            noise = torch.randn(z.shape, generator=generator, device=z.device, dtype=z.dtype)
+        return self.decode_mel(z * mel_masks, mel_masks, noise), vq_result
 
     # ---- public token API (reference codec_lit_modules.py:462-531) --------
     def encode_unquantized(

@@ -5,6 +5,7 @@ Parameters use torch's classic weight_norm names (`weight_v`, `weight_g`,
 (models/bigvgan.py `_wn_pair`). Norm over every axis but dim 0 of the torch
 layout:
   * Conv1d          [out, in, k] -> one g per OUTPUT channel
+  * Conv2d          [out, in, k_h, k_w] -> one g per OUTPUT channel
   * ConvTranspose1d [in, out, k] -> one g per INPUT channel
 `weight()` materialises g * v / ||v|| (in float32, cast back to v's dtype);
 the serving vocoder calls it once per conv.
@@ -70,3 +71,17 @@ class WNConvTranspose1d(_WeightNormed):
         return F.conv_transpose1d(
             x, self.weight(), self.bias, stride=self.stride, padding=self.padding
         )
+
+
+class WNConv2d(_WeightNormed):
+    """2-D weight-normalised conv on [B, C, H, W]; `weight_v`
+    [out, in, k_h, k_w], one g per output channel, symmetric padding."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size, stride=(1, 1), padding=(0, 0)):
+        k_h, k_w = kernel_size
+        super().__init__((out_ch, in_ch, k_h, k_w), in_ch * k_h * k_w, out_ch, True)
+        self.stride = tuple(stride)
+        self.padding = tuple(padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight(), self.bias, stride=self.stride, padding=self.padding)

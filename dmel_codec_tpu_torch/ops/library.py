@@ -46,6 +46,10 @@ _SIGNATURES = {
     "dmel_stage_v1": [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
     ],
+    "dmel_cf_act": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "dmel_rows_slice": [_P, _P, _I, _I, _I, _I, _P],
+    "dmel_rows_roll": [_P, _P, _I, _I, _I, _I, _P],
+    "dmel_tap_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dmel_stage_v1_scratch_floats": [],
     "dmel_stage_v1_smem_bytes": [],
 }

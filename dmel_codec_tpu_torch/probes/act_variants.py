@@ -26,6 +26,7 @@ from dmel_codec_tpu_torch.nn.resample import downsample1d, upsample1d
 from dmel_codec_tpu_torch.nn.snake import snake_beta
 from dmel_codec_tpu_torch.ops import library
 from dmel_codec_tpu_torch.ops.anti_alias import FILT, anti_alias_activation_reference
+from dmel_codec_tpu_torch.probes.timing import cuda_ms, require_gpu
 
 VARIANTS = ("full", "copy", "no_snake", "no_fir")  # the kernel's enum order
 # [B, C, T]: act_post, stage 0 and stage 1 of a 16 x 4 s request, and the JAX probe's shape
@@ -89,23 +90,12 @@ def time_variants(shape, dtype=torch.bfloat16, reps: int = 20, device="cuda") ->
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.randn(shape, device=device, generator=gen).to(dtype)
     alpha = 0.1 * torch.randn(shape[1], device=device, generator=gen)
-    out = {}
-    for v in VARIANTS:
-        run_variant(x, alpha, alpha, v)  # warm-up
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            run_variant(x, alpha, alpha, v)
-        end.record()
-        torch.cuda.synchronize()
-        out[v] = start.elapsed_time(end) / reps
-    return out
+    return {v: cuda_ms(lambda v=v: run_variant(x, alpha, alpha, v), reps) for v in VARIANTS}
 
 
 def main() -> dict:
     """Prints the table; returns {shape: {variant: ms}}."""
-    if not torch.cuda.is_available():
-        raise SystemExit("act_variants: the probe times a CUDA kernel and needs a GPU")
+    require_gpu("act_variants")
     print(torch.cuda.get_device_name(0))
     print(f"{'shape':<20}" + "".join(f"{v:>10}" for v in VARIANTS) + "   (ms, bf16)")
     table = {}

@@ -1,0 +1,213 @@
+"""Probe row-shifted reads of a resident plane and the tap-matmul form of a
+conv (port of `scripts/exp_sublane_ops.py`). With rows the time axis and
+columns the channels, and off over OFFSETS = (0, 1, 3, 5, 7, 9):
+
+  slice_rows   y[i] = sum_off x[i + off]               i < out_rows   (P2)
+  roll_rows    y[i] = sum_off x[(i - off) mod rows]    i < out_rows   (P3)
+  tap_matmul   y = sum_{i < taps} x[step*i : step*i + out_rows] @ w   (P4)
+
+P2 and P3 take float32 planes [rows, cols] and add in the order of
+OFFSETS, so they equal the JAX kernels to the bit. P3 is `np.roll`'s
+rotate of the whole plane and NOT P2's sum (the two differ wherever
+i < 9). P4 takes bfloat16 operands x [rows, K], w [K, N] and accumulates in
+float32. Every function also takes a leading planes axis [P, ...], so that
+a timing can fill the card; P = 1 is the JAX probe's case. On a CPU tensor
+each runs its plain version (`slice_reference`, `roll_reference`,
+`tap_matmul_reference`); on a CUDA tensor it launches its kernel
+(csrc/probes.cu: `dmel_rows_slice`, `dmel_rows_roll`, `dmel_tap_matmul`, the
+last a hand-written mma.sync product) or raises.
+
+    python -m dmel_codec_tpu_torch.probes.sublane_ops
+
+checks the three against their plain versions at the JAX probe's shapes
+(x [1280, 96] -> [112, 96]; x [2176, 96] @ w [96, 96], 11 taps -> [1024, 96])
+at P = 1 and P = 264, raising if P2 or P3 differ from plain by a bit or P4 by
+more than 1e-4 of max |y|, and prints ms per launch at both beside the bounds.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dmel_codec_tpu_torch.ops import library
+from dmel_codec_tpu_torch.probes.timing import PEAK_BF16, PEAK_BYTES, cuda_ms, require_gpu
+
+OFFSETS = (0, 1, 3, 5, 7, 9)
+ROWS, LANES, OUT_ROWS = 1280, 96, 112        # P2 / P3 at the JAX probe's shape
+MM_ROWS, MM_OUT, TAPS, STEP = 2176, 1024, 11, 8  # P4
+FILL_PLANES = 264  # two blocks' worth of planes per SM of an H100
+MM_TOL = 1e-4  # of max |y|: only the order of 11 x 96 float32 additions differs from plain
+
+
+def slice_reference(x: torch.Tensor, out_rows: int = OUT_ROWS) -> torch.Tensor:
+    acc = x[..., 0:out_rows, :].float()
+    for off in OFFSETS[1:]:
+        acc = acc + x[..., off : off + out_rows, :].float()
+    return acc
+
+
+def roll_reference(x: torch.Tensor, out_rows: int = OUT_ROWS) -> torch.Tensor:
+    rows = x.shape[-2]
+    i = torch.arange(out_rows, device=x.device)
+    acc = x[..., :out_rows, :].float()
+    for off in OFFSETS[1:]:
+        acc = acc + x[..., (i - off) % rows, :].float()
+    return acc
+
+
+def tap_matmul_reference(
+    x: torch.Tensor, w: torch.Tensor, out_rows: int = MM_OUT, taps: int = TAPS, step: int = STEP
+) -> torch.Tensor:
+    """Float32 products of the operands as they are (bfloat16 values are
+    exact in float32), summed over the taps."""
+    wf = w.float()
+    return sum(x[..., step * i : step * i + out_rows, :].float() @ wf for i in range(taps))
+
+
+def _planes(x: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:
+    """`x` as contiguous [P, rows, cols] of `dtype` on a CUDA device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if x.dim() not in (2, 3) or x.numel() == 0:
+        raise ValueError(f"{name} must be a non-empty [rows, cols] or [P, rows, cols] tensor, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return x if x.dim() == 3 else x[None]
+
+
+def _rows_op(x: torch.Tensor, out_rows: int, symbol: str, wrapper) -> torch.Tensor:
+    lib = library.load()
+    xp = _planes(x, torch.float32, "x")
+    p, rows, cols = xp.shape
+    if not 1 <= out_rows <= rows - OFFSETS[-1]:
+        raise ValueError(f"out_rows must be 1..{rows - OFFSETS[-1]} for {rows} rows, got {out_rows}")
+    y = torch.empty((p, out_rows, cols), device=x.device, dtype=torch.float32)
+    rc = getattr(lib, symbol)(xp.data_ptr(), y.data_ptr(), p, rows, cols, out_rows, library.stream(x))
+    library.check(lib, rc, symbol)
+    wrapper.launches += 1
+    return y if x.dim() == 3 else y[0]
+
+
+def slice_rows(x: torch.Tensor, out_rows: int = OUT_ROWS) -> torch.Tensor:
+    """[.., rows, cols] float32 -> [.., out_rows, cols] float32 (P2)."""
+    if x.device.type == "cpu":
+        return slice_reference(x, out_rows)
+    return _rows_op(x, out_rows, "dmel_rows_slice", slice_rows)
+
+
+def roll_rows(x: torch.Tensor, out_rows: int = OUT_ROWS) -> torch.Tensor:
+    """[.., rows, cols] float32 -> [.., out_rows, cols] float32 (P3)."""
+    if x.device.type == "cpu":
+        return roll_reference(x, out_rows)
+    return _rows_op(x, out_rows, "dmel_rows_roll", roll_rows)
+
+
+def tap_matmul(
+    x: torch.Tensor, w: torch.Tensor, out_rows: int = MM_OUT, taps: int = TAPS, step: int = STEP
+) -> torch.Tensor:
+    """x [.., rows, K] bfloat16, w [K, N] bfloat16 -> [.., out_rows, N] float32 (P4)."""
+    if x.device.type == "cpu":
+        return tap_matmul_reference(x, w, out_rows, taps, step)
+    lib = library.load()
+    xp = _planes(x, torch.bfloat16, "x")
+    p, rows, k = xp.shape
+    if w.dim() != 2 or w.shape[0] != k or w.device != x.device or w.dtype != torch.bfloat16 or not w.is_contiguous():
+        raise ValueError(f"w must be a contiguous bfloat16 [{k}, N] on {x.device}, got {w.dtype} {tuple(w.shape)} on {w.device}")
+    n = w.shape[1]
+    if k % 16 or n % 8 or k > 128 or n > 128:
+        raise ValueError(f"K must be a multiple of 16 and N of 8, both up to 128; got K = {k}, N = {n}")
+    if taps < 1 or step < 0 or out_rows < 1 or step * (taps - 1) + out_rows > rows:
+        raise ValueError(f"{taps} taps of step {step} and {out_rows} output rows do not fit {rows} rows")
+    y = torch.empty((p, out_rows, n), device=x.device, dtype=torch.float32)
+    rc = lib.dmel_tap_matmul(
+        xp.data_ptr(), w.data_ptr(), y.data_ptr(), p, rows, out_rows, k, n, taps, step, library.stream(x)
+    )
+    library.check(lib, rc, "dmel_tap_matmul")
+    tap_matmul.launches += 1
+    return y if x.dim() == 3 else y[0]
+
+
+# P2 / P3 / P4 launches, counted where the kernel is launched
+slice_rows.launches = roll_rows.launches = tap_matmul.launches = 0
+
+
+def rows_bound_ms(planes: int, cols: int = LANES, out_rows: int = OUT_ROWS) -> float:
+    """Least time by bytes for P2 or P3: the out_rows + 9 rows a plane's
+    result depends on read once, the result written once (float32)."""
+    return planes * (2 * out_rows + OFFSETS[-1]) * cols * 4 / PEAK_BYTES * 1e3
+
+
+def tap_matmul_bound_ms(planes: int, k: int = LANES, n: int = LANES, out_rows: int = MM_OUT,
+                        taps: int = TAPS, step: int = STEP) -> dict:
+    """Least time for P4: the rows of x that the taps read and w once in
+    bfloat16 and y once in float32, against taps * 2 M K N flops at the
+    bf16 tensor-core rate. {"bytes": ms, "operations": ms}."""
+    nbytes = planes * ((out_rows + step * (taps - 1)) * k * 2 + out_rows * n * 4) + k * n * 2
+    flops = planes * taps * 2 * out_rows * k * n
+    return {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": flops / PEAK_BF16 * 1e3}
+
+
+def _inputs(planes: int, device):
+    """Seeded x [P, 1280, 96] float32, xb [P, 2176, 96] and w [96, 96] bfloat16."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((planes, ROWS, LANES), device=device, generator=gen)
+    xb = torch.randn((planes, MM_ROWS, LANES), device=device, generator=gen).to(torch.bfloat16)
+    w = torch.randn((LANES, LANES), device=device, generator=gen).to(torch.bfloat16)
+    return x, xb, w
+
+
+def check_probes(planes: int, device="cuda") -> dict:
+    """Errors of P2, P3 and P4 against plain on `planes` planes, and the
+    largest |P3 - P2|. Raises unless P2 and P3 give plain's bits, P4 is
+    within MM_TOL of max |y|, and P3 differs from P2 (two functions)."""
+    x, xb, w = _inputs(planes, device)
+    out = {}
+    for name, fn, ref in (("slice", slice_rows, slice_reference), ("roll", roll_rows, roll_reference)):
+        got, want = fn(x), ref(x)
+        out[name] = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}_rows, {planes} planes: max abs err {out[name]:.3e} vs plain, expected the same bits")
+    out["roll vs slice"] = float((roll_rows(x) - slice_rows(x)).abs().max())
+    if not out["roll vs slice"] > 1.0:
+        raise AssertionError(f"roll_rows equals slice_rows to {out['roll vs slice']:.3e}: they are two functions")
+    want = tap_matmul_reference(xb, w)
+    out["matmul"], out["max |y|"] = float((tap_matmul(xb, w) - want).abs().max()), float(want.abs().max())
+    if not out["matmul"] <= MM_TOL * out["max |y|"]:
+        raise AssertionError(f"tap_matmul, {planes} planes: max abs err {out['matmul']:.3e} vs plain at max |y| {out['max |y|']:.1f}")
+    return out
+
+
+def time_probes(planes: int, reps: int = 20, device="cuda") -> dict:
+    """Mean ms per launch of P2, P3 and P4 on `planes` planes."""
+    x, xb, w = _inputs(planes, device)
+    return {
+        "slice": cuda_ms(lambda: slice_rows(x), reps),
+        "roll": cuda_ms(lambda: roll_rows(x), reps),
+        "matmul": cuda_ms(lambda: tap_matmul(xb, w), reps),
+    }
+
+
+def main() -> dict:
+    """Checks the three kernels against plain at both plane counts (raising
+    on a disagreement), prints the table; returns {planes: {name: ms}}."""
+    require_gpu("sublane_ops")
+    print(torch.cuda.get_device_name(0))
+    for planes in (1, FILL_PLANES):
+        err = check_probes(planes)
+        print(f"P = {planes}: max err vs plain: slice {err['slice']:.2e}, roll {err['roll']:.2e}, matmul "
+              f"{err['matmul']:.2e} (max |y| {err['max |y|']:.1f}); roll vs slice {err['roll vs slice']:.2f} (two functions)")
+    table = {}
+    print(f"{'planes':<8}{'slice':>9}{'roll':>9}{'bound':>9}{'matmul':>9}{'bound':>9}   (ms per launch)")
+    for planes in (1, FILL_PLANES):
+        ms = table[planes] = time_probes(planes)
+        print(f"{planes:<8}{ms['slice']:>9.4f}{ms['roll']:>9.4f}{rows_bound_ms(planes):>9.5f}"
+              f"{ms['matmul']:>9.4f}{max(tap_matmul_bound_ms(planes).values()):>9.5f}", flush=True)
+    flops = TAPS * 2 * MM_OUT * LANES * LANES
+    print(f"matmul at P = {FILL_PLANES}: {FILL_PLANES * flops / table[FILL_PLANES]['matmul'] / 1e9:.1f} TFLOP/s")
+    return table
+
+
+if __name__ == "__main__":
+    main()

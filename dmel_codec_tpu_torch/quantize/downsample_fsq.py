@@ -11,13 +11,22 @@ reference's [B, G*R, L] ("b (g r) l").
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+import torch.nn.functional as F
 
 from dmel_codec_tpu_torch.nn.convnext import ConvNeXtBlock
 from dmel_codec_tpu_torch.quantize.fsq import GroupedResidualFSQ
+
+
+@dataclasses.dataclass
+class FSQResult:
+    z: torch.Tensor        # reconstructed features, channels-first like the input
+    codes: torch.Tensor    # [G, B, L, Q] raw grouped indices
+    latents: torch.Tensor  # pre-quantization downsampled features [B, L, dim]
 
 
 class DownsampleFiniteScalarQuantize(nn.Module):
@@ -67,14 +76,46 @@ class DownsampleFiniteScalarQuantize(nn.Module):
         b, gf, t = z.shape
         return z.reshape(b * self.n_groups, gf // self.n_groups, t)
 
-    def encode(self, z: torch.Tensor) -> torch.Tensor:
-        """[B*G, f, T] (dMel) or [B, C, T] -> indices [B, G*R, L]."""
+    def _downsample(self, z: torch.Tensor) -> torch.Tensor:
+        """[B*G, f, T] (dMel) or [B, C, T] -> the FSQ's input [B, L, dim]."""
         batch = z.shape[0] // self.n_groups if self.is_dmel else z.shape[0]
         for stage in self.downsample:
             z = stage(z)
         if self.is_dmel:
             z = self._bands_to_grouped(z, batch)
-        _, indices = self.residual_fsq(z.transpose(1, 2))  # [G, B, L, R]
+        return z.transpose(1, 2)
+
+    def _upsample(self, z: torch.Tensor) -> torch.Tensor:
+        """The FSQ's output [B, L, dim] -> features [B, G*f, L*prod(factors)]."""
+        b = z.shape[0]
+        z = z.transpose(1, 2)
+        if self.is_dmel:
+            z = self._grouped_to_bands(z)
+        for stage in self.upsample:
+            z = stage(z)
+        if self.is_dmel:
+            z = self._bands_to_grouped(z, b)
+        return z
+
+    def forward(self, z: torch.Tensor) -> FSQResult:
+        """Training path. z [B*G, f, T] (dMel) or [B, C, T] ->
+        FSQResult with z [B, G*f, T]: the gradient passes the rounding
+        straight through, and time is zero-padded back to T (the stages
+        give 4 * floor(T / 4) <= T frames)."""
+        original_t = z.shape[-1]
+        latents = self._downsample(z)
+        quantized, codes = self.residual_fsq(latents)
+        zq = self._upsample(quantized)
+        diff = original_t - zq.shape[-1]
+        if diff < 0:
+            raise ValueError("upsample produced more frames than the input")
+        if diff > 0:
+            zq = F.pad(zq, (diff // 2, diff - diff // 2))
+        return FSQResult(z=zq, codes=codes, latents=latents)
+
+    def encode(self, z: torch.Tensor) -> torch.Tensor:
+        """[B*G, f, T] (dMel) or [B, C, T] -> indices [B, G*R, L]."""
+        _, indices = self.residual_fsq(self._downsample(z))  # [G, B, L, R]
         g, b, l, r = indices.shape
         return indices.permute(1, 0, 3, 2).reshape(b, g * r, l)
 
@@ -86,13 +127,7 @@ class DownsampleFiniteScalarQuantize(nn.Module):
         b, gr, l = indices.shape
         g = self.n_groups
         grouped = indices.reshape(b, g, gr // g, l).permute(1, 0, 3, 2)  # [G, B, L, R]
-        z = self.residual_fsq.decode(grouped).transpose(1, 2)  # [B, dim, L]
+        z = self.residual_fsq.decode(grouped)  # [B, L, dim]
         if dtype is not None:
             z = z.to(dtype)
-        if self.is_dmel:
-            z = self._grouped_to_bands(z)
-        for stage in self.upsample:
-            z = stage(z)
-        if self.is_dmel:
-            z = self._bands_to_grouped(z, b)
-        return z
+        return self._upsample(z)

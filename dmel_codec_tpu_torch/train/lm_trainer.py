@@ -12,7 +12,7 @@ buffer donation gives the JAX trainer): `train_step(state, batch)` returns
 the same state object, advanced. A full state's `params` are the trainer's
 own model parameters, so a trainer carries one full state at a time.
 
-The optimizer chain has optax's semantics (`LMOptimizer`): gradients are
+The optimizer chain has optax's semantics (`train/optim.py`): gradients are
 averaged over `accumulate_grad` micro-steps, the clip acts on the average,
 the schedule advances once per update, and with `skip_nonfinite_updates`
 a non-finite micro-step is dropped, up to N in a row.
@@ -35,6 +35,7 @@ from dmel_codec_tpu_torch.train.lora import (
     loss_and_grads_lora,
     merge_lora,
 )
+from dmel_codec_tpu_torch.train.optim import AccumulatingAdamW, copy_into, detached, global_norm
 from dmel_codec_tpu_torch.train.schedule import cosine_schedule_with_warmup
 
 BATCH_KEYS = ("text_tokens", "audio_tokens", "text_labels", "audio_labels", "valid")
@@ -95,138 +96,20 @@ def topk_accuracy(
     return {k: ((rank < k) & valid & in_range).sum() / n_valid for k in ks}
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
-
-
-class LMOptimizer:
-    """clip-by-global-norm -> AdamW(schedule), behind gradient accumulation
-    and the non-finite guard, with the semantics of the JAX trainer's
-    `optax.apply_if_finite(optax.MultiSteps(optax.chain(clip, adamw), k), n)`:
-
-      * `update(grads)` is one micro-step. The accumulator keeps the running
-        MEAN of the micro-step gradients; on every k-th micro-step the mean
-        is clipped, AdamW takes one step at lr = schedule(number of updates
-        so far), and the accumulator is cleared.
-      * With `skip_nonfinite_updates` = n > 0, a micro-step whose gradient
-        holds a NaN or Inf changes nothing (not even the accumulator's
-        count), unless n such micro-steps came directly before it: then it
-        is taken like any other, and the update it is part of turns every
-        parameter non-finite (optax does that on the micro-step itself, also
-        where no update is emitted: its masked update is 0 * NaN; here the
-        parameters follow at the cycle's emitting micro-step).
-    `torch.optim.AdamW` is optax's `adamw`: decay decoupled and times the
-    scheduled lr, eps outside the root after bias correction. Parameters
-    are updated in place."""
-
-    def __init__(self, params: Dict[str, torch.Tensor], decay: Dict[str, bool], config: LMTrainConfig, schedule):
-        self.config = config
-        self.schedule = schedule
-        self.names = list(params)
-        self.params = [params[n] for n in self.names]
-        groups = [
-            {"params": [params[n] for n in self.names if decay[n]], "weight_decay": config.weight_decay},
-            {"params": [params[n] for n in self.names if not decay[n]], "weight_decay": 0.0},
-        ]
-        self.adamw = torch.optim.AdamW(
-            [g for g in groups if g["params"]], lr=config.learning_rate, betas=tuple(config.betas), eps=config.eps
-        )
-        self.k = max(1, config.accumulate_grad)
-        self.acc_grads = [torch.zeros_like(p) for p in self.params] if self.k > 1 else None
-        self.mini_step = 0
-        self.gradient_step = 0
-        self.notfinite_count = 0
-        self.total_notfinite = 0
-
-    @torch.no_grad()
-    def update(self, grads: Sequence[torch.Tensor]) -> None:
-        """One micro-step; `grads` (in the order of the parameters) are
-        consumed: the accumulation and the clip work in place on them."""
-        grads = list(grads)
-        limit = self.config.skip_nonfinite_updates
-        if limit > 0:
-            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
-            self.notfinite_count = 0 if finite else self.notfinite_count + 1
-            self.total_notfinite += 0 if finite else 1
-            if not (finite or self.notfinite_count > limit):
-                return
-        if self.acc_grads is not None:
-            # acc += (g - acc) / (n + 1): the running mean over the micro-steps
-            torch._foreach_sub_(grads, self.acc_grads)
-            torch._foreach_div_(grads, float(self.mini_step + 1))
-            torch._foreach_add_(self.acc_grads, grads)
-            emit = self.mini_step == self.k - 1
-            self.mini_step = (self.mini_step + 1) % self.k
-            if not emit:
-                return
-            grads = self.acc_grads
-        norm = float(global_norm(grads))
-        if not norm < self.config.grad_clip:
-            torch._foreach_div_(grads, norm)
-            torch._foreach_mul_(grads, self.config.grad_clip)
-        lr = self.schedule(self.gradient_step)
-        for group in self.adamw.param_groups:
-            group["lr"] = lr
-        for p, g in zip(self.params, grads):
-            p.grad = g
-        self.adamw.step()
-        for p in self.params:
-            p.grad = None
-        self.gradient_step += 1
-        if self.acc_grads is not None:
-            torch._foreach_zero_(self.acc_grads)
-
-    def state_dict(self) -> dict:
-        acc = None
-        if self.acc_grads is not None:
-            acc = dict(zip(self.names, self.acc_grads))
-        return {
-            "adamw": self.adamw.state_dict(),
-            "acc_grads": acc,
-            "mini_step": self.mini_step,
-            "gradient_step": self.gradient_step,
-            "notfinite_count": self.notfinite_count,
-            "total_notfinite": self.total_notfinite,
-        }
-
-    @torch.no_grad()
-    def load_state_dict(self, sd: dict) -> None:
-        self.adamw.load_state_dict(sd["adamw"])
-        if (sd["acc_grads"] is None) != (self.acc_grads is None):
-            raise ValueError("the checkpoint's accumulate_grad setting differs from this optimizer's")
-        if self.acc_grads is not None:
-            for name, acc in zip(self.names, self.acc_grads):
-                acc.copy_(sd["acc_grads"][name])
-        for key in ("mini_step", "gradient_step", "notfinite_count", "total_notfinite"):
-            setattr(self, key, int(sd[key]))
-
-
-def _detached(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {k: v.detach() for k, v in tree.items()}
-
-
-@torch.no_grad()
-def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor], what: str) -> None:
-    if set(dst) != set(src):
-        raise ValueError(f"{what}: the checkpoint's tensors differ from the state's ({sorted(set(dst) ^ set(src))[:5]})")
-    for name, t in dst.items():
-        t.copy_(src[name])
-
-
 @dataclasses.dataclass
 class LMTrainState:
     """`step` counts micro-steps. `params` maps names to the trained
-    tensors; `opt_state` is the `LMOptimizer` over them."""
+    tensors; `opt_state` is the `AccumulatingAdamW` over them."""
 
     step: int
     params: Dict[str, torch.Tensor]
-    opt_state: LMOptimizer
+    opt_state: AccumulatingAdamW
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "params": _detached(self.params), "opt_state": self.opt_state.state_dict()}
+        return {"step": self.step, "params": detached(self.params), "opt_state": self.opt_state.state_dict()}
 
     def load_state_dict(self, fields: dict) -> None:
-        _copy_into(self.params, fields["params"], "params")
+        copy_into(self.params, fields["params"], "params")
         self.opt_state.load_state_dict(fields["opt_state"])
         self.step = int(fields["step"])
 
@@ -240,19 +123,19 @@ class LoRATrainState:
     step: int
     base_params: Dict[str, torch.Tensor]
     lora: Dict[str, Dict[str, torch.Tensor]]
-    opt_state: LMOptimizer
+    opt_state: AccumulatingAdamW
 
     def state_dict(self) -> dict:
         return {
             "step": self.step,
-            "base_params": _detached(self.base_params),
-            "lora": {name: _detached(ab) for name, ab in self.lora.items()},
+            "base_params": detached(self.base_params),
+            "lora": {name: detached(ab) for name, ab in self.lora.items()},
             "opt_state": self.opt_state.state_dict(),
         }
 
     def load_state_dict(self, fields: dict) -> None:
-        _copy_into(self.base_params, fields["base_params"], "base_params")
-        _copy_into(lora_leaves(self.lora), lora_leaves(fields["lora"]), "lora")
+        copy_into(self.base_params, fields["base_params"], "base_params")
+        copy_into(lora_leaves(self.lora), lora_leaves(fields["lora"]), "lora")
         self.opt_state.load_state_dict(fields["opt_state"])
         self.step = int(fields["step"])
 
@@ -296,11 +179,11 @@ class LMTrainer:
         )
 
     # ---- states ------------------------------------------------------------
-    def make_optimizer(self, params: Dict[str, torch.Tensor], *, adapter: bool = False) -> LMOptimizer:
+    def make_optimizer(self, params: Dict[str, torch.Tensor], *, adapter: bool = False) -> AccumulatingAdamW:
         """`adapter=True`: LoRA a/b matrices get NO weight decay (decaying
         `a` while b == 0 shrinks the init with zero loss signal)."""
         decay = {name: False for name in params} if adapter else _decay_mask(params)
-        return LMOptimizer(params, decay, self.config, self.schedule)
+        return AccumulatingAdamW(params, decay, self.config, self.schedule)
 
     def init_params(self, seed: int = 0) -> Dict[str, torch.Tensor]:
         """The model's parameters, re-initialised from `seed` (no optimizer

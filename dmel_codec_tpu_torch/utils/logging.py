@@ -1,5 +1,5 @@
-"""Rank-aware logging and metric writing (the `RankedLogger` and
-`MetricsWriter` of `dmel_codec_tpu/utils/logging.py`). The writer's backend
+"""Rank-aware logging and metric writing (the `RankedLogger`, `plot_mel`
+and `MetricsWriter` of `dmel_codec_tpu/utils/logging.py`). The writer's backend
 is tensorboardX when importable, always mirrored to a metrics.jsonl for
 machine consumption."""
 
@@ -38,6 +38,23 @@ class RankedLogger(logging.LoggerAdapter):
                 return
             msg, kwargs = self.process(f"[rank {rank}] {msg}", kwargs)
             self.logger.log(level, msg, *args, **kwargs)
+
+
+def plot_mel(mels, titles=None):
+    """List of [M, T] mel arrays -> stacked matplotlib figure."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    n = len(mels)
+    fig, axes = plt.subplots(n, 1, squeeze=False, figsize=(10, 2.5 * n))
+    for i, mel in enumerate(mels):
+        axes[i][0].imshow(np.asarray(mel), origin="lower", aspect="auto", interpolation="none")
+        if titles:
+            axes[i][0].set_title(titles[i], fontsize="medium")
+    fig.tight_layout()
+    return fig
 
 
 class MetricsWriter:

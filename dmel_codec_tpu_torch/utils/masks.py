@@ -10,3 +10,10 @@ def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
     lengths = lengths.reshape(-1)
     positions = torch.arange(max_length, device=lengths.device, dtype=lengths.dtype)
     return positions[None, :] < lengths[:, None]
+
+
+def avg_with_mask(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of x over positions where mask == 1; mask broadcasts against x,
+    and the denominator counts every element of x it covers."""
+    bmask = mask.to(x.dtype).expand_as(x)
+    return (x * bmask).sum() / bmask.sum()
