@@ -23,12 +23,13 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
   6. stage-wise kernel-vs-plain error of the vocoder in float32, each stage
      fed the same input;
   7. FA (causal GQA flash attention) against its plain version at the slow
-     decoder's head layout, main-path and ragged lengths, and at the fast
-     decoder's head size, float32 and bfloat16;
+     decoder's head layout, main-path and ragged lengths, and at head sizes
+     16 to 128, float32 (CUDA cores) and bfloat16 (tensor cores);
   8. the teacher-forced LM forward at full width (slow 24 x 896, fast
      12 x 480, vocabulary 151936; seeded random bf16 weights) on a batch of
      2 x 2048 grid positions: FA launch count, finite losses, logits with
-     the flash kernel on against off, both timed;
+     the flash kernel on against off, both timed, and a profile of one
+     forward with the kernel (its kernels and the device's idle share);
   9. LM serving through the entry point: `cli.infer_lm.main` on checkpoints
      written to a temporary directory, text prompt -> 128 frames -> codec
      decode -> vocoder -> WAV, with output checks and K1 / K2 launch
@@ -36,13 +37,17 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      a profile of one steady-state frame, and greedy agreement of the three
      generation forms;
  10. FA, its plain version and PyTorch's scaled_dot_product_attention (a
-     yardstick only: nothing in the port calls it) at the main-path shape;
+     yardstick only: nothing in the port calls it) at the main-path shape,
+     with FA's launch (grid, threads and shared memory per block);
  11. K2-v1 (the whole AMP stage in one launch) against its plain version
      at the two flagship widths it holds (C = 48 and 24), at a codec
      request's lengths and at a streaming window's (the path that
      launches it), float32 and bfloat16, ragged lengths and widths, its
      refusal of a wider stage, and its time beside K2's and the plain
-     version's at both; K1 and K2 timed at the window's shapes too;
+     version's at both; K2 in v1 mode (what `use_v2=False` runs at the
+     wider fused stages) against the same plain version at s2 (C = 192)
+     and s3 (C = 96), and its time beside K2's v2 mode; K1 and K2 timed at
+     the window's shapes too;
  12. window invariance of K1, K2 and K2-v1 in float32: a kernel run on a
      slice of the signal gives the bits of its run on the whole signal,
      beyond its receptive field from the cuts;
@@ -57,8 +62,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
  15. every kernel's bound on this card;
  16. FA's backward kernels (FA-dKV, FA-dQ) against their plain versions at
      the slow decoder's head layout (B = 2 x S = 2048 and the trainer's
-     2 x 1024), ragged lengths, the fast decoder's head size and head size
-     128, float32 and bfloat16; two runs bit-equal; the forward's
+     2 x 1024), ragged lengths, head sizes 16 to 128 and a group of one
+     query head, float32 and bfloat16; two runs bit-equal; the forward's
      log-sum-exp against the plain scores';
  17. LM training at full width through the trainer (float32 parameters,
      flash attention on, B = 2 x S = 1024 token-grid batches,
@@ -73,8 +78,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      WAVs with a small LM (the flagship codec tokenizes), checkpoints, a
      resumed run, then `cli.infer_lm.main` on the result;
  19. FA-dKV and FA-dQ timed beside their plain versions and the backward of
-     PyTorch's scaled_dot_product_attention (a yardstick only), and their
-     bounds.
+     PyTorch's scaled_dot_product_attention (a yardstick only), their bounds
+     and their launches (grid, threads and shared memory per block);
  20. the probe kernels P1 (channels-first anti-aliased snake with a
      run-time window), P2 / P3 (row-shifted sums of a resident plane) and
      P4 (11-tap conv as a tap matmul on mma.sync) against their plain
@@ -186,14 +191,20 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, rel: float) ->
 #  FA f32: both sides float32; exp of scores up to ~5 that were summed in
 #    another order (1e-6 relative each) and ~2000-term sums: 2e-5.
 #  FA bf16: both sides compute in float32 from the same bf16 inputs and
-#    round once; a result next to a rounding boundary may round the other
-#    way: one bf16 ulp, 2^-7.
+#    round once, where a result next to a rounding boundary may round the
+#    other way: one bf16 ulp, 2^-7. The kernel also rounds P to bf16 before
+#    P V (the tensor cores take bf16; jax's kernel does the same), the plain
+#    version does not: that moves an output by at most 2^-9 sum_t P_t |v_t|
+#    <= 2^-9 max |v| before its rounding. `fa_rel` adds that term, per case.
 #  FA-dKV / FA-dQ f32: both sides float32 and the same recomputation from
 #    the same L and D; sums of up to ~2000 x 7 terms in another order:
 #    2e-5 (of max(1, max |grad|)).
 #  FA-dKV / FA-dQ bf16: both sides compute in float32 from the same bf16
 #    inputs and round once; a gradient is a sum over up to 14,000 products,
-#    so a result may land two roundings away: two bf16 ulps, 2^-6.
+#    so a result may land two roundings away: two bf16 ulps, 2^-6. FA-dKV
+#    also rounds P^T and dS^T to bf16 before its two accumulating products
+#    (as jax's kernel does): 2^-9 relative per term, of random sign, so the
+#    sum moves by ~2^-9 of its own size, under one ulp; 2^-6 holds.
 #  LM logits, flash on vs off, bf16: the einsum path rounds scores and
 #    probabilities to bf16 (2^-8 relative each) in each of 24 layers where
 #    FA keeps them float32; the differences add up along the residual
@@ -210,6 +221,14 @@ TOL = {("K1", torch.float32): 1e-6, ("K1", torch.bfloat16): 2.0**-7,
 # 36 layers: 1e-3 of the tensor's largest gradient.
 TOL_TRAIN_LOSS, TOL_TRAIN_GRAD = 1e-4, 1e-3
 TOL_LM_MAX, TOL_LM_MEAN = 1.2e-1, 1e-2
+
+
+def fa_rel(dt: torch.dtype, v: torch.Tensor, want: torch.Tensor) -> float:
+    """FA's tolerance relative to max(1, max |plain|): TOL["FA"], and in bf16
+    the bound 2^-9 max |v| of the kernel's rounding of P (comment above)."""
+    if dt == torch.float32:
+        return TOL[("FA", dt)]
+    return TOL[("FA", dt)] + 2.0**-9 * v.float().abs().max().item() / max(1.0, want.float().abs().max().item())
 TOL_CHUNKED_DECODE, TOL_CHUNKED_STAGE, TOL_CHUNKED_WAVE = 1e-5, 2e-5, 2e-5
 # The probes, relative to max(1, max |plain|):
 #  P1 f32: sinf and 6-tap sums in another order than the plain version's
@@ -373,14 +392,18 @@ def plain_kernels():
     """Route the vocoder's kernel calls to their plain versions."""
     from dmel_codec_tpu_torch.models import bigvgan
     from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation_reference
-    from dmel_codec_tpu_torch.ops.stage_fused import stage_reference
+    from dmel_codec_tpu_torch.ops.stage_fused import stage_reference, stage_reference_v1
 
-    saved = bigvgan.anti_alias_activation, bigvgan.amp_stage
-    bigvgan.anti_alias_activation, bigvgan.amp_stage = anti_alias_activation_reference, stage_reference
+    def plain_stage(x, packed, spec, v1=False):
+        return (stage_reference_v1 if v1 else stage_reference)(x, packed, spec)
+
+    saved = bigvgan.anti_alias_activation, bigvgan.amp_stage, bigvgan.amp_stage_v1
+    bigvgan.anti_alias_activation, bigvgan.amp_stage = anti_alias_activation_reference, plain_stage
+    bigvgan.amp_stage_v1 = stage_reference_v1
     try:
         yield
     finally:
-        bigvgan.anti_alias_activation, bigvgan.amp_stage = saved
+        bigvgan.anti_alias_activation, bigvgan.amp_stage, bigvgan.amp_stage_v1 = saved
 
 
 def main() -> None:
@@ -620,7 +643,8 @@ def main() -> None:
     # ---- 7. FA vs plain
     log("FA causal GQA flash attention vs plain:")
     fa_cases = [(2, 512, 14, 2, 64), (2, 2048, 14, 2, 64), (1, 4096, 14, 2, 64), (3, 513, 14, 2, 64),
-                (1, 1500, 14, 2, 64), (2, 1, 14, 2, 64), (2, 700, 10, 2, 48)]
+                (1, 1500, 14, 2, 64), (2, 1, 14, 2, 64), (2, 700, 10, 2, 48), (1, 100, 4, 2, 16),
+                (1, 77, 4, 2, 80), (1, 300, 4, 2, 128)]
     errs["FA"] = 0.0
     for b, sq, h, kh, hd in fa_cases:
         q32, k32, v32 = (torch.randn((b, sq, n, hd), device=dev, generator=gen) for n in (h, kh, kh))
@@ -629,7 +653,7 @@ def main() -> None:
             got = flash_attention(q, k, v)
             torch.cuda.synchronize()
             want = flash_attention_reference(q, k, v)
-            e = check_close(f"q {[b, sq, h, hd]} kv heads {kh} {dt}", got, want, TOL[("FA", dt)])
+            e = check_close(f"q {[b, sq, h, hd]} kv heads {kh} {dt}", got, want, fa_rel(dt, v, want))
             if dt == torch.float32:
                 errs["FA"] = max(errs["FA"], e)
             del got, want
@@ -691,6 +715,7 @@ def main() -> None:
         ms_on_1 = cuda_ms(forward, 3)
         ms_on_2 = cuda_ms(forward, 3)
         peak_on = torch.cuda.max_memory_allocated() / 2**30
+        profile_once("one LM forward, flash on", forward)
         set_flash(lm, False)
         ms_off_2 = cuda_ms(forward, 3)
     log(f"  forward ms (off, on, on, off): {ms_off_1:.2f}, {ms_on_1:.2f}, {ms_on_2:.2f}, {ms_off_2:.2f}; "
@@ -799,9 +824,11 @@ def main() -> None:
     n_fa = launches["FA"]
     ms["FA"], plain_ms["FA"], library_fa = n_fa * (fa_ms[1] + fa_ms[3]) / 2, n_fa * fa_ms[0], n_fa * fa_ms[2]
     fa_bound, fa_by = fa_bound_ms(LM_BATCH, LM_SEQ, heads, kv_heads, hd, 2)
-    log(f"  FA {[LM_BATCH, LM_SEQ, heads, hd]} bf16, per launch: plain {fa_ms[0]:.3f} ms, kernel {fa_ms[1]:.3f} / "
-        f"{fa_ms[3]:.3f} ms, scaled_dot_product_attention {fa_ms[2]:.3f} ms, bound {fa_bound:.4f} ms by {fa_by} "
-        f"(x{n_fa} per forward)")
+    fa_launch = fa_ops.launch_config("FA", q)
+    log(f"  FA {[LM_BATCH, LM_SEQ, heads, hd]} bf16, per launch: plain {fa_ms[0]:.3f} ms, kernel {fa_ms[1]:.4f} / "
+        f"{fa_ms[3]:.4f} ms, scaled_dot_product_attention {fa_ms[2]:.4f} ms, bound {fa_bound:.4f} ms by {fa_by} "
+        f"(x{n_fa} per forward); launch: grid {fa_launch['grid']}, {fa_launch['threads']} threads and "
+        f"{fa_launch['smem_bytes']} bytes of shared memory per block")
 
 
     # ---- 11. K2-v1 vs plain: the flagship widths it holds, then ragged
@@ -830,6 +857,35 @@ def main() -> None:
             if dt == torch.float32:
                 errs["K2-v1"] = max(errs["K2-v1"], e)
             del got, want
+    # K2 in v1 mode: what FusedBigVGAN(use_v2=False) runs at the fused stages
+    # wider than K2-v1 takes (route "K2/v1"), held against K2-v1's plain version
+    log("K2 in v1 mode (route K2/v1) vs plain (stage_reference_v1):")
+    s2, s3 = s4 - 2, s4 - 1
+    assert shapes[s2][0] == 192 and shapes[s3][0] == 96, shapes
+    v1_mode_cases = [(f"s{i}", i, (2, *shapes[i])) for i in (s2, s3)]
+    v1_mode_cases += [(f"window s{i}", i, (1, *win_shapes[i])) for i in (s2, s3)]
+    errs["K2/v1"] = 0.0
+    for name, i, shape in v1_mode_cases:
+        spec, packed = stage_packs[i]
+        x32 = torch.randn(shape, device=dev, generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            got = amp_stage(x, packed, spec, v1=True)
+            torch.cuda.synchronize()
+            want = stage_reference_v1(x, packed, spec)
+            e = check_close(f"{name} {list(shape)} {dt}", got, want, TOL[("K2-v1", dt)])
+            if dt == torch.float32:
+                errs["K2/v1"] = max(errs["K2/v1"], e)
+            del got, want
+    with torch.no_grad():
+        for i in (s2, s3):
+            spec, packed = stage_packs[i]
+            c, t_len = win_shapes[i]
+            x = torch.randn((1, c, t_len), device=dev, generator=gen).to(torch.bfloat16)
+            t_modes = [cuda_ms(lambda: amp_stage(x, packed, spec), 3), cuda_ms(lambda: amp_stage(x, packed, spec, v1=True), 3),
+                       cuda_ms(lambda: amp_stage(x, packed, spec, v1=True), 3), cuda_ms(lambda: amp_stage(x, packed, spec), 3)]
+            log(f"  window s{i} [1, {c}, {t_len}] bf16, 18 launches: K2 v2 mode {t_modes[0]:.3f} / {t_modes[3]:.3f} ms, "
+                f"v1 mode {t_modes[1]:.3f} / {t_modes[2]:.3f} ms")
     try:
         amp_stage_v1(torch.zeros((1, 96, 256), device=dev), stage_packs[s4 - 1][1], stage_packs[s4 - 1][0])
     except ValueError as exc:
@@ -964,7 +1020,8 @@ def main() -> None:
         counts = {name: fn.launches for name, fn in counters.items()}
         assert wav.shape == (1, minutes_frames * HOP) and np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
         n_v1 = fused.routes.count("K2-v1")
-        n_k2 = fused.routes.count("K2")
+        n_k2 = fused.routes.count("K2") + fused.routes.count("K2/v1")
+        assert use_v2 or "K2" not in fused.routes, fused.routes  # use_v2=False runs v1 at every fused stage
         assert counts == {"K1": n_windows * want_k1, "K2": n_windows * 18 * n_k2, "K2-v1": n_windows * n_v1}, counts
         stream_stats[use_v2] = {"seconds": seconds, "xrt": LONG_MINUTES * 60 / seconds, "peak": peak,
                                 "resident": resident, **counts}
@@ -1089,7 +1146,7 @@ def main() -> None:
     trainer_shape = (LM_BATCH, TRAIN_SEQ, heads, kv_heads, hd)
     bwd_cases = [(LM_BATCH, LM_SEQ, heads, kv_heads, hd), trainer_shape, (2, 1, heads, kv_heads, hd),
                  (3, 37, heads, kv_heads, hd), (2, 700, heads, kv_heads, hd), (1, 1000, heads, kv_heads, hd),
-                 (2, 700, 10, 2, 48), (1, 300, 4, 2, 128)]
+                 (2, 700, 10, 2, 48), (1, 300, 4, 2, 128), (1, 130, 4, 4, 16)]
     errs["FA-dKV"] = errs["FA-dQ"] = 0.0
     counters_fa = {"FA": flash_attention, "FA-dKV": fa_ops.flash_attention_dkv, "FA-dQ": fa_ops.flash_attention_dq}
     for b, sq, h, kh, d in bwd_cases:
@@ -1109,7 +1166,7 @@ def main() -> None:
             out_p, lse_p = fa_ops.flash_attention_forward_reference(q, k, v)
             tag = f"q {[b, sq, h, d]} kv heads {kh} {dt}"
             assert torch.equal(out_k, out.detach())  # the L store changes no bit of the output
-            e_out = check_close(f"out (with the L store) {tag}", out_k, out_p, TOL[("FA", dt)])
+            e_out = check_close(f"out (with the L store) {tag}", out_k, out_p, fa_rel(dt, v, out_p))
             check_close(f"L {[b, h, sq]} hd {d} {dt}", lse, lse_p, TOL[("FA", torch.float32)])
             # the plain backward takes the plain forward's out and L, so
             # nothing of the kernels enters the numbers they are held against
@@ -1391,14 +1448,18 @@ def main() -> None:
         bound_dkv = bwd_bound_ms(b, sq, h, kh, d, q.element_size(), 4, 2 * b * sq * kh * d)
         bound_dq = bwd_bound_ms(b, sq, h, kh, d, q.element_size(), 3, b * sq * h * d)
         pair_bound = bwd_bound_ms(b, sq, h, kh, d, q.element_size(), 5, b * sq * h * d + 2 * b * sq * kh * d)
+        cfg_dkv, cfg_dq = fa_ops.launch_config("FA-dKV", q), fa_ops.launch_config("FA-dQ", q)
         bwd_ms[(shape, dt)] = {"dkv": sum(t_dkv) / 2, "dq": sum(t_dq) / 2, "plain_dkv": t_plain_dkv,
                                "plain_dq": t_plain_dq, "library": t_lib, "bound_dkv": bound_dkv, "bound_dq": bound_dq,
-                               "fwd": t_fwd[0]}
-        log(f"  {[b, sq, h, d]} {dt}, per launch: FA-dKV {t_dkv[0]:.3f} / {t_dkv[1]:.3f} ms (plain {t_plain_dkv:.3f}, "
-            f"bound {bound_dkv[0]:.4f} by {bound_dkv[1]}), FA-dQ {t_dq[0]:.3f} / {t_dq[1]:.3f} ms (plain "
+                               "fwd": t_fwd[0], "launch_dkv": cfg_dkv, "launch_dq": cfg_dq}
+        for name, cfg in (("FA-dKV", cfg_dkv), ("FA-dQ", cfg_dq)):
+            log(f"  {[b, sq, h, d]} {dt}, {name} launch: grid {cfg['grid']} = {math.prod(cfg['grid'])} blocks, "
+                f"{cfg['threads']} threads and {cfg['smem_bytes']} bytes of shared memory per block")
+        log(f"  {[b, sq, h, d]} {dt}, per launch: FA-dKV {t_dkv[0]:.4f} / {t_dkv[1]:.4f} ms (plain {t_plain_dkv:.3f}, "
+            f"bound {bound_dkv[0]:.4f} by {bound_dkv[1]}), FA-dQ {t_dq[0]:.4f} / {t_dq[1]:.4f} ms (plain "
             f"{t_plain_dq:.3f}, bound {bound_dq[0]:.4f} by {bound_dq[1]}), D = rowsum(dO * O) {t_delta:.3f} ms, FA forward "
-            f"{t_fwd[0]:.3f} ms storing L ({t_fwd[1]:.3f} without); "
-            f"scaled_dot_product_attention backward (dq, dk, dv in one call) {t_lib:.3f} ms; bound of the pair "
+            f"{t_fwd[0]:.4f} ms storing L ({t_fwd[1]:.4f} without); "
+            f"scaled_dot_product_attention backward (dq, dk, dv in one call) {t_lib:.4f} ms; bound of the pair "
             f"with the minimal 5 products {pair_bound[0]:.4f} ms")
         del q, k, v, g, out, lse, delta, qt, kt, vt, out_lib, gt, lib, ours
     main_bwd = bwd_ms[(trainer_shape, torch.float32)]
@@ -1802,17 +1863,29 @@ def main() -> None:
          "max_abs_err": errs["K2"], "ms": ms["K2"], "plain_ms": plain_ms["K2"],
          "bound_ms": bounds["K2"][0], "bound_by": bounds["K2"][1], "library_ms": None,
          "per": f"codec request ({want_k2} launches)",
-         "window_ms": win_ms["K2"], "window_plain_ms": win_plain_ms["K2"]},
+         "window_ms": win_ms["K2"], "window_plain_ms": win_plain_ms["K2"],
+         "v1_mode": "route K2/v1 (use_v2=False at C > 48): operand_bf16 = 1, plane_bf16 = 0, float32 planes; "
+                    "held against stage_reference_v1 at s2 and s3", "v1_mode_max_abs_err": errs["K2/v1"]},
         {"name": "flash_attention (FA)", "route": "cuda", "source": FA_SOURCE,
          "replaces": "dmel_codec_tpu/models/transformer.py:197", "launches": launches["FA"],
          "max_abs_err": errs["FA"], "ms": ms["FA"], "plain_ms": plain_ms["FA"],
          "bound_ms": n_fa * fa_bound, "bound_by": fa_by, "library_ms": library_fa,
          "per": f"LM forward ({n_fa} launches)", "train_launches": launches["FA train"],
-         "train_ms": n_bwd * main_bwd["fwd"]},
+         "train_ms": n_bwd * main_bwd["fwd"],
+         "design": "bf16: mma.sync.m16n8k16 (float32 sums), a warp per 16 query rows with Q fragments in registers, "
+                   "K/V tiles of 64 keys double-buffered by cp.async, online softmax in registers, P rounded to bf16 "
+                   "before P V (as jax's kernel); float32: CUDA-core FMA, float32 products",
+         "launch": {k_: list(v_) if isinstance(v_, tuple) else v_ for k_, v_ in fa_launch.items()}},
         {"name": "flash_attention_dkv (FA-dKV)", "route": "cuda", "source": FA_BWD_SOURCE,
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 (_flash_attention_bwd_dkv), reached "
                      "under jax.grad from dmel_codec_tpu/models/transformer.py:197",
          "launches": launches["FA-dKV"], "max_abs_err": errs["FA-dKV"], "ms": n_bwd * main_bwd["dkv"],
+         "design": "one block per (batch, query head, 64 keys); each writes float32 partials and the last block of "
+                   "its group (one atomic count per key tile) sums the g heads in head order: deterministic; bf16: "
+                   "the four products on mma.sync.m16n8k16, P^T and dS^T rounded to bf16 (as jax's kernel); "
+                   "float32: CUDA-core FMA",
+         "launch": {k_: list(v_) if isinstance(v_, tuple) else v_ for k_, v_ in main_bwd["launch_dkv"].items()},
+         "bf16_2048_ms": bwd_ms[((LM_BATCH, LM_SEQ, heads, kv_heads, hd), torch.bfloat16)]["dkv"],
          "plain_ms": n_bwd * main_bwd["plain_dkv"], "bound_ms": n_bwd * main_bwd["bound_dkv"][0],
          "bound_by": main_bwd["bound_dkv"][1], "library_ms": n_bwd * main_bwd["library"],
          "library_is": "scaled_dot_product_attention backward: dq, dk and dv in one call",

@@ -24,26 +24,40 @@
 // TPU grid walked in order.
 //
 // Bound on the H100: operations (five 64 x 64 x hd products per visible tile
-// pair against a few bytes per row). Like the forward, this first version
-// runs every product on the float32 CUDA cores so that float32 inputs keep
-// float32 products, and recomputes the score tile in each kernel (seven
-// products in all).
+// pair against a few bytes per row). float32 inputs keep float32 products
+// on the CUDA cores (TF32 would keep ~3 digits), as the JAX float32 path
+// does; bf16 inputs run FA-dKV's four products on the tensor cores. Each
+// kernel recomputes the score tile (seven products in all).
 //
 // FA-dQ: one block per (batch, head, tile of 64 queries), longest rows
 // first. Q and dO stay in shared memory; the block walks the key tiles
 // 0 .. diagonal, staging K and V, forms P and dP = dO V^T in registers,
 // writes dS to shared memory (each row is written and read by one warp) and
-// accumulates dQ += dS K in registers.
+// accumulates dQ += dS K in registers (float32 CUDA cores, both dtypes).
 //
-// FA-dKV: one block per (batch, KV head, tile of 64 keys). K and V stay in
-// shared memory; the block loops over the g query heads of its group and,
-// for each, over the query tiles from the diagonal to the end, staging Q
-// and dO. It forms the TRANSPOSED tiles P^T and dS^T (rows = keys) so that
-// the accumulations dV += P^T dO and dK += dS^T Q have the forward's
-// register layout. The sum over the group happens in the block's registers:
-// no atomics, one store per element, a deterministic result, dK/dV in
-// [B, S, KH, hd] directly. Rows at or beyond S are zero-filled and masked,
-// so any S >= 1 runs as it is.
+// FA-dKV: one block per (batch, query head, tile of 64 keys): at the
+// trainer's [2, 1024, 14 -> 2, 64] that is 16 x 14 x 2 = 448 blocks of 4
+// warps (3.4 per SM; the earlier design, one block per KV head looping over
+// the group, launched 64 on 132 SMs). K and V stay in shared memory; the
+// block walks the query tiles from the diagonal to the end, staging Q and
+// dO, and forms the TRANSPOSED tiles P^T and dS^T (rows = keys), so that
+// dV += P^T dO and dK += dS^T Q accumulate per key row. The g = H / KH query
+// heads of a group sum deterministically: each block writes its float32
+// partial dK and dV to a scratch [B, H, S, hd], counts itself in with one
+// atomic per block, and the block that comes last for its (batch, KV head,
+// key tile) adds the g partials in head order and stores dK and dV in the
+// inputs' dtype, [B, S, KH, hd] directly. The order of arrival picks only
+// which block adds, never the order of the sum: two runs give the same
+// bits. Rows at or beyond S are zero-filled and masked, so any S >= 1 runs
+// as it is.
+//   float32 (dkv_f32_kernel): the products on the CUDA cores in the
+// forward's 16 x 8 thread grid, P^T and dS^T through shared memory.
+//   bf16 (dkv_mma_kernel): the four products S^T = K Q^T, dP^T = V dO^T,
+// dV += P^T dO and dK += dS^T Q on mma.sync.m16n8k16, a warp per 16 keys; Q
+// and dO double-buffered with cp.async; P^T and dS^T stay in registers and
+// are rounded to bf16 before their products, as the JAX kernel rounds them
+// (flash_attention.py:900, :918); dS^T itself is formed from the float32
+// P^T.
 #include <math.h>
 
 #include "flash_common.cuh"
@@ -81,14 +95,8 @@ __device__ __forceinline__ void tile_product(float (&acc)[RI][CJ], const float* 
   }
 }
 
-template <int HD>
-constexpr size_t dq_smem_bytes() {
+constexpr size_t dq_smem_bytes(int HD) {
   return sizeof(float) * (4 * BM * (HD + 4) + BM * PS);
-}
-
-template <int HD>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (4 * BM * (HD + 4) + 2 * BN * PS + 2 * BM);
 }
 
 template <int HD>
@@ -192,13 +200,67 @@ flash_attention_dq_kernel(const void* __restrict__ q, const void* __restrict__ k
   }
 }
 
+// ---- FA-dKV ----------------------------------------------------------------
+
+// The last of the g blocks of (batch, KV head, key tile n0) to arrive sums
+// their float32 partials (scratch [B, H, S, HD]) in head order and stores
+// dK and dV. Called by every thread of a block after it wrote its partial.
+template <int HD, int NT>
+__device__ __forceinline__ void finish_group(const float* part_k, const float* part_v,
+                                             unsigned* count, void* dk, void* dv, long long b,
+                                             int S, int H, int KH, int n0, int bf16) {
+  __shared__ bool last;
+  const int g = H / KH;
+  const int kh = blockIdx.y / g;
+  __threadfence();  // this thread's partial is visible device-wide
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* c = count + (b * KH + kh) * gridDim.x + blockIdx.x;
+    last = atomicAdd(c, 1u) == static_cast<unsigned>(g - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  constexpr int C4 = HD / 4;
+  for (int i = threadIdx.x; i < 64 * C4; i += NT) {
+    const int r = i / C4, c = 4 * (i % C4);
+    const int key = n0 + r;
+    if (key >= S) continue;
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+    for (int hh = 0; hh < g; ++hh) {
+      const long long at = ((b * H + kh * g + hh) * S + key) * HD + c;
+      const float4 pk = __ldcg(reinterpret_cast<const float4*>(part_k + at));
+      const float4 pv = __ldcg(reinterpret_cast<const float4*>(part_v + at));
+      sk.x += pk.x; sk.y += pk.y; sk.z += pk.z; sk.w += pk.w;
+      sv.x += pv.x; sv.y += pv.y; sv.z += pv.z; sv.w += pv.w;
+    }
+    const long long o = ((b * S + key) * KH + kh) * HD + c;
+    if (bf16) {
+      __nv_bfloat162* k2 = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(dk) + o);
+      __nv_bfloat162* v2 = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(dv) + o);
+      k2[0] = __floats2bfloat162_rn(sk.x, sk.y);
+      k2[1] = __floats2bfloat162_rn(sk.z, sk.w);
+      v2[0] = __floats2bfloat162_rn(sv.x, sv.y);
+      v2[1] = __floats2bfloat162_rn(sv.z, sv.w);
+    } else {
+      *reinterpret_cast<float4*>(static_cast<float*>(dk) + o) = sk;
+      *reinterpret_cast<float4*>(static_cast<float*>(dv) + o) = sv;
+    }
+  }
+}
+
+constexpr size_t dkv_f32_smem_bytes(int HD) {
+  return sizeof(float) * (4 * BM * (HD + 4) + 2 * BN * PS + 2 * BM);
+}
+
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_attention_dkv_kernel(const void* __restrict__ q, const void* __restrict__ k,
-                           const void* __restrict__ v, const void* __restrict__ dout,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           void* __restrict__ dk, void* __restrict__ dv, int S, int H,
-                           int KH, int bf16, float scale) {
+dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ part_k, float* __restrict__ part_v, unsigned* count,
+               float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KH,
+               float scale) {
   constexpr int QS = HD + 4;
   constexpr int OP = HD / 16;
   extern __shared__ float4 smem4[];
@@ -213,12 +275,12 @@ flash_attention_dkv_kernel(const void* __restrict__ q, const void* __restrict__ 
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int n0 = blockIdx.x * BN;  // key tile 0 walks the most query tiles and starts first
-  const int kh = blockIdx.y;
+  const int h = blockIdx.y;
   const long long b = blockIdx.z;
-  const int g = H / KH;
+  const int kh = h / (H / KH);
 
-  load_tile<HD>(Ks, QS, k, b, S, KH, kh, n0, bf16);
-  load_tile<HD>(Vs, QS, v, b, S, KH, kh, n0, bf16);
+  load_tile<HD>(Ks, QS, k, b, S, KH, kh, n0, 0);
+  load_tile<HD>(Vs, QS, v, b, S, KH, kh, n0, 0);
 
   float acc_dk[RI][OP][2], acc_dv[RI][OP][2];
 #pragma unroll
@@ -227,77 +289,74 @@ flash_attention_dkv_kernel(const void* __restrict__ q, const void* __restrict__ 
     for (int jp = 0; jp < OP; ++jp)
       acc_dk[i][jp][0] = acc_dk[i][jp][1] = acc_dv[i][jp][0] = acc_dv[i][jp][1] = 0.f;
 
-  for (int hh = 0; hh < g; ++hh) {
-    const int h = kh * g + hh;
-    for (int m0 = n0; m0 < S; m0 += BM) {
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<HD>(Qs, QS, q, b, S, H, h, m0, bf16);
-      load_tile<HD>(dOs, QS, dout, b, S, H, h, m0, bf16);
-      if (threadIdx.x < BM) {
-        const int m = m0 + threadIdx.x;
-        Ls[threadIdx.x] = m < S ? lse[(b * H + h) * S + m] : 0.f;
-        Ds[threadIdx.x] = m < S ? delta[(b * H + h) * S + m] : 0.f;
-      }
-      __syncthreads();
+  for (int m0 = n0; m0 < S; m0 += BM) {
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<HD>(Qs, QS, q, b, S, H, h, m0, 0);
+    load_tile<HD>(dOs, QS, dout, b, S, H, h, m0, 0);
+    if (threadIdx.x < BM) {
+      const int m = m0 + threadIdx.x;
+      Ls[threadIdx.x] = m < S ? lse[(b * H + h) * S + m] : 0.f;
+      Ds[threadIdx.x] = m < S ? delta[(b * H + h) * S + m] : 0.f;
+    }
+    __syncthreads();
 
-      // P^T[key][query] = exp(scale * k . q - L[query]) where query >= key
-      float acc[RI][CJ];
-      tile_product<HD>(acc, Ks, Qs, ty, tx);
+    // P^T[key][query] = exp(scale * k . q - L[query]) where query >= key
+    float acc[RI][CJ];
+    tile_product<HD>(acc, Ks, Qs, ty, tx);
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int key = n0 + ty + TY * i;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const int c = tx + TX * j;
+        const int qr = m0 + c;
+        PTs[(ty + TY * i) * PS + c] =
+            (key <= qr && qr < S) ? expf(acc[i][j] * scale - Ls[c]) : 0.f;
+      }
+    }
+    // dS^T = P^T * (v . dO - D[query]); a thread reads back its own P^T entries
+    tile_product<HD>(acc, Vs, dOs, ty, tx);
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const int c = tx + TX * j;
+        const int at = (ty + TY * i) * PS + c;
+        dSTs[at] = PTs[at] * (acc[i][j] - Ds[c]);
+      }
+    __syncwarp();  // a row of P^T / dS^T is written and read by the same warp
+
+    // dv += P^T . dO, dk += dS^T . Q
+#pragma unroll 2
+    for (int m = 0; m < BM; m += 4) {
+      float pt[RI][4], ds[RI][4];
 #pragma unroll
       for (int i = 0; i < RI; ++i) {
-        const int key = n0 + ty + TY * i;
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          const int c = tx + TX * j;
-          const int qr = m0 + c;
-          PTs[(ty + TY * i) * PS + c] =
-              (key <= qr && qr < S) ? expf(acc[i][j] * scale - Ls[c]) : 0.f;
-        }
+        const float4 a = *reinterpret_cast<const float4*>(&PTs[(ty + TY * i) * PS + m]);
+        const float4 c = *reinterpret_cast<const float4*>(&dSTs[(ty + TY * i) * PS + m]);
+        pt[i][0] = a.x;
+        pt[i][1] = a.y;
+        pt[i][2] = a.z;
+        pt[i][3] = a.w;
+        ds[i][0] = c.x;
+        ds[i][1] = c.y;
+        ds[i][2] = c.z;
+        ds[i][3] = c.w;
       }
-      // dS^T = P^T * (v . dO - D[query]); a thread reads back its own P^T entries
-      tile_product<HD>(acc, Vs, dOs, ty, tx);
 #pragma unroll
-      for (int i = 0; i < RI; ++i)
+      for (int mm = 0; mm < 4; ++mm) {
 #pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          const int c = tx + TX * j;
-          const int at = (ty + TY * i) * PS + c;
-          dSTs[at] = PTs[at] * (acc[i][j] - Ds[c]);
-        }
-      __syncwarp();  // a row of P^T / dS^T is written and read by the same warp
-
-      // dv += P^T . dO, dk += dS^T . Q
-#pragma unroll 2
-      for (int m = 0; m < BM; m += 4) {
-        float pt[RI][4], ds[RI][4];
+        for (int jp = 0; jp < OP; ++jp) {
+          const float2 dov =
+              *reinterpret_cast<const float2*>(&dOs[(m + mm) * QS + 16 * jp + 2 * tx]);
+          const float2 qv =
+              *reinterpret_cast<const float2*>(&Qs[(m + mm) * QS + 16 * jp + 2 * tx]);
 #pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          const float4 a = *reinterpret_cast<const float4*>(&PTs[(ty + TY * i) * PS + m]);
-          const float4 c = *reinterpret_cast<const float4*>(&dSTs[(ty + TY * i) * PS + m]);
-          pt[i][0] = a.x;
-          pt[i][1] = a.y;
-          pt[i][2] = a.z;
-          pt[i][3] = a.w;
-          ds[i][0] = c.x;
-          ds[i][1] = c.y;
-          ds[i][2] = c.z;
-          ds[i][3] = c.w;
-        }
-#pragma unroll
-        for (int mm = 0; mm < 4; ++mm) {
-#pragma unroll
-          for (int jp = 0; jp < OP; ++jp) {
-            const float2 dov =
-                *reinterpret_cast<const float2*>(&dOs[(m + mm) * QS + 16 * jp + 2 * tx]);
-            const float2 qv =
-                *reinterpret_cast<const float2*>(&Qs[(m + mm) * QS + 16 * jp + 2 * tx]);
-#pragma unroll
-            for (int i = 0; i < RI; ++i) {
-              acc_dv[i][jp][0] = fmaf(pt[i][mm], dov.x, acc_dv[i][jp][0]);
-              acc_dv[i][jp][1] = fmaf(pt[i][mm], dov.y, acc_dv[i][jp][1]);
-              acc_dk[i][jp][0] = fmaf(ds[i][mm], qv.x, acc_dk[i][jp][0]);
-              acc_dk[i][jp][1] = fmaf(ds[i][mm], qv.y, acc_dk[i][jp][1]);
-            }
+          for (int i = 0; i < RI; ++i) {
+            acc_dv[i][jp][0] = fmaf(pt[i][mm], dov.x, acc_dv[i][jp][0]);
+            acc_dv[i][jp][1] = fmaf(pt[i][mm], dov.y, acc_dv[i][jp][1]);
+            acc_dk[i][jp][0] = fmaf(ds[i][mm], qv.x, acc_dk[i][jp][0]);
+            acc_dk[i][jp][1] = fmaf(ds[i][mm], qv.y, acc_dk[i][jp][1]);
           }
         }
       }
@@ -308,23 +367,166 @@ flash_attention_dkv_kernel(const void* __restrict__ q, const void* __restrict__ 
   for (int i = 0; i < RI; ++i) {
     const int key = n0 + ty + TY * i;
     if (key >= S) continue;
-    const long long base = ((b * S + key) * KH + kh) * HD;
+    const long long base = ((b * H + h) * S + key) * HD;
 #pragma unroll
     for (int jp = 0; jp < OP; ++jp) {
       const int c = 16 * jp + 2 * tx;
-      dmel::store_f(dk, base + c, acc_dk[i][jp][0] * scale, bf16);
-      dmel::store_f(dk, base + c + 1, acc_dk[i][jp][1] * scale, bf16);
-      dmel::store_f(dv, base + c, acc_dv[i][jp][0], bf16);
-      dmel::store_f(dv, base + c + 1, acc_dv[i][jp][1], bf16);
+      *reinterpret_cast<float2*>(part_k + base + c) =
+          make_float2(acc_dk[i][jp][0] * scale, acc_dk[i][jp][1] * scale);
+      *reinterpret_cast<float2*>(part_v + base + c) =
+          make_float2(acc_dv[i][jp][0], acc_dv[i][jp][1]);
     }
   }
+  finish_group<HD, THREADS>(part_k, part_v, count, dk, dv, b, S, H, KH, n0, 0);
+}
+
+constexpr int DKV_WARPS = 4;  // a warp per 16 keys: 64 keys per block
+constexpr int DKV_THREADS = 32 * DKV_WARPS;
+
+constexpr size_t dkv_mma_smem_bytes(int HD) {  // K, V, two buffers each of Q and dO; L, D
+  return sizeof(__nv_bfloat16) * 6 * 64 * (HD + 8) + sizeof(float) * 4 * 64;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(DKV_THREADS)
+dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ part_k, float* __restrict__ part_v, unsigned* count,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H,
+               int KH, float scale) {
+  constexpr int LD = HD + 8;
+  constexpr int KS = HD / 16;
+  constexpr int DT = HD / 8;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* Vs = Ks + 64 * LD;
+  __nv_bfloat16* Qs = Vs + 64 * LD;   // [2][64][LD]
+  __nv_bfloat16* dOs = Qs + 2 * 64 * LD;
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * 64 * LD);  // [2][64], L * log2(e)
+  float* Ds = Ls + 2 * 64;                                   // [2][64]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * 64;  // key tile 0 walks the most query tiles and starts first
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int n_tiles = (S - n0 + 63) / 64;  // query tiles n0 .. end
+  const float sl2 = scale * LOG2E;
+  const float* lrow = lse + (b * H + h) * S;
+  const float* drow = delta + (b * H + h) * S;
+
+  auto stage = [&](int j) {  // query tile j into buffer j & 1
+    const int m0 = n0 + 64 * j, nb = j & 1;
+    stage_tile_bf16<HD, DKV_THREADS>(Qs + nb * 64 * LD, q, b, S, H, h, m0);
+    stage_tile_bf16<HD, DKV_THREADS>(dOs + nb * 64 * LD, dout, b, S, H, h, m0);
+    if (threadIdx.x < 64) {
+      const int m = m0 + threadIdx.x;
+      Ls[nb * 64 + threadIdx.x] = m < S ? lrow[m] * LOG2E : 0.f;
+      Ds[nb * 64 + threadIdx.x] = m < S ? drow[m] : 0.f;
+    }
+  };
+  stage_tile_bf16<HD, DKV_THREADS>(Ks, k, b, S, KH, kh, n0);
+  stage_tile_bf16<HD, DKV_THREADS>(Vs, v, b, S, KH, kh, n0);
+  stage(0);
+  cp_async_commit();
+
+  float adk[DT][4], adv[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[d][e] = adv[d][e] = 0.f;
+  const int key_lo = n0 + warp * 16 + g;  // this lane's key rows: key_lo, key_lo + 8
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j has landed; every warp is done with tile j - 1's buffers
+    if (j + 1 < n_tiles) {
+      stage(j + 1);
+      cp_async_commit();
+    }
+    const int nb = j & 1, m0 = n0 + 64 * j;
+    const __nv_bfloat16* Qt = Qs + nb * 64 * LD;
+    const __nv_bfloat16* dOt = dOs + nb * 64 * LD;
+    const float* Lt = Ls + nb * 64;
+    const float* Dt = Ds + nb * 64;
+
+    // S^T = K Q^T: 16 keys x 64 queries per warp
+    float st[8][4], dp[8][4];
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[jn][e] = dp[jn][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      unsigned ak[4], av[4];
+      ldsm_a(ak, Ks, LD, warp * 16, kk * 16);
+      ldsm_a(av, Vs, LD, warp * 16, kk * 16);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        unsigned bq[4], bo[4];
+        ldsm_bt(bq, Qt, LD, jp * 16, kk * 16);
+        ldsm_bt(bo, dOt, LD, jp * 16, kk * 16);
+        mma_16816(st[2 * jp], ak, bq[0], bq[1]);
+        mma_16816(st[2 * jp + 1], ak, bq[2], bq[3]);
+        mma_16816(dp[2 * jp], av, bo[0], bo[1]);  // dP^T = V dO^T
+        mma_16816(dp[2 * jp + 1], av, bo[2], bo[3]);
+      }
+    }
+    // P^T = exp(scale s - L[query]) where key <= query < S; dS^T = P^T (dP^T - D[query])
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * jn + 2 * t + (e & 1);  // query column in the tile
+        const int qr = m0 + c;
+        const int key = key_lo + 8 * (e >> 1);
+        const float p = (key <= qr && qr < S) ? exp2f(st[jn][e] * sl2 - Lt[c]) : 0.f;
+        st[jn][e] = p;
+        dp[jn][e] = p * (dp[jn][e] - Dt[c]);
+      }
+    }
+    // dV += P^T dO, dK += dS^T Q, with P^T and dS^T rounded to bf16
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      unsigned pa[4], sa[4];
+      c_to_a(pa, st[2 * kk], st[2 * kk + 1]);
+      c_to_a(sa, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dq = 0; dq < HD / 16; ++dq) {
+        unsigned bo[4], bq[4];
+        ldsm_b(bo, dOt, LD, kk * 16, dq * 16);
+        ldsm_b(bq, Qt, LD, kk * 16, dq * 16);
+        mma_16816(adv[2 * dq], pa, bo[0], bo[1]);
+        mma_16816(adv[2 * dq + 1], pa, bo[2], bo[3]);
+        mma_16816(adk[2 * dq], sa, bq[0], bq[1]);
+        mma_16816(adk[2 * dq + 1], sa, bq[2], bq[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key_lo + 8 * r;
+    if (key >= S) continue;
+    const long long base = ((b * H + h) * S + key) * HD + 2 * t;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      *reinterpret_cast<float2*>(part_k + base + 8 * d) =
+          make_float2(adk[d][2 * r] * scale, adk[d][2 * r + 1] * scale);
+      *reinterpret_cast<float2*>(part_v + base + 8 * d) =
+          make_float2(adv[d][2 * r], adv[d][2 * r + 1]);
+    }
+  }
+  finish_group<HD, DKV_THREADS>(part_k, part_v, count, dk, dv, b, S, H, KH, n0, 1);
 }
 
 template <int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* delta, void* dq, int B, int S, int H, int KH, int bf16,
               float scale, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<HD>();
+  constexpr size_t smem = dq_smem_bytes(HD);
   const cudaError_t e = cudaFuncSetAttribute(
       flash_attention_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -338,17 +540,31 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
 
 template <int HD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dk, void* dv, int B, int S, int H,
-               int KH, int bf16, float scale, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<HD>();
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>((S + BN - 1) / BN), static_cast<unsigned>(KH),
+               const float* lse, const float* delta, float* part_k, float* part_v,
+               unsigned* count, void* dk, void* dv, int B, int S, int H, int KH, int bf16,
+               float scale, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((S + 63) / 64), static_cast<unsigned>(H),
                   static_cast<unsigned>(B));
-  flash_attention_dkv_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, S, H, KH, bf16, scale);
+  if (bf16) {
+    constexpr size_t smem = dkv_mma_smem_bytes(HD);
+    const cudaError_t e = cudaFuncSetAttribute(
+        dkv_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    using bf = __nv_bfloat16;
+    dkv_mma_kernel<HD><<<grid, DKV_THREADS, smem, stream>>>(
+        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+        static_cast<const bf*>(dout), lse, delta, part_k, part_v, count, static_cast<bf*>(dk),
+        static_cast<bf*>(dv), S, H, KH, scale);
+  } else {
+    constexpr size_t smem = dkv_f32_smem_bytes(HD);
+    const cudaError_t e = cudaFuncSetAttribute(
+        dkv_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dkv_f32_kernel<HD><<<grid, THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta, part_k,
+        part_v, count, static_cast<float*>(dk), static_cast<float*>(dv), S, H, KH, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -386,15 +602,39 @@ extern "C" int dmel_flash_attention_bwd_dq(const void* q, const void* k, const v
 #undef CALL
 }
 
+// FA-dKV's scratch, beside the arguments of FA-dQ: part_k, part_v float32
+// [B, H, S, HD]; count: B * KH * ceil(S / 64) unsigned ints, zeroed before
+// each launch. bf16 pointers 16-byte aligned.
 extern "C" int dmel_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse,
-                                            const void* delta, void* dk, void* dv, int B,
-                                            int S, int H, int KH, int HD, int bf16,
-                                            float scale, void* stream) {
+                                            const void* delta, void* part_k, void* part_v,
+                                            void* count, void* dk, void* dv, int B, int S,
+                                            int H, int KH, int HD, int bf16, float scale,
+                                            void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-#define CALL(N) launch_dkv<N>(q, k, v, dout, ls, dl, dk, dv, B, S, H, KH, bf16, scale, st)
+  float* pk = static_cast<float*>(part_k);
+  float* pv = static_cast<float*>(part_v);
+  unsigned* cnt = static_cast<unsigned*>(count);
+#define CALL(N) \
+  launch_dkv<N>(q, k, v, dout, ls, dl, pk, pv, cnt, dk, dv, B, S, H, KH, bf16, scale, st)
   DMEL_FLASH_HEAD_SIZES(CALL)
 #undef CALL
+}
+
+// The launches FA-dKV (which = 0) and FA-dQ (which = 1) make for these
+// arguments, as dmel_flash_attention_config reports FA's: grid x, y, z,
+// threads per block, dynamic shared memory per block in bytes.
+extern "C" int dmel_flash_attention_bwd_config(int which, int B, int S, int H, int HD, int bf16,
+                                               int* cfg) {
+  if (HD % 16 != 0 || HD < 16 || HD > 128) return static_cast<int>(cudaErrorInvalidValue);
+  cfg[0] = (S + 63) / 64;
+  cfg[1] = H;
+  cfg[2] = B;
+  cfg[3] = which == 0 && bf16 ? DKV_THREADS : THREADS;
+  cfg[4] = static_cast<int>(which == 1 ? dq_smem_bytes(HD)
+                            : bf16     ? dkv_mma_smem_bytes(HD)
+                                       : dkv_f32_smem_bytes(HD));
+  return 0;
 }

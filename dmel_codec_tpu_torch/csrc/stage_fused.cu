@@ -30,10 +30,15 @@
 // chunks of CI = 16: input window -> both snake phases -> activation
 // (zero outside [0, T), the conv's zero padding) -> FMA over (ci, tap).
 //
-// Numeric contract (stage_fused.py:398-403, 702-705): the activation input,
-// the activation output and the conv output are rounded to the plane dtype
-// (identity for float32); the residual spine and the running sum are
-// float32; arithmetic is float32 throughout.
+// Numeric contracts. v2 (stage_fused.py:398-403, 702-705; `amp_stage`'s
+// default): the activation input, the activation output and the conv output
+// are rounded to the plane dtype (identity for float32); the residual spine
+// and the running sum are float32; arithmetic is float32 throughout. v1
+// (stage_fused.py:145-149, 253-268, 297; `use_v2=False` at stages wider than
+// K2-v1 takes): only the conv operands are rounded (the activation output
+// here, the weights by the wrapper), the planes between launches stay
+// float32. Two flags select the roundings: `operand_bf16` the activation
+// output, `plane_bf16` the activation input and the conv output.
 #include "common.cuh"
 
 namespace {
@@ -51,8 +56,8 @@ act_conv_kernel(const void* __restrict__ src, int src_bf16,
                 int ab_stride,
                 const void* res, int res_bf16,
                 const float* acc_in,
-                void* out, int out_bf16, float scale, int plane_bf16,
-                int C, int T, int k, int d, dmel::Taps taps) {
+                void* out, int out_bf16, float scale, int operand_bf16,
+                int plane_bf16, int C, int T, int k, int d, dmel::Taps taps) {
   constexpr int NT = 8 * CO_T;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -130,7 +135,7 @@ act_conv_kernel(const void* __restrict__ src, int src_bf16,
       const int t = abase + r;
       float v = 0.f;
       if (ci < nci && t >= 0 && t < T) {
-        v = dmel::round_to(dmel::down(ve + ci * LV + r, vo + ci * LV + r, taps), plane_bf16);
+        v = dmel::round_to(dmel::down(ve + ci * LV + r, vo + ci * LV + r, taps), operand_bf16);
       }
       as[i] = v;
     }
@@ -177,8 +182,8 @@ template <int CO_T>
 int launch(const void* src, int src_bf16, const void* w, int w_bf16, const float* bias,
            int bias_stride, const float* alpha, const float* inv_beta, int ab_stride,
            const void* res, int res_bf16, const float* acc_in, void* out, int out_bf16,
-           float scale, int plane_bf16, int B, int C, int T, int k, int d,
-           dmel::Taps tp, cudaStream_t stream) {
+           float scale, int operand_bf16, int plane_bf16, int B, int C, int T, int k,
+           int d, dmel::Taps tp, cudaStream_t stream) {
   const int P = d * (k - 1) / 2;
   const int LA = TT + 2 * P;
   const size_t floats =
@@ -192,7 +197,7 @@ int launch(const void* src, int src_bf16, const void* w, int w_bf16, const float
   const dim3 grid((T + TT - 1) / TT, (C + CO_T - 1) / CO_T, B);
   act_conv_kernel<CO_T><<<grid, 8 * CO_T, bytes, stream>>>(
       src, src_bf16, w, w_bf16, bias, bias_stride, alpha, inv_beta, ab_stride, res,
-      res_bf16, acc_in, out, out_bf16, scale, plane_bf16, C, T, k, d, tp);
+      res_bf16, acc_in, out, out_bf16, scale, operand_bf16, plane_bf16, C, T, k, d, tp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -203,21 +208,24 @@ int launch(const void* src, int src_bf16, const void* w, int w_bf16, const float
 // w: [k][C][C] (tap, out, in) in float32 or bfloat16. bias, alpha
 // (exp'd), inv_beta: float32 columns read as p[c * stride]. res and acc_in
 // may be null; out may alias res or acc_in (each element is read before it
-// is written, by the same thread). co_tile in {24, 48, 64} picks the
-// instantiation. Returns cudaGetLastError() after the launch.
+// is written, by the same thread). operand_bf16 rounds the activation's
+// output to bf16, plane_bf16 the activation's input and the conv's output
+// (both 1: the v2 contract; 1 and 0: v1's). co_tile in {24, 48, 64} picks
+// the instantiation. Returns cudaGetLastError() after the launch.
 extern "C" int dmel_act_conv(const void* src, int src_bf16, const void* w, int w_bf16,
                              const float* bias, int bias_stride, const float* alpha,
                              const float* inv_beta, int ab_stride, const void* res,
                              int res_bf16, const float* acc_in, void* out, int out_bf16,
-                             float scale, int plane_bf16, int B, int C, int T, int k, int d,
-                             int co_tile, const float* taps, void* stream) {
+                             float scale, int operand_bf16, int plane_bf16, int B, int C,
+                             int T, int k, int d, int co_tile, const float* taps,
+                             void* stream) {
   dmel::Taps tp;
   for (int i = 0; i < 12; ++i) tp.f[i] = taps[i];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DMEL_LAUNCH(N)                                                                  \
   return launch<N>(src, src_bf16, w, w_bf16, bias, bias_stride, alpha, inv_beta,       \
-                   ab_stride, res, res_bf16, acc_in, out, out_bf16, scale, plane_bf16, \
-                   B, C, T, k, d, tp, s)
+                   ab_stride, res, res_bf16, acc_in, out, out_bf16, scale,              \
+                   operand_bf16, plane_bf16, B, C, T, k, d, tp, s)
   switch (co_tile) {
     case 24: DMEL_LAUNCH(24);
     case 48: DMEL_LAUNCH(48);

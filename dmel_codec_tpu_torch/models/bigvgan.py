@@ -193,10 +193,11 @@ class FusedBigVGAN:
     each AMPBlock1 stage with C <= fuse_max_channels is packed for the fused
     stage op (weights in the model's dtype). Same function as
     `BigVGAN.forward`. `routes` says, stage by stage, what runs the resblock
-    group: "block" (per block, activations through K1), "K2", or "K2-v1"
-    (`use_v2=False`, for fused stages of at most V1_MAX_CHANNELS channels;
-    wider fused stages stay on K2). The routes are fixed here and no run
-    changes them.
+    group and under which contract: "block" (per block, activations through
+    K1), "K2" (v2), and with `use_v2=False` (the JAX v1 contract at every
+    fused stage) "K2-v1" for stages of at most V1_MAX_CHANNELS channels and
+    "K2/v1" (K2's launches in v1 mode) for wider ones. The routes are fixed
+    here and no run changes them.
     """
 
     @torch.no_grad()
@@ -223,7 +224,7 @@ class FusedBigVGAN:
                 packed = pack_stage(blocks, spec)
                 packed["w"] = [w.to(dtype) for w in packed["w"]]
                 self.stages.append((spec, packed))
-                self.routes.append("K2" if use_v2 or ch > V1_MAX_CHANNELS else "K2-v1")
+                self.routes.append("K2" if use_v2 else "K2-v1" if ch <= V1_MAX_CHANNELS else "K2/v1")
             else:
                 weights = [[conv.weight() for conv in _block_convs(b)] for b in blocks]
                 self.stages.append((None, weights))
@@ -247,10 +248,16 @@ class FusedBigVGAN:
         """Upsample stage i: transposed conv, then the resblock group."""
         up = self.model.ups[i][0]
         x = F.conv_transpose1d(x, self.ups[i], up.bias, stride=up.stride, padding=up.padding)
+        return self.resblocks(i, x)
+
+    @torch.no_grad()
+    def resblocks(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Stage i's resblock group on its upsampled input, by its route."""
         spec, arg = self.stages[i]
         if spec is not None:
-            stage_fn = amp_stage_v1 if self.routes[i] == "K2-v1" else amp_stage
-            return stage_fn(x, arg, spec)
+            if self.routes[i] == "K2-v1":
+                return amp_stage_v1(x, arg, spec)
+            return amp_stage(x, arg, spec, v1=self.routes[i] == "K2/v1")
         blocks = self.model.stage_blocks(i)
         return sum(b(x, w) for b, w in zip(blocks, arg)) / len(blocks)
 

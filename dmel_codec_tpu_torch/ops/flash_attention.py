@@ -15,6 +15,10 @@ dtype:
   * on CUDA tensors it launches the kernels or raises: FA
     (csrc/flash_attention.cu) forward, and under autograd FA-dKV and FA-dQ
     (csrc/flash_attention_bwd.cu) backward.
+In bf16 the kernels run their products on the tensor cores and round the
+probabilities P (before P V and P^T dO) and dS (before dS^T Q) to bf16, as
+jax's Pallas kernels do; the plain versions keep both float32 (the exact
+float32-product functions the kernels are held against).
 The kernels never form the [S, S] score matrix in device memory, index the
 KV head themselves (no repeat of K/V) and mask a ragged last tile (no
 padding of S). Under autograd the forward also stores each row's
@@ -25,6 +29,7 @@ reduction outside the kernels, as the JAX package does.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Tuple
 
@@ -142,12 +147,19 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = 
 
 
 def flash_attention_dkv(q, k, v, grad, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch FA-dKV: (dk, dv) [B, S, KH, hd] from checked CUDA tensors."""
+    """Launch FA-dKV: (dk, dv) [B, S, KH, hd] from checked CUDA tensors.
+    Scratch: each query head's float32 partial dK and dV [B, H, S, hd], and
+    one zeroed arrival count per (batch, KV head, key tile of 64)."""
     lib = library.load()
+    b, s, h, hd = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    part_k = torch.empty((b, h, s, hd), dtype=torch.float32, device=q.device)
+    part_v = torch.empty_like(part_k)
+    count = torch.zeros((b, k.shape[2], -(-s // 64)), dtype=torch.int32, device=q.device)
     rc = lib.dmel_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), grad.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_dims(q, k),
+        delta.data_ptr(), part_k.data_ptr(), part_v.data_ptr(), count.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), *_dims(q, k),
     )
     library.check(lib, rc, "dmel_flash_attention_bwd_dkv")
     flash_attention_dkv.launches += 1
@@ -165,6 +177,22 @@ def flash_attention_dq(q, k, v, grad, lse, delta) -> torch.Tensor:
     library.check(lib, rc, "dmel_flash_attention_bwd_dq")
     flash_attention_dq.launches += 1
     return dq
+
+
+def launch_config(kernel: str, q: torch.Tensor) -> dict:
+    """The launch that `kernel` ("FA", "FA-dKV" or "FA-dQ") makes for q of
+    this shape and dtype, as the library reports it: grid, threads and
+    shared bytes per block."""
+    lib = library.load()
+    b, s, h, hd = q.shape
+    bf = int(q.dtype == torch.bfloat16)
+    cfg = (ctypes.c_int * 5)()
+    if kernel == "FA":
+        rc = lib.dmel_flash_attention_config(b, s, h, hd, bf, cfg)
+    else:
+        rc = lib.dmel_flash_attention_bwd_config(["FA-dKV", "FA-dQ"].index(kernel), b, s, h, hd, bf, cfg)
+    library.check(lib, rc, f"{kernel} launch configuration")
+    return {"grid": tuple(cfg[:3]), "threads": cfg[3], "smem_bytes": cfg[4]}
 
 
 def flash_attention_backward(q, k, v, out, lse, grad):

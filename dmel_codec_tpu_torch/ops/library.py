@@ -34,14 +34,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "dmel_anti_alias": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "dmel_act_conv": [
-        _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _F, _I,
+        _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _F, _I, _I,
         _I, _I, _I, _I, _I, _I, _P, _P,
     ],
     "dmel_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "dmel_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "dmel_flash_attention_bwd_dkv": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
     ],
+    "dmel_flash_attention_config": [_I, _I, _I, _I, _I, _P],
+    "dmel_flash_attention_bwd_config": [_I, _I, _I, _I, _I, _I, _P],
     "dmel_anti_alias_variant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
     "dmel_stage_v1": [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
@@ -147,6 +149,8 @@ def check_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"batch {b} and heads {h} must fit the launch grid (65535)")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must start on a 16-byte boundary (the kernels copy 16 bytes at a time)")
 
 
 def check_attention_grad(
@@ -165,6 +169,8 @@ def check_attention_grad(
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     if lse.shape != (b, h, s) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(
             f"lse must be float32 {(b, h, s)} on {q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}"

@@ -7,6 +7,9 @@ output = mean of the three xb — on channels-first [B, C, T], from
   * on a CPU tensor `amp_stage` runs the plain version, `stage_reference`;
   * on a CUDA tensor it runs kernel K2 (csrc/stage_fused.cu): one launch per
     act -> conv pair, 18 per stage, with no torch op in between.
+`amp_stage(..., v1=True)` runs the same kernel under the v1 contract (its
+plain version `stage_reference_v1`): the JAX `fused_amp_stage`
+(`use_v2=False`) at stages wider than K2-v1 takes.
 `amp_stage_v1` is the same function as one launch per stage (kernel K2-v1,
 csrc/stage_fused_v1.cu; the JAX `fused_amp_stage`, `use_v2=False`), for
 C <= V1_MAX_CHANNELS; its plain version is `stage_reference_v1`.
@@ -14,9 +17,10 @@ C <= V1_MAX_CHANNELS; its plain version is `stage_reference_v1`.
 bf16 contracts. K2 (the JAX v2 kernel's, stage_fused.py:398-403):
 activation input, activation output and conv output are rounded to the
 input dtype, the residual spine and the running sum stay float32. K2-v1
-(the JAX v1 kernel's, stage_fused.py:145-149, 253-268, 297): only the conv
-operands (the activation's output and the weights) are rounded to the
-input dtype; everything else stays float32 until the one cast at the end.
+and K2 in v1 mode (the JAX v1 kernel's, stage_fused.py:145-149, 253-268,
+297): only the conv operands (the activation's output and the weights)
+are rounded to the input dtype; everything else stays float32 until the
+one cast at the end.
 For float32 inputs both plain versions are exactly the JAX package's oracle.
 """
 
@@ -172,16 +176,20 @@ def _kernel_args(x: torch.Tensor, packed: dict, spec: StageSpec):
     return ws, cols, n_convs
 
 
-def _run_kernel(x: torch.Tensor, packed: dict, spec: StageSpec) -> torch.Tensor:
+def _run_kernel(x: torch.Tensor, packed: dict, spec: StageSpec, v1: bool = False) -> torch.Tensor:
+    """K2's 18 launches. v2: planes rounded to x's dtype (`plane_bf16`);
+    v1: the planes stay float32 (t1 too) and only the activation's output,
+    a conv operand, is rounded (`operand_bf16`)."""
     lib = library.load()
     ws, cols, n_convs = _kernel_args(x, packed, spec)
     bsz, c, t = x.shape
     dt = x.dtype
     bf = int(dt == torch.bfloat16)
+    plane_bf = 0 if v1 else bf
     f32 = torch.float32
     xb = torch.empty(x.shape, dtype=f32, device=x.device)
     acc = torch.empty_like(xb)
-    t1 = torch.empty_like(x)
+    t1 = torch.empty_like(xb) if v1 else torch.empty_like(x)
     y = torch.empty_like(x)
     taps = library.taps(FILT)
     strm = library.stream(x)
@@ -196,7 +204,7 @@ def _run_kernel(x: torch.Tensor, packed: dict, spec: StageSpec) -> torch.Tensor:
             cols["a"].data_ptr() + 4 * n, cols["ib"].data_ptr() + 4 * n, n_convs,
             None if res is None else res.data_ptr(), int(res is not None and res.dtype == torch.bfloat16),
             None if acc_in is None else acc_in.data_ptr(),
-            out.data_ptr(), int(out.dtype == torch.bfloat16), scale, bf,
+            out.data_ptr(), int(out.dtype == torch.bfloat16), scale, bf, plane_bf,
             bsz, c, t, k, d, co_tile, taps, strm,
         )
         library.check(lib, rc, "dmel_act_conv")
@@ -221,11 +229,11 @@ def _run_kernel(x: torch.Tensor, packed: dict, spec: StageSpec) -> torch.Tensor:
     return y
 
 
-def amp_stage(x: torch.Tensor, packed: dict, spec: StageSpec) -> torch.Tensor:
-    """[B, C, T] -> [B, C, T], one fused stage."""
+def amp_stage(x: torch.Tensor, packed: dict, spec: StageSpec, v1: bool = False) -> torch.Tensor:
+    """[B, C, T] -> [B, C, T], one fused stage; `v1` picks the v1 contract."""
     if x.device.type == "cpu":
-        return stage_reference(x, packed, spec)
-    return _run_kernel(x, packed, spec)
+        return (stage_reference_v1 if v1 else stage_reference)(x, packed, spec)
+    return _run_kernel(x, packed, spec, v1)
 
 
 amp_stage.launches = 0  # K2 launches (18 per stage call), counted in _run_kernel

@@ -153,16 +153,104 @@ def test_v1_dispatch(monkeypatch, tmp_path):
 
 
 def test_fused_routes_are_fixed_at_construction():
-    """The flagship widths 768 .. 24, built without storage: K2-v1 takes
-    the fused stages it can hold, K2 the wider ones, and a resblock "2"
+    """The flagship widths 768 .. 24, built without storage: with
+    `use_v2=False` every fused stage runs the v1 contract, K2-v1 the stages
+    it can hold and K2 in v1 mode ("K2/v1") the wider ones; a resblock "2"
     model fuses nothing."""
     with torch.device("meta"):
         model = BigVGAN(BigVGANConfig())
         model2 = BigVGAN(BigVGANConfig(resblock="2"))
     assert FusedBigVGAN(model).routes == ["block", "block", "K2", "K2", "K2", "K2"]
-    assert FusedBigVGAN(model, use_v2=False).routes == ["block", "block", "K2", "K2", "K2-v1", "K2-v1"]
+    assert FusedBigVGAN(model, use_v2=False).routes == ["block", "block", "K2/v1", "K2/v1", "K2-v1", "K2-v1"]
     assert FusedBigVGAN(model, fuse_max_channels=24, use_v2=False).routes == ["block"] * 5 + ["K2-v1"]
     assert FusedBigVGAN(model2, use_v2=False).routes == ["block"] * 6
+
+
+def test_fused_v1_bf16_matches_jax_v1_at_a_wide_stage(monkeypatch):
+    """`FusedBigVGAN(use_v2=False)` in bf16 against `bigvgan_apply_fused(...,
+    use_v2=False, interpret=True)` on a one-stage vocoder whose fused stage
+    (C = 64) is wider than K2-v1 takes: the port's route is K2 in v1 mode,
+    the JAX package's the v1 Pallas kernel. The stage is held against the
+    JAX stage on the JAX stage's own input and packed weights (recorded by a
+    wrapper around `fused_amp_stage`): the whole bf16 waveform differs
+    between the packages by ~4e-2 of max |out| already with no stage fused
+    (XLA's bf16 convs round elsewhere), and the JAX `pack_stage` exps alpha
+    and beta in bf16 where the port's does in float32, either of which
+    would hide the contract.
+
+    Both sides round the same conv operands and the result from float32
+    values that differ only in summation order: one bf16 ulp of the largest
+    output at most (2^-7 max |out|), and most outputs the same bits
+    (measured ~0.74). K2's v2 contract rounds 36 planes more: 0.31 of the
+    outputs equal the JAX bits, so the test tells the contracts apart; it
+    fails on a tree that routes this stage to the v2 contract."""
+    import dmel_codec_tpu.ops.stage_fused as jax_stage_fused
+    from dmel_codec_tpu.models.bigvgan import bigvgan_apply_fused
+
+    kw = dict(num_mels=20, upsample_initial_channel=128, upsample_rates=(2,), upsample_kernel_sizes=(4,))
+    jparams = init_params(JaxBigVGAN(config=JaxBigVGANConfig(**kw)), 11, jnp.zeros((1, 8, kw["num_mels"])))
+    cfg = BigVGANConfig(**kw)
+    port = BigVGAN(cfg)
+    port.load_state_dict(bigvgan_state_dict_from_jax(jparams, cfg))
+    fused = FusedBigVGAN(port.eval().to(torch.bfloat16), use_v2=False)
+    assert fused.routes == ["K2/v1"]
+
+    seen = []
+    real = jax_stage_fused.fused_amp_stage
+
+    def recording(x, packed, *args, **kwargs):
+        y = real(x, packed, *args, **kwargs)
+        seen.append((x, packed, y))
+        return y
+
+    monkeypatch.setattr(jax_stage_fused, "fused_amp_stage", recording)
+    mel = (0.3 * np.random.default_rng(5).standard_normal((1, 256, kw["num_mels"]))).astype(np.float32)
+    bigvgan_apply_fused(jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), jparams),
+                        jnp.asarray(mel).astype(jnp.bfloat16), JaxBigVGANConfig(**kw),
+                        use_v2=False, interpret=True, tile_w=128)
+    (x, packed, want), = seen
+    spec, _ = fused.stages[0]
+    fused.stages[0] = (spec, {"w": [torch.from_numpy(np.array(w.astype(jnp.float32))).bfloat16() for w in packed["w"]],
+                              **{k: torch.from_numpy(np.array(packed[k])) for k in ("b", "a", "ib")}})
+    x = torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16().transpose(1, 2).contiguous()
+    got = to_np(fused.resblocks(0, x).float().transpose(1, 2))
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.shape == want.shape == (1, 512, 64)
+    assert np.abs(got - want).max() <= 2.0**-7 * np.abs(want).max()
+    assert (got == want).mean() >= 0.5
+
+
+@pytest.mark.parametrize("dtype,v1", [(torch.bfloat16, True), (torch.bfloat16, False), (torch.float32, True)])
+def test_k2_v1_mode_dispatch(monkeypatch, dtype, v1):
+    """K2's 18 launches with a recording library: v1 mode on bf16 rounds
+    the activation's output only (operand_bf16 = 1, plane_bf16 = 0) and
+    keeps t1 (the output of each pair's first launch, the input of its
+    second) float32; v2 rounds the planes too and keeps t1 in bf16;
+    float32 rounds nothing."""
+    calls = []
+
+    class Lib:
+        def dmel_act_conv(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(library, "load", lambda: Lib())
+    monkeypatch.setattr(library, "check_plane", lambda x, name="x": None)
+    monkeypatch.setattr(library, "stream", lambda x: 0)
+    _, tp = _packed(8, seed=4)
+    n = stage_fused.amp_stage.launches
+    stage_fused._run_kernel(torch.zeros((1, 8, 50), dtype=dtype), tp, StageSpec(channels=8), v1=v1)
+    assert stage_fused.amp_stage.launches == n + 18 and len(calls) == 18
+    bf = int(dtype == torch.bfloat16)
+    # positions in dmel_act_conv's argument list
+    src_bf16, w_bf16, out_bf16, operand_bf16, plane_bf16 = 1, 3, 13, 15, 16
+    t1_bf16 = int(bf and not v1)
+    for i, args in enumerate(calls):
+        assert (args[w_bf16], args[operand_bf16], args[plane_bf16]) == (bf, bf, 0 if v1 else bf)
+        if i % 2 == 0:  # t1 = conv(act(xb))
+            assert args[out_bf16] == t1_bf16
+        else:  # reads t1
+            assert args[src_bf16] == t1_bf16
 
 
 # ---- AMPBlock2 ----------------------------------------------------------------

@@ -65,6 +65,45 @@ def test_plain_backward_vs_jax_pallas_backward_kernels(s):
         np.testing.assert_allclose(to_np(g), w, rtol=0, atol=2e-5 * np.abs(w).max(), err_msg=name)
 
 
+def _bf16_ulp(x: float) -> float:
+    """One bf16 unit in the last place at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
+@pytest.mark.parametrize("s", [128, 200])
+def test_plain_bf16_vs_jax_pallas_kernels(s):
+    """bf16, GQA 4 over 2, hd 64: the port's plain forward and backward
+    against jax's Pallas forward, dK/dV and dQ kernels (interpret mode).
+    Both sides compute in float32 from the same bf16 inputs and round each
+    result once; jax's kernels also round P (before P V and P^T dO) and dS
+    (before dS^T Q and dS K) to bf16, as the port's CUDA kernels do, and the
+    plain versions do not. The final rounding may flip one ulp; the product
+    operands' rounding (2^-9 relative per term, of random sign) moves a sum
+    by far less than one ulp of the largest value. Two bf16 ulps of max |x|
+    per tensor; measured one (~40 % of the outputs differ, by one ulp)."""
+    q, k, v, grad = _qkv_grad((1, s, 4, 2, 64), seed=s)
+    cfg = jax_tf.TransformerConfig(
+        vocab_size=8, hidden_size=256, intermediate_size=8, num_layers=1, num_heads=4, num_kv_heads=2
+    )
+
+    def bf16(t):
+        return jnp.asarray(to_np(t)).astype(jnp.bfloat16)
+
+    def loss(q_, k_, v_):
+        return jnp.sum((jax_tf._flash_causal_attention(q_, k_, v_, cfg) * bf16(grad)).astype(jnp.float32))
+
+    with pltpu.force_tpu_interpret_mode():
+        out_j = jax_tf._flash_causal_attention(bf16(q), bf16(k), bf16(v), cfg)
+        grads_j = jax.grad(loss, argnums=(0, 1, 2))(bf16(q), bf16(k), bf16(v))
+    q, k, v, grad = (t.bfloat16() for t in (q, k, v, grad))
+    out, lse = fa.flash_attention_forward_reference(q, k, v)
+    got = (out, *fa.flash_attention_backward_reference(q, k, v, out, lse, grad))
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, (out_j, *grads_j)):
+        assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16 and g.shape == w.shape, name
+        g, w = to_np(g.float()), np.asarray(w.astype(jnp.float32))
+        assert np.abs(g - w).max() <= 2 * _bf16_ulp(np.abs(w).max()), (name, s)
+
+
 @pytest.mark.parametrize("hd", [16, 64, 128])
 @pytest.mark.parametrize("s", [1, 37, 64, 65, 200])
 def test_plain_backward_vs_autograd_of_the_plain_forward(s, hd):
