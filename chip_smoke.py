@@ -11,7 +11,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
   2. build the CUDA kernels from dmel_codec_tpu_torch/csrc into build/;
   3. K1 (anti-aliased snake) against its plain version at the vocoder's
      shapes in a codec request and in a streaming window, float32 and
-     bfloat16;
+     bfloat16, and with bf16 parameters (the coefficients the kernel rounds
+     itself);
   4. K2 (fused AMP stage) against its plain version at every fused width,
      B = 2 and a streaming window's B = 1, float32 and bfloat16;
   5. the main path at the flagship width with seeded random bf16 weights:
@@ -63,8 +64,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
  16. FA's backward kernels (FA-dKV, FA-dQ) against their plain versions at
      the slow decoder's head layout (B = 2 x S = 2048 and the trainer's
      2 x 1024), ragged lengths, head sizes 16 to 128 and a group of one
-     query head, float32 and bfloat16; two runs bit-equal; the forward's
-     log-sum-exp against the plain scores';
+     query head, float32 (CUDA cores) and bfloat16 (tensor cores); two runs
+     bit-equal; the forward's log-sum-exp against the plain scores';
  17. LM training at full width through the trainer (float32 parameters,
      flash attention on, B = 2 x S = 1024 token-grid batches,
      accumulate_grad = 2, 4 micro-steps = 2 updates): launch counts of FA,
@@ -82,11 +83,12 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      and their launches (grid, threads and shared memory per block);
  20. the probe kernels P1 (channels-first anti-aliased snake with a
      run-time window), P2 / P3 (row-shifted sums of a resident plane) and
-     P4 (11-tap conv as a tap matmul on mma.sync) against their plain
-     versions at every shape, window and plane count the probes' tables
-     time and at ragged ones, P1 against K1 in the interior, then the
-     probes' own checks and tables of times, bounds and the library call's
-     time (P4: one F.conv1d, a yardstick only);
+     P4 (11-tap conv as a tap matmul: wgmma where the shape allows, else
+     mma.sync) against their plain versions at every shape, window, width
+     (P4: C = 96 and 192) and plane count the probes' tables time and at
+     ragged ones, P1 against K1 in the interior, then the probes' own
+     checks and tables of times (P4's launches counted by kernel), bounds
+     and the library call's time (P4: one F.conv1d, a yardstick only);
  21. codec GAN training at full width through `CodecTrainer` (float32,
      B = 16 clips x 4 s from a numpy seed, one clip of half length, given
      decoder noise): 4 checked steps (nine finite metrics, nothing moves at
@@ -203,7 +205,8 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, rel: float) ->
 #    inputs and round once; a gradient is a sum over up to 14,000 products,
 #    so a result may land two roundings away: two bf16 ulps, 2^-6. FA-dKV
 #    also rounds P^T and dS^T to bf16 before its two accumulating products
-#    (as jax's kernel does): 2^-9 relative per term, of random sign, so the
+#    (as jax's kernel does), and FA-dQ rounds scale * dS before dS K (as
+#    jax's kernel does): 2^-9 relative per term, of random sign, so the
 #    sum moves by ~2^-9 of its own size, under one ulp; 2^-6 holds.
 #  LM logits, flash on vs off, bf16: the einsum path rounds scores and
 #    probabilities to bf16 (2^-8 relative each) in each of 24 layers where
@@ -237,10 +240,11 @@ TOL_CHUNKED_DECODE, TOL_CHUNKED_STAGE, TOL_CHUNKED_WAVE = 1e-5, 2e-5, 2e-5
 #  P1 vs K1 beyond 16 samples from the ends, f32: the same helpers in the
 #    same order (measured 0): 2e-5.
 #  P2, P3: the plain version's additions in the same order: the same bits.
-#  P4: bf16 operands are exact in float32, so only the order of 11 x 96
+#  P4: bf16 operands are exact in float32, so only the order of 11 x C
 #    float32 additions per output differs between the tensor cores and the
-#    plain float32 product (TF32 off): ~1e-6 of max |y| measured; 1e-4 of
-#    max |y| (1e-2 would still tell a wrong fragment layout apart).
+#    plain float32 product (TF32 off): ~1e-6 of max |y| measured at C = 96,
+#    ~3e-6 at C = 192; 1e-4 of max |y| (1e-2 would still tell a wrong
+#    fragment or descriptor layout apart).
 TOL_P1 = {torch.float32: 2e-5, torch.bfloat16: 2.0**-7}
 TOL_P4 = 1e-4
 # Codec training: a second run from the same state, batches and noise. cuDNN
@@ -485,6 +489,25 @@ def main() -> None:
             torch.cuda.synchronize()
             want = anti_alias_activation_reference(x, alpha, beta, logscale)
             e = check_close(f"{name} {list(shape)} {dt}", got, want, TOL[("K1", dt)])
+            if dt == torch.float32:
+                errs["K1"] = max(errs["K1"], e)
+            del got, want
+    # bf16 parameters (the bf16 vocoder's): the kernel rounds their exps and
+    # 1 / (beta + eps) to bf16 itself, as the plain version computes them in
+    # bf16; on float32 x a coefficient one bf16 ulp off would move the output
+    # by ~2^-8 of the snake term, far beyond K1's float32 tolerance
+    for logscale, with_beta in ((True, True), (True, False), (False, True)):
+        c = k1_shapes["s0"][1]
+        alpha = (0.3 * torch.randn(c, device=dev, generator=gen) + (0.0 if logscale else 1.0)).bfloat16()
+        beta = (0.3 * torch.randn(c, device=dev, generator=gen) + (0.0 if logscale else 1.0)).bfloat16()
+        beta = beta if with_beta else None
+        x32 = torch.randn((2, c, 700), device=dev, generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            got = anti_alias_activation(x32.to(dt), alpha, beta, logscale)
+            torch.cuda.synchronize()
+            want = anti_alias_activation_reference(x32.to(dt), alpha, beta, logscale)
+            e = check_close(f"bf16 parameters, {'snakebeta' if with_beta else 'snake'}, logscale {logscale}, "
+                            f"x [2, {c}, 700] {dt}", got, want, TOL[("K1", dt)])
             if dt == torch.float32:
                 errs["K1"] = max(errs["K1"], e)
             del got, want
@@ -1437,6 +1460,9 @@ def main() -> None:
             t_delta = cuda_ms(lambda: (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous(), 10)
             t_fwd = (cuda_ms(lambda: fa_ops._launch(q, k, v, with_lse=True), 10), cuda_ms(lambda: flash_attention(q, k, v), 10))
         qt, kt, vt = (t_.transpose(1, 2).detach().requires_grad_() for t_ in (q, k, v))
+        with torch.no_grad():  # the library's forward too, beside FA storing L
+            t_lib_fwd = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 10)
         out_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
         gt = g.transpose(1, 2)
         t_lib = cuda_ms(lambda: torch.autograd.grad(out_lib, (qt, kt, vt), gt, retain_graph=True), 10)
@@ -1451,14 +1477,15 @@ def main() -> None:
         cfg_dkv, cfg_dq = fa_ops.launch_config("FA-dKV", q), fa_ops.launch_config("FA-dQ", q)
         bwd_ms[(shape, dt)] = {"dkv": sum(t_dkv) / 2, "dq": sum(t_dq) / 2, "plain_dkv": t_plain_dkv,
                                "plain_dq": t_plain_dq, "library": t_lib, "bound_dkv": bound_dkv, "bound_dq": bound_dq,
-                               "fwd": t_fwd[0], "launch_dkv": cfg_dkv, "launch_dq": cfg_dq}
+                               "fwd": t_fwd[0], "library_fwd": t_lib_fwd, "launch_dkv": cfg_dkv, "launch_dq": cfg_dq}
         for name, cfg in (("FA-dKV", cfg_dkv), ("FA-dQ", cfg_dq)):
             log(f"  {[b, sq, h, d]} {dt}, {name} launch: grid {cfg['grid']} = {math.prod(cfg['grid'])} blocks, "
                 f"{cfg['threads']} threads and {cfg['smem_bytes']} bytes of shared memory per block")
         log(f"  {[b, sq, h, d]} {dt}, per launch: FA-dKV {t_dkv[0]:.4f} / {t_dkv[1]:.4f} ms (plain {t_plain_dkv:.3f}, "
             f"bound {bound_dkv[0]:.4f} by {bound_dkv[1]}), FA-dQ {t_dq[0]:.4f} / {t_dq[1]:.4f} ms (plain "
             f"{t_plain_dq:.3f}, bound {bound_dq[0]:.4f} by {bound_dq[1]}), D = rowsum(dO * O) {t_delta:.3f} ms, FA forward "
-            f"{t_fwd[0]:.4f} ms storing L ({t_fwd[1]:.4f} without); "
+            f"{t_fwd[0]:.4f} ms storing L ({t_fwd[1]:.4f} without; scaled_dot_product_attention forward "
+            f"{t_lib_fwd:.4f}); "
             f"scaled_dot_product_attention backward (dq, dk, dv in one call) {t_lib:.4f} ms; bound of the pair "
             f"with the minimal 5 products {pair_bound[0]:.4f} ms")
         del q, k, v, g, out, lse, delta, qt, kt, vt, out_lib, gt, lib, ours
@@ -1529,24 +1556,35 @@ def main() -> None:
             ((3, sublane_ops.MM_ROWS, 96), (96, 96), sublane_ops.MM_OUT, sublane_ops.TAPS, sublane_ops.STEP),
             ((sublane_ops.FILL_PLANES, sublane_ops.MM_ROWS, 96), (96, 96), sublane_ops.MM_OUT, sublane_ops.TAPS,
              sublane_ops.STEP),
-            ((2, 300, 32), (32, 24), 100, 5, 3), ((1, 16, 16), (16, 8), 1, 1, 8), ((2, 700, 128), (128, 128), 130, 7, 8)):
+            ((2, 300, 32), (32, 24), 100, 5, 3), ((1, 16, 16), (16, 8), 1, 1, 8), ((2, 700, 128), (128, 128), 130, 7, 8),
+            ((sublane_ops.FILL_PLANES, sublane_ops.MM_ROWS, 192), (192, 192), sublane_ops.MM_OUT, sublane_ops.TAPS,
+             sublane_ops.STEP),
+            ((3, 1000, 192), (192, 192), 900, sublane_ops.TAPS, sublane_ops.STEP),
+            ((2, 1200, 256), (256, 256), 1000, sublane_ops.TAPS, sublane_ops.STEP), ((2, 500, 192), (192, 192), 300, 11, 4),
+            ((2, 400, 160), (160, 224), 300, 5, 16), ((2, 300, 64), (64, 32), 200, 3, 8)):
         x = torch.randn(x_shape, device=dev, generator=gen).to(torch.bfloat16)
         w_ = torch.randn(w_shape, device=dev, generator=gen).to(torch.bfloat16)
         got = sublane_ops.tap_matmul(x, w_, out_rows, taps, step)
         torch.cuda.synchronize()
         want = sublane_ops.tap_matmul_reference(x, w_, out_rows, taps, step)
-        e = check_close(f"P4 x {list(x_shape)} @ w {list(w_shape)}, {taps} taps of step {step} -> {out_rows} rows",
-                        got, want, TOL_P4)
-        if x_shape[-2:] == (sublane_ops.MM_ROWS, 96):
+        path = sublane_ops.tap_matmul_path(w_shape[0], w_shape[1], taps, step)
+        e = check_close(f"P4 x {list(x_shape)} @ w {list(w_shape)}, {taps} taps of step {step} -> {out_rows} rows "
+                        f"({path} kernel)", got, want, TOL_P4)
+        if x_shape[-2] == sublane_ops.MM_ROWS:
             errs["P4"] = max(errs["P4"], e)
+        del x, w_, got, want
     probe_fns = {"P1": cf_act.cf_act_windowed, "P2": sublane_ops.slice_rows, "P3": sublane_ops.roll_rows,
                  "P4": sublane_ops.tap_matmul}
     for fn in probe_fns.values():
         fn.launches = 0
+    sublane_ops.tap_matmul.launches_by_path = dict.fromkeys(sublane_ops.tap_matmul.launches_by_path, 0)
     cf_table = cf_act.main()  # each raises if a kernel disagrees with plain at a shape it times
     rows_table = sublane_ops.main()
     launches.update({name: fn.launches for name, fn in probe_fns.items()})
     assert all(launches[name] > 0 for name in probe_fns), launches
+    p4_paths = dict(sublane_ops.tap_matmul.launches_by_path)
+    # the probe's main path is the flagship 11 taps of step 8 at C = 96 and 192: the wgmma kernel only
+    assert p4_paths == {"wgmma": launches["P4"], "mma": 0}, p4_paths
     # the plain versions and the library call at the probes' shapes
     p1_shape, p1_window = cf_act.SHAPES[0], 2048
     fill = sublane_ops.FILL_PLANES
@@ -1560,30 +1598,38 @@ def main() -> None:
             x = torch.randn((planes, sublane_ops.ROWS, sublane_ops.LANES), device=dev, generator=gen)
             rows_plain[planes] = {"slice": cuda_ms(lambda: sublane_ops.slice_reference(x), 10),
                                   "roll": cuda_ms(lambda: sublane_ops.roll_reference(x), 10)}
-            xb = torch.randn((planes, sublane_ops.MM_ROWS, 96), device=dev, generator=gen).to(torch.bfloat16)
-            w_ = torch.randn((96, 96), device=dev, generator=gen).to(torch.bfloat16)
-            mm_plain[planes] = cuda_ms(lambda: sublane_ops.tap_matmul_reference(xb, w_), 5)
-            # the library call: one bf16 conv with the 11 taps all holding w, dilation 8
-            x_cf = xb[:, : sublane_ops.MM_OUT + sublane_ops.STEP * (sublane_ops.TAPS - 1)].transpose(1, 2).contiguous()
-            kernel = w_.T[:, :, None].expand(96, 96, sublane_ops.TAPS).contiguous()
+            for c in sublane_ops.WIDTHS:
+                xb = torch.randn((planes, sublane_ops.MM_ROWS, c), device=dev, generator=gen).to(torch.bfloat16)
+                w_ = torch.randn((c, c), device=dev, generator=gen).to(torch.bfloat16)
+                mm_plain[planes, c] = cuda_ms(lambda: sublane_ops.tap_matmul_reference(xb, w_), 5)
+                # the library call: one bf16 conv with the 11 taps all holding w, dilation 8
+                x_cf = xb[:, : sublane_ops.MM_OUT + sublane_ops.STEP * (sublane_ops.TAPS - 1)].transpose(1, 2).contiguous()
+                kernel = w_.T[:, :, None].expand(c, c, sublane_ops.TAPS).contiguous()
 
-            def conv():
-                return torch.nn.functional.conv1d(x_cf, kernel, dilation=sublane_ops.STEP)
+                def conv():
+                    return torch.nn.functional.conv1d(x_cf, kernel, dilation=sublane_ops.STEP)
 
-            mm_library[planes] = cuda_ms(conv, 10)
-            check_close(f"library conv1d vs P4, P = {planes}", conv().transpose(1, 2), sublane_ops.tap_matmul(xb, w_),
-                        2.0**-7)  # the library rounds its result to bf16
-            del x, xb, x_cf
+                mm_library[planes, c] = cuda_ms(conv, 10)
+                check_close(f"library conv1d vs P4, P = {planes}, C = {c}", conv().transpose(1, 2),
+                            sublane_ops.tap_matmul(xb, w_), 2.0**-7)  # the library rounds its result to bf16
+                del xb, x_cf, kernel
+            del x
     p1_bound = cf_act.bound_ms(p1_shape)
-    mm_bound = {planes: sublane_ops.tap_matmul_bound_ms(planes) for planes in (1, fill)}
+    mm_bound = {(planes, c): sublane_ops.tap_matmul_bound_ms(planes, c, c)
+                for planes in (1, fill) for c in sublane_ops.WIDTHS}
     log(f"  P1 {list(p1_shape)} bf16 w = {p1_window}: kernel {cf_table[p1_shape][p1_window]:.4f} ms, K1 "
         f"{cf_table[p1_shape]['K1']:.4f} ms, plain {p1_plain:.3f} ms, bound {p1_bound:.4f} ms by bytes")
     for planes in (1, fill):
         log(f"  P = {planes}: P2 {rows_table[planes]['slice']:.4f} ms (plain {rows_plain[planes]['slice']:.4f}), P3 "
             f"{rows_table[planes]['roll']:.4f} ms (plain {rows_plain[planes]['roll']:.4f}), bound "
-            f"{sublane_ops.rows_bound_ms(planes):.5f} ms by bytes; P4 {rows_table[planes]['matmul']:.4f} ms (plain "
-            f"{mm_plain[planes]:.4f}, F.conv1d {mm_library[planes]:.4f}), bound {mm_bound[planes]['operations']:.5f} ms "
-            f"by operations, {mm_bound[planes]['bytes']:.5f} by bytes")
+            f"{sublane_ops.rows_bound_ms(planes):.5f} ms by bytes")
+        for c in sublane_ops.WIDTHS:
+            b_ = mm_bound[planes, c]
+            log(f"  P = {planes}, C = {c}: P4 {rows_table[planes][f'matmul {c}']:.4f} ms (plain {mm_plain[planes, c]:.4f}, "
+                f"F.conv1d {mm_library[planes, c]:.4f}, which writes bf16 where P4 writes float32), bound "
+                f"{b_['operations']:.5f} ms by operations, {b_['bytes']:.5f} by bytes; roofline share "
+                f"{max(b_.values()) / rows_table[planes][f'matmul {c}']:.3f}")
+    log(f"  P4 launches by kernel in the probe's run: {p4_paths}")
 
     # ---- 21. codec GAN training at full width
     log(f"codec training: CodecTrainer at the flagship width, float32, B = {CODEC_TRAIN_BATCH} x {SECONDS} s")
@@ -1871,7 +1917,7 @@ def main() -> None:
          "max_abs_err": errs["FA"], "ms": ms["FA"], "plain_ms": plain_ms["FA"],
          "bound_ms": n_fa * fa_bound, "bound_by": fa_by, "library_ms": library_fa,
          "per": f"LM forward ({n_fa} launches)", "train_launches": launches["FA train"],
-         "train_ms": n_bwd * main_bwd["fwd"],
+         "train_ms": n_bwd * main_bwd["fwd"], "train_library_ms": n_bwd * main_bwd["library_fwd"],
          "design": "bf16: mma.sync.m16n8k16 (float32 sums), a warp per 16 query rows with Q fragments in registers, "
                    "K/V tiles of 64 keys double-buffered by cp.async, online softmax in registers, P rounded to bf16 "
                    "before P V (as jax's kernel); float32: CUDA-core FMA, float32 products",
@@ -1895,6 +1941,13 @@ def main() -> None:
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 (_flash_attention_bwd_dq), reached "
                      "under jax.grad from dmel_codec_tpu/models/transformer.py:197",
          "launches": launches["FA-dQ"], "max_abs_err": errs["FA-dQ"], "ms": n_bwd * main_bwd["dq"],
+         "design": "bf16: S, dP and dQ += dS K on mma.sync.m16n8k16, a warp per 16 query rows, Q and dO staged once, "
+                   "K/V double-buffered by cp.async, scale dS rounded to bf16 before dS K (as jax's kernel), K as "
+                   "ldmatrix.trans B operand; float32: CUDA-core FMA (unchanged)",
+         "launch": {k_: list(v_) if isinstance(v_, tuple) else v_ for k_, v_ in main_bwd["launch_dq"].items()},
+         "bf16_2048_ms": bwd_ms[((LM_BATCH, LM_SEQ, heads, kv_heads, hd), torch.bfloat16)]["dq"],
+         "bf16_2048_bound_ms": bwd_ms[((LM_BATCH, LM_SEQ, heads, kv_heads, hd), torch.bfloat16)]["bound_dq"][0],
+         "bf16_2048_library_ms": bwd_ms[((LM_BATCH, LM_SEQ, heads, kv_heads, hd), torch.bfloat16)]["library"],
          "plain_ms": n_bwd * main_bwd["plain_dq"], "bound_ms": n_bwd * main_bwd["bound_dq"][0],
          "bound_by": main_bwd["bound_dq"][1], "library_ms": n_bwd * main_bwd["library"],
          "library_is": "scaled_dot_product_attention backward: dq, dk and dv in one call",
@@ -1937,13 +1990,21 @@ def main() -> None:
          "fill_bound_ms": sublane_ops.rows_bound_ms(fill)},
         {"name": "tap_matmul (P4)", "route": "cuda", "source": PROBES_SOURCE,
          "replaces": "scripts/exp_sublane_ops.py:80", "launches": launches["P4"], "max_abs_err": errs["P4"],
-         "ms": rows_table[1]["matmul"], "plain_ms": mm_plain[1], "bound_ms": max(mm_bound[1].values()),
-         "bound_by": max(mm_bound[1], key=mm_bound[1].get), "library_ms": mm_library[1],
-         "library_is": "F.conv1d, bf16, 11 taps all holding w, dilation 8",
+         "ms": rows_table[1]["matmul 96"], "plain_ms": mm_plain[1, 96], "bound_ms": max(mm_bound[1, 96].values()),
+         "bound_by": max(mm_bound[1, 96], key=mm_bound[1, 96].get), "library_ms": mm_library[1, 96],
+         "library_is": "F.conv1d, bf16, 11 taps all holding w, dilation 8 (writes bf16; P4 writes float32)",
          "per": f"one launch, x [{sublane_ops.MM_ROWS}, 96] @ w [96, 96], {sublane_ops.TAPS} taps, bf16; launches: one "
                 f"run of the probe",
-         "fill_planes": fill, "fill_ms": rows_table[fill]["matmul"], "fill_plain_ms": mm_plain[fill],
-         "fill_bound_ms": max(mm_bound[fill].values()), "fill_library_ms": mm_library[fill]},
+         "launches_by_kernel": p4_paths,
+         "design": "shapes with K, N multiples of 32 and step a multiple of 8 (the probe's): TMA-staged 64-byte-"
+                   "swizzled column blocks in an mbarrier ring fed by a producer warp, 128-row x N tiles on two "
+                   "consumer warpgroups with wgmma.mma_async m64nNk16, taps as descriptor offsets, persistent blocks, "
+                   "16-byte float32 stores; other shapes: the mma.sync kernel",
+         "fill_planes": fill, "fill_ms": rows_table[fill]["matmul 96"], "fill_plain_ms": mm_plain[fill, 96],
+         "fill_bound_ms": max(mm_bound[fill, 96].values()), "fill_library_ms": mm_library[fill, 96],
+         "wide": {"C": 192, "ms": rows_table[1]["matmul 192"], "fill_ms": rows_table[fill]["matmul 192"],
+                  "fill_plain_ms": mm_plain[fill, 192], "fill_bound_ms": max(mm_bound[fill, 192].values()),
+                  "fill_library_ms": mm_library[fill, 192]}},
     ]
     train_step = {name: {"ms": v[0], "peak_gib": v[1]} for name, v in train_stats.items()}
     codec_train_step = {name: {"ms": v[0], "peak_gib": v[1], "audio_s_per_s": v[2]} for name, v in codec_stats.items()}

@@ -17,7 +17,11 @@
 // both snake phases for half-rate indices [t0-3, t0+TILE+3) once each, then
 // the down FIR. The 2x-rate signal never touches device memory and any T
 // works without a tail patch. Arithmetic in float32, output in the input
-// dtype (float32 or bfloat16).
+// dtype (float32 or bfloat16). The snake's per-channel coefficients, alpha
+// and 1 / (beta + eps) (exp'd under logscale), are computed in the
+// parameters' dtype as the JAX op computes them before its kernel
+// (ops/anti_alias.py:607-612): with bf16 parameters each step is rounded to
+// bf16, so no launch before the kernel is needed to prepare them.
 #include "common.cuh"
 
 namespace {
@@ -37,7 +41,7 @@ template <int V>
 __global__ void __launch_bounds__(THREADS)
 anti_alias_kernel(const void* __restrict__ x, void* __restrict__ y,
                   const float* __restrict__ alpha, const float* __restrict__ beta,
-                  int logscale, int C, int T, int bf16, dmel::Taps taps) {
+                  int logscale, int param_bf16, int C, int T, int bf16, dmel::Taps taps) {
   __shared__ float xs[TILE + 2 * XH];
   __shared__ float ve[TILE + 2 * VH];
   __shared__ float vo[TILE + 2 * VH];
@@ -54,7 +58,10 @@ anti_alias_kernel(const void* __restrict__ x, void* __restrict__ y,
     a = expf(a);
     g = expf(g);
   }
-  const float inv_beta = 1.f / (g + 1e-9f);
+  // with bf16 parameters the exps, the sum and the quotient are each rounded to bf16
+  a = dmel::round_to(a, param_bf16);
+  g = dmel::round_to(g, param_bf16);
+  const float inv_beta = dmel::round_to(1.f / dmel::round_to(g + 1e-9f, param_bf16), param_bf16);
 
   const int xbase = t0 - XH;
   for (int i = threadIdx.x; i < TILE + 2 * XH; i += THREADS) {
@@ -97,13 +104,13 @@ anti_alias_kernel(const void* __restrict__ x, void* __restrict__ y,
 
 template <int V>
 int launch(const void* x, void* y, const float* alpha, const float* beta, int logscale,
-           int B, int C, int T, int bf16, const float* taps, void* stream) {
+           int param_bf16, int B, int C, int T, int bf16, const float* taps, void* stream) {
   dmel::Taps tp;
   for (int i = 0; i < 12; ++i) tp.f[i] = taps[i];
   const dim3 grid(static_cast<unsigned>(B) * static_cast<unsigned>(C),
                   static_cast<unsigned>((T + TILE - 1) / TILE));
   anti_alias_kernel<V><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, y, alpha, beta, logscale, C, T, bf16, tp);
+      x, y, alpha, beta, logscale, param_bf16, C, T, bf16, tp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -114,25 +121,27 @@ extern "C" const char* dmel_error_string(int code) {
 }
 
 // x, y: [B, C, T] contiguous, float32 (bf16 = 0) or bfloat16 (bf16 = 1).
-// alpha, beta: [C] float32 on the device; beta == nullptr selects snake.
+// alpha, beta: [C] float32 on the device, the parameters' values (bf16
+// ones when param_bf16 = 1); beta == nullptr selects snake.
 // taps: 12 host floats. Returns cudaGetLastError() after the launch.
 extern "C" int dmel_anti_alias(const void* x, void* y, const float* alpha,
-                               const float* beta, int logscale, int B, int C, int T,
-                               int bf16, const float* taps, void* stream) {
-  return launch<FULL>(x, y, alpha, beta, logscale, B, C, T, bf16, taps, stream);
+                               const float* beta, int logscale, int param_bf16, int B, int C,
+                               int T, int bf16, const float* taps, void* stream) {
+  return launch<FULL>(x, y, alpha, beta, logscale, param_bf16, B, C, T, bf16, taps, stream);
 }
 
 // The ablation probe's entry: the same launch with parts of the kernel
 // removed. variant: 0 full, 1 copy, 2 no_snake, 3 no_fir.
 extern "C" int dmel_anti_alias_variant(const void* x, void* y, const float* alpha,
-                                       const float* beta, int logscale, int B, int C,
-                                       int T, int bf16, const float* taps, int variant,
+                                       const float* beta, int logscale, int param_bf16, int B,
+                                       int C, int T, int bf16, const float* taps, int variant,
                                        void* stream) {
+  const int pb = param_bf16;
   switch (variant) {
-    case FULL: return launch<FULL>(x, y, alpha, beta, logscale, B, C, T, bf16, taps, stream);
-    case COPY: return launch<COPY>(x, y, alpha, beta, logscale, B, C, T, bf16, taps, stream);
-    case NO_SNAKE: return launch<NO_SNAKE>(x, y, alpha, beta, logscale, B, C, T, bf16, taps, stream);
-    case NO_FIR: return launch<NO_FIR>(x, y, alpha, beta, logscale, B, C, T, bf16, taps, stream);
+    case FULL: return launch<FULL>(x, y, alpha, beta, logscale, pb, B, C, T, bf16, taps, stream);
+    case COPY: return launch<COPY>(x, y, alpha, beta, logscale, pb, B, C, T, bf16, taps, stream);
+    case NO_SNAKE: return launch<NO_SNAKE>(x, y, alpha, beta, logscale, pb, B, C, T, bf16, taps, stream);
+    case NO_FIR: return launch<NO_FIR>(x, y, alpha, beta, logscale, pb, B, C, T, bf16, taps, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -26,14 +26,25 @@
 // Bound on the H100: operations (five 64 x 64 x hd products per visible tile
 // pair against a few bytes per row). float32 inputs keep float32 products
 // on the CUDA cores (TF32 would keep ~3 digits), as the JAX float32 path
-// does; bf16 inputs run FA-dKV's four products on the tensor cores. Each
-// kernel recomputes the score tile (seven products in all).
+// does; bf16 inputs run every product of both kernels on the tensor cores.
+// Each kernel recomputes the score tile (seven products in all).
 //
 // FA-dQ: one block per (batch, head, tile of 64 queries), longest rows
 // first. Q and dO stay in shared memory; the block walks the key tiles
-// 0 .. diagonal, staging K and V, forms P and dP = dO V^T in registers,
-// writes dS to shared memory (each row is written and read by one warp) and
-// accumulates dQ += dS K in registers (float32 CUDA cores, both dtypes).
+// 0 .. diagonal.
+//   float32 (flash_attention_dq_kernel): K and V staged per tile, P and
+// dP = dO V^T in registers, dS through shared memory (each row is written
+// and read by one warp), dQ += dS K on the CUDA cores, scaled once at the
+// end.
+//   bf16 (dq_mma_kernel): S = Q K^T, dP = dO V^T and dQ += dS K on
+// mma.sync.m16n8k16, a warp per 16 query rows; K and V double-buffered with
+// cp.async (55 KB of shared memory at hd 64, 104 KB at hd 128); only the
+// diagonal tile masks (rows at or beyond S have zero Q and dO); P and dS
+// stay in float32 registers, and scale * dS is rounded to bf16 before dS K,
+// as the JAX kernel rounds it (flash_attention.py:1249-1258), its C
+// fragments repacked into A fragments in registers; K is dS K's B operand
+// through ldmatrix.trans, so nothing is transposed in shared memory. dQ
+// sums in float32 registers and is stored once, in bf16.
 //
 // FA-dKV: one block per (batch, query head, tile of 64 keys): at the
 // trainer's [2, 1024, 14 -> 2, 64] that is 16 x 14 x 2 = 448 blocks of 4
@@ -197,6 +208,130 @@ flash_attention_dq_kernel(const void* __restrict__ q, const void* __restrict__ k
       dmel::store_f(dq, base + 16 * jp + 2 * tx, acc_dq[i][jp][0] * scale, bf16);
       dmel::store_f(dq, base + 16 * jp + 2 * tx + 1, acc_dq[i][jp][1] * scale, bf16);
     }
+  }
+}
+
+constexpr int DQ_WARPS = 4;  // a warp per 16 query rows: 64 rows per block
+constexpr int DQ_THREADS = 32 * DQ_WARPS;
+
+constexpr size_t dq_mma_smem_bytes(int HD) {  // Q, dO, two buffers each of K and V
+  return sizeof(__nv_bfloat16) * 6 * 64 * (HD + 8);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(DQ_THREADS)
+dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              __nv_bfloat16* __restrict__ dq, int S, int H, int KH, float scale) {
+  constexpr int LD = HD + 8;
+  constexpr int KS = HD / 16;  // k-steps over the head dimension
+  constexpr int DT = HD / 8;   // 8-wide dQ column tiles
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* dOs = Qs + 64 * LD;
+  __nv_bfloat16* Ks = dOs + 64 * LD;  // [2][64][LD]
+  __nv_bfloat16* Vs = Ks + 2 * 64 * LD;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;  // longest rows first
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int n_tiles = q0 / 64 + 1;  // key tiles 0 .. diagonal
+  const float sl2 = scale * LOG2E;
+
+  stage_tile_bf16<HD, DQ_THREADS>(Qs, q, b, S, H, h, q0);
+  stage_tile_bf16<HD, DQ_THREADS>(dOs, dout, b, S, H, h, q0);
+  stage_tile_bf16<HD, DQ_THREADS>(Ks, k, b, S, KH, kh, 0);
+  stage_tile_bf16<HD, DQ_THREADS>(Vs, v, b, S, KH, kh, 0);
+  cp_async_commit();
+
+  // this lane's rows row_lo and row_lo + 8: L (log2 domain) and D. Rows at
+  // or beyond S have zero Q and dO and L = D = 0, so their dS is 0.
+  const int row_lo = q0 + warp * 16 + g;
+  float L2[2], Dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    L2[r] = row < S ? lse[(b * H + h) * S + row] * LOG2E : 0.f;
+    Dr[r] = row < S ? delta[(b * H + h) * S + row] : 0.f;
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j has landed; every warp is done with tile j - 1's buffer
+    if (j + 1 < n_tiles) {
+      const int nb = (j + 1) & 1;
+      stage_tile_bf16<HD, DQ_THREADS>(Ks + nb * 64 * LD, k, b, S, KH, kh, (j + 1) * 64);
+      stage_tile_bf16<HD, DQ_THREADS>(Vs + nb * 64 * LD, v, b, S, KH, kh, (j + 1) * 64);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* Kt = Ks + (j & 1) * 64 * LD;
+    const __nv_bfloat16* Vt = Vs + (j & 1) * 64 * LD;
+    const int n0 = j * 64;
+
+    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys per warp
+    float sc[8][4], dp[8][4];
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[jn][e] = dp[jn][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      unsigned qa[4], oa[4];
+      ldsm_a(qa, Qs, LD, warp * 16, kk * 16);
+      ldsm_a(oa, dOs, LD, warp * 16, kk * 16);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        unsigned bk[4], bv[4];
+        ldsm_bt(bk, Kt, LD, jp * 16, kk * 16);
+        ldsm_bt(bv, Vt, LD, jp * 16, kk * 16);
+        mma_16816(sc[2 * jp], qa, bk[0], bk[1]);
+        mma_16816(sc[2 * jp + 1], qa, bk[2], bk[3]);
+        mma_16816(dp[2 * jp], oa, bv[0], bv[1]);
+        mma_16816(dp[2 * jp + 1], oa, bv[2], bv[3]);
+      }
+    }
+    // P = exp(scale s - L), exactly 0 above the diagonal; dS = P (dP - D),
+    // then scale dS (the value the JAX kernel rounds to bf16)
+    const bool diag = j == n_tiles - 1;
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const bool masked = diag && n0 + 8 * jn + 2 * t + (e & 1) > row_lo + 8 * r;
+        const float p = masked ? 0.f : exp2f(sc[jn][e] * sl2 - L2[r]);
+        sc[jn][e] = p * (dp[jn][e] - Dr[r]) * scale;
+      }
+    }
+    // dQ += round_bf16(scale dS) K
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      unsigned sa[4];
+      c_to_a(sa, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+      for (int dd = 0; dd < HD / 16; ++dd) {
+        unsigned bk[4];
+        ldsm_b(bk, Kt, LD, kk * 16, dd * 16);
+        mma_16816(acc[2 * dd], sa, bk[0], bk[1]);
+        mma_16816(acc[2 * dd + 1], sa, bk[2], bk[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    if (row >= S) continue;
+    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(dq + ((b * S + row) * H + h) * HD + 2 * t);
+#pragma unroll
+    for (int d = 0; d < DT; ++d) out[4 * d] = __floats2bfloat162_rn(acc[d][2 * r], acc[d][2 * r + 1]);
   }
 }
 
@@ -526,15 +661,26 @@ template <int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* delta, void* dq, int B, int S, int H, int KH, int bf16,
               float scale, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes(HD);
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>((S + BM - 1) / BM), static_cast<unsigned>(H),
                   static_cast<unsigned>(B));
-  flash_attention_dq_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, S, H, KH, bf16, scale);
+  if (bf16) {
+    constexpr size_t smem = dq_mma_smem_bytes(HD);
+    const cudaError_t e = cudaFuncSetAttribute(
+        dq_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    using bf = __nv_bfloat16;
+    dq_mma_kernel<HD><<<grid, DQ_THREADS, smem, stream>>>(
+        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+        static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dq), S, H, KH, scale);
+  } else {
+    constexpr size_t smem = dq_smem_bytes(HD);
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_attention_dq_kernel<HD><<<grid, THREADS, smem, stream>>>(
+        q, k, v, dout, lse, delta, dq, S, H, KH, bf16, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -632,8 +778,8 @@ extern "C" int dmel_flash_attention_bwd_config(int which, int B, int S, int H, i
   cfg[0] = (S + 63) / 64;
   cfg[1] = H;
   cfg[2] = B;
-  cfg[3] = which == 0 && bf16 ? DKV_THREADS : THREADS;
-  cfg[4] = static_cast<int>(which == 1 ? dq_smem_bytes(HD)
+  cfg[3] = !bf16 ? THREADS : which == 0 ? DKV_THREADS : DQ_THREADS;
+  cfg[4] = static_cast<int>(which == 1 ? (bf16 ? dq_mma_smem_bytes(HD) : dq_smem_bytes(HD))
                             : bf16     ? dkv_mma_smem_bytes(HD)
                                        : dkv_f32_smem_bytes(HD));
   return 0;

@@ -26,14 +26,39 @@
 //   order of additions, so the results agree to the bit.
 // P4 dmel_tap_matmul: y = sum_{i < taps} x[step*i : step*i + M, :] @ w, an
 //   11-tap conv in tap-matmul form, bf16 operands, float32 accumulation.
-//   Bound at the probe's shape: operations on the tensor cores for the
-//   taps x 2 M K N flops, bytes close behind. One block = 64 output rows of
-//   one plane: it stages the 64 + step*(taps-1) rows of x it reads and w
-//   (transposed, so that a B fragment's two k-neighbours are one 32-bit
-//   word) in shared memory with rows padded by 8 bf16 against bank
-//   conflicts; each of its 4 warps owns 16 rows x N columns of float32
-//   accumulators and runs mma.sync.m16n8k16 over taps x K/16 steps.
-//   wgmma and TMA are left to the stage kernel's redesign.
+//   Bound at the probe's shapes: operations on the tensor cores for the
+//   taps x 2 M K N flops, bytes close behind (the float32 y is most of
+//   them). Two kernels, chosen by the wrapper from the shape alone:
+//   * tap_wgmma_kernel (K, N multiples of 32 up to 256, step a multiple of
+//     8, 128 + step * (taps - 1) <= 256: the flagship C = 96 and C = 192).
+//     A tile is 128 output rows x all of N of one plane; persistent blocks
+//     walk the (plane, tile) list. One producer warp stages, by TMA, w once
+//     (N / 32 boxes of K rows x 64 bytes) and each tile's 128 + step *
+//     (taps - 1) rows of x once, as K / 32 column blocks of 64-byte rows,
+//     into a ring of shared-memory slots (full / empty mbarriers), so the
+//     next tile's rows load while this one's products run. Both operands
+//     lie in the 64-byte swizzle, whose atom is 8 rows: tap i's A operand
+//     is the staged block shifted by step * i rows, a whole number of
+//     atoms, so only the wgmma descriptor's start address moves (no copy).
+//     Two consumer warpgroups each own 64 rows x N float32 sums in
+//     registers and run wgmma.mma_async m64nNk16 (A K-major, B = w in its
+//     own [K, N] layout, MN-major), one commit group per column block; the
+//     epilogue trades halves between lane pairs and stores 16 bytes per
+//     thread, masking rows at or beyond M. At C = 192 the ring holds 11 of
+//     the 12 column blocks of two tiles (w takes 72 KB); at C <= 96 two
+//     blocks share an SM (at most 113 KB and 112 registers a thread each).
+//   * tap_matmul_kernel (every other shape: K a multiple of 16, N of 8, up
+//     to 256): one block = 64 output rows of one plane; it stages the 64 +
+//     step * (taps - 1) rows of x it reads and w (transposed, so that a B
+//     fragment's two k-neighbours are one 32-bit word) in shared memory
+//     with rows padded by 8 bf16 against bank conflicts; each of its 4 warps
+//     owns 16 rows x N columns of float32 accumulators and runs
+//     mma.sync.m16n8k16 over taps x K / 16 steps.
+#include <cuda.h>
+#include <stdint.h>
+
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -147,11 +172,11 @@ int launch_rows(const float* x, float* y, int P, int rows, int cols, int out_row
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- P4 -------------------------------------------------------------------
+// ---- P4, general path: mma.sync ------------------------------------------
 constexpr int MM_WARPS = 4;
 constexpr int MM_BM = 16 * MM_WARPS;  // output rows per block
 constexpr int MM_PAD = 8;             // bf16 of padding per staged row
-constexpr int MM_MAXN = 128;          // N / 8 * 4 accumulators per thread
+constexpr int MM_MAXN = 256;          // N / 8 * 4 accumulators per thread
 
 __device__ __forceinline__ void mma_bf16_16x8x16(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
   asm volatile(
@@ -222,6 +247,434 @@ tap_matmul_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   }
 }
 
+// ---- P4, Hopper path: TMA + wgmma -----------------------------------------
+constexpr int WG_CONSUMERS = 2;                      // consumer warpgroups, 64 output rows each
+constexpr int WG_BM = 64 * WG_CONSUMERS;             // output rows per tile
+constexpr int WG_THREADS = 128 * WG_CONSUMERS + 32;  // and one producer warp
+constexpr int WG_KB = 32;                            // bf16 per 64-byte swizzled row: a column block of x, of w
+constexpr int WG_MAX_ROWS = 256;                     // TMA's largest box: WG_BM + step * (taps - 1)
+constexpr int WG_PAIR_SMEM = 115712;                 // per block when two share an SM (228 KB less 2 x 1 KB reserved)
+constexpr int WG_PAIR_N = 96;                        // two blocks an SM up to this N (at 128 the 112 registers spill)
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// A box of a tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor for the 64-byte swizzle: start
+// address, leading and stride byte offsets (16-byte units), layout type 2.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 2ull << 62;
+}
+
+// d (+)= A B for a 64 x N tile of the warpgroup: A K-major and B MN-major
+// (imm-trans-b = 1), both bf16 in shared memory; d float32, the
+// m64nNk16 accumulator layout. scale_d = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_tn(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tn<32>(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<96>(float (&d)[48], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<128>(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<160>(float (&d)[80], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      "%74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<192>(float (&d)[96], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91,"
+      "%92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<224>(float (&d)[112], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %114, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91,"
+      "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      "%108, %109, %110, %111"
+      "}, %112, %113, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tn<256>(float (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91,"
+      "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122,"
+      "%123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Shared memory: w (N / 32 boxes of K rows x 64 bytes), then a ring of
+// `slots` column blocks of x (R rows x 64 bytes each, R = WG_BM + step *
+// (taps - 1)), then the ring's full / empty barriers and w's.
+struct WgLayout {
+  uint32_t w_bytes, slot_bytes, ring, bars, total;
+};
+
+__host__ __device__ inline WgLayout wg_layout(int K, int N, int R, int slots) {
+  WgLayout l;
+  l.w_bytes = static_cast<uint32_t>(K) * N * 2;
+  l.slot_bytes = (static_cast<uint32_t>(R) * 64 + 1023) & ~1023u;
+  l.ring = (l.w_bytes + 1023) & ~1023u;
+  l.bars = l.ring + slots * l.slot_bytes;
+  l.total = l.bars + 8 * (2 * slots + 1) + 1024;  // + the alignment of the base to 1024 bytes
+  return l;
+}
+
+template <int N>
+__global__ void __launch_bounds__(WG_THREADS, N <= WG_PAIR_N ? 2 : 1)
+tap_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                 float* __restrict__ y, int P, int M, int K, int taps, int step, int slots) {
+  extern __shared__ __align__(1024) unsigned char wg_raw[];
+  const int R = WG_BM + step * (taps - 1);
+  const WgLayout lay = wg_layout(K, N, R, slots);
+  const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(wg_raw)) + 1023) & ~1023u;
+  const uint32_t ws = base, ring = base + lay.ring, bars = base + lay.bars;
+  const uint32_t wbar = bars + 16 * slots;
+  const int kblocks = K / WG_KB;
+  const int per_plane = (M + WG_BM - 1) / WG_BM;
+  const int n_tiles = P * per_plane;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(bars + 8 * s, 1);                        // full: the producer's expect_tx + the bytes
+      mbar_init(bars + 8 * (slots + s), WG_CONSUMERS);  // empty: one arrival per consumer warpgroup
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp == 4 * WG_CONSUMERS) {  // the producer warp: one lane issues every copy
+    if (threadIdx.x % 32 == 0) {
+      mbar_expect_tx(wbar, lay.w_bytes);
+      for (int nb = 0; nb < N / WG_KB; ++nb) tma_load(ws + nb * K * 64, &wmap, wbar, nb * WG_KB, 0, 0);
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int plane = tile / per_plane, m0 = (tile % per_plane) * WG_BM;
+        for (int kb = 0; kb < kblocks; ++kb, ++it) {
+          const int s = it % slots;
+          mbar_wait(bars + 8 * (slots + s), ((it / slots) & 1) ^ 1);  // the slot's last readers are done
+          mbar_expect_tx(bars + 8 * s, static_cast<uint32_t>(R) * 64);
+          tma_load(ring + s * lay.slot_bytes, &xmap, bars + 8 * s, kb * WG_KB, m0, plane);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup c: rows [64 c, 64 c + 64) of every tile
+  const int c = warp / 4, tid = threadIdx.x % 128;
+  const int g = (tid % 32) / 4, t = tid % 4, odd = t & 1;
+  float d[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  mbar_wait(wbar, 0);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int plane = tile / per_plane, m0 = (tile % per_plane) * WG_BM;
+    int held = -1;  // the slot whose products may still be in flight
+    for (int kb = 0; kb < kblocks; ++kb, ++it) {
+      const int s = it % slots;
+      mbar_wait(bars + 8 * s, (it / slots) & 1);
+      const uint32_t xa = ring + s * lay.slot_bytes + c * 64 * 64;
+      const uint32_t wb = ws + kb * WG_KB * 64;
+      wgmma_fence();
+      for (int i = 0; i < taps; ++i) {
+        // tap i reads the staged rows shifted by step * i: a multiple of 8
+        // rows, one swizzle atom, so only the descriptor's start moves
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          wgmma_tn<N>(d, sw64_desc(xa + i * step * 64 + h * 32, 16, 512),
+                      sw64_desc(wb + h * 16 * 64, K * 64, 512), (kb | i | h) != 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous column block's products are done: free its slot
+      if (held >= 0 && tid == 0) mbar_arrive(bars + 8 * (slots + held));
+      held = s;
+    }
+    wgmma_wait<0>();
+    if (tid == 0) mbar_arrive(bars + 8 * (slots + held));
+
+    // epilogue: lanes t and t ^ 1 trade halves so that each stores 4
+    // consecutive floats of one row (even t: row g, odd t: row g + 8)
+    const int row = m0 + c * 64 + (tid / 32) * 16 + g + 8 * odd;
+    float* yrow = y + (static_cast<long long>(plane) * M + row) * N;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const float s0 = odd ? d[4 * j] : d[4 * j + 2], s1 = odd ? d[4 * j + 1] : d[4 * j + 3];
+      const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1), r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+      const float4 v = odd ? make_float4(r0, r1, d[4 * j + 2], d[4 * j + 3])
+                           : make_float4(d[4 * j], d[4 * j + 1], r0, r1);
+      if (row < M) *reinterpret_cast<float4*>(yrow + 8 * j + 2 * (t & 2)) = v;
+    }
+  }
+}
+
+// The tensor maps: x as [P, rows, K] in boxes of R rows x 32 columns, w as
+// [K, N] in boxes of K rows x 32 columns, both with the 64-byte swizzle
+// that the wgmma descriptors read. Rows beyond a plane's end read as zero.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+bool make_map(CUtensorMap* map, const void* base, cuuint64_t d0, cuuint64_t d1, cuuint64_t d2, cuuint32_t box1) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, of dims 1 and 2
+  const cuuint32_t box[3] = {WG_KB, box1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int N>
+int launch_wgmma(const void* x, const void* w, float* y, int P, int rows, int M, int K, int taps, int step,
+                 cudaStream_t stream) {
+  const int R = WG_BM + step * (taps - 1);
+  CUtensorMap xmap, wmap;
+  if (!make_map(&xmap, x, K, rows, P, R) || !make_map(&wmap, w, N, K, 1, K)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // as many ring slots as fit, up to two tiles' column blocks; half the
+  // SM's shared memory where two blocks share it (N <= WG_PAIR_N)
+  const int kblocks = K / WG_KB;
+  const int budget = N <= WG_PAIR_N ? WG_PAIR_SMEM : SMEM;
+  const WgLayout none = wg_layout(K, N, R, 0);
+  const int fit = (budget - static_cast<int>(none.total) - 16) / static_cast<int>(none.slot_bytes + 16);
+  const int slots = std::min(fit, 2 * kblocks);
+  if (slots < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = static_cast<int>(wg_layout(K, N, R, slots).total);
+  cudaError_t err = cudaFuncSetAttribute(tap_wgmma_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tap_wgmma_kernel<N>, WG_THREADS, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = P * ((M + WG_BM - 1) / WG_BM);
+  const int grid = std::min(tiles, std::max(per_sm, 1) * sms);
+  tap_wgmma_kernel<N><<<grid, WG_THREADS, bytes, stream>>>(xmap, wmap, y, P, M, K, taps, step, slots);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // P1. x, y: [B, C, T] contiguous, float32 (bf16 = 0) or bfloat16 (bf16 = 1);
@@ -259,22 +712,43 @@ extern "C" int dmel_rows_roll(const float* x, float* y, int P, int rows, int col
 }
 
 // P4. x: [P, rows, K] bfloat16, w: [K, N] bfloat16, y: [P, M, N] float32,
-// contiguous; K a multiple of 16 and N of 8, both up to 128;
-// step * (taps - 1) + M <= rows.
+// contiguous; step * (taps - 1) + M <= rows; K a multiple of 16 and N of 8,
+// both up to 256. path 0: the general mma.sync kernel; path 1: the TMA +
+// wgmma kernel, which also needs K and N multiples of 32, step a multiple of
+// 8, 128 + step * (taps - 1) <= 256, and x, w and y on 16-byte boundaries.
 extern "C" int dmel_tap_matmul(const void* x, const void* w, void* y, int P, int rows, int M, int K, int N,
-                               int taps, int step, void* stream) {
-  if (P < 1 || P > 65535 || M < 1 || taps < 1 || step < 0 || K < 16 || K % 16 || K > 128 || N < 8 || N % 8 ||
+                               int taps, int step, int path, void* stream) {
+  if (P < 1 || M < 1 || taps < 1 || step < 0 || K < 16 || K % 16 || K > 256 || N < 8 || N % 8 ||
       N > MM_MAXN || step * (taps - 1) + M > rows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* yf = static_cast<float*>(y);
+  if (path == 1) {
+    if (K % WG_KB || N % WG_KB || step % 8 || WG_BM + step * (taps - 1) > WG_MAX_ROWS ||
+        (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(y)) % 16) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    switch (N) {
+      case 32: return launch_wgmma<32>(x, w, yf, P, rows, M, K, taps, step, st);
+      case 64: return launch_wgmma<64>(x, w, yf, P, rows, M, K, taps, step, st);
+      case 96: return launch_wgmma<96>(x, w, yf, P, rows, M, K, taps, step, st);
+      case 128: return launch_wgmma<128>(x, w, yf, P, rows, M, K, taps, step, st);
+      case 160: return launch_wgmma<160>(x, w, yf, P, rows, M, K, taps, step, st);
+      case 192: return launch_wgmma<192>(x, w, yf, P, rows, M, K, taps, step, st);
+      case 224: return launch_wgmma<224>(x, w, yf, P, rows, M, K, taps, step, st);
+      case 256: return launch_wgmma<256>(x, w, yf, P, rows, M, K, taps, step, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (path != 0 || P > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int ld = K + MM_PAD;
   const int bytes = (MM_BM + step * (taps - 1) + N) * ld * static_cast<int>(sizeof(__nv_bfloat16));
   if (bytes > SMEM) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(tap_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((M + MM_BM - 1) / MM_BM, P);
-  tap_matmul_kernel<<<grid, 32 * MM_WARPS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), static_cast<float*>(y),
-      rows, M, K, N, taps, step);
+  tap_matmul_kernel<<<grid, 32 * MM_WARPS, bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), yf, rows, M, K, N, taps, step);
   return static_cast<int>(cudaGetLastError());
 }

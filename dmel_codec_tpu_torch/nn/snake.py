@@ -9,12 +9,26 @@ alpha/beta [C] broadcast over [B, C, T].
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 _EPS = 1e-9
+
+
+def snake_coefficients(
+    alpha: torch.Tensor, beta: Optional[torch.Tensor], logscale: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(alpha, 1 / (beta + eps)) as the activation applies them, exp'd under
+    `logscale`; beta=None is plain snake (gain 1/alpha). Computed in the
+    parameters' dtype, as the JAX package computes them (nn/snake.py,
+    ops/anti_alias.py:607-612, ops/stage_fused.py pack_stage): a bf16
+    parameter gives bf16-rounded values."""
+    if logscale:
+        alpha = torch.exp(alpha)
+        beta = torch.exp(beta) if beta is not None else None
+    return alpha, 1.0 / ((alpha if beta is None else beta) + _EPS)
 
 
 def snake_beta(
@@ -24,13 +38,9 @@ def snake_beta(
     logscale: bool = False,
 ) -> torch.Tensor:
     """beta=None is plain snake (gain 1/alpha)."""
-    if logscale:
-        alpha = torch.exp(alpha)
-        beta = torch.exp(beta) if beta is not None else None
-    alpha = alpha[:, None]
-    gain = 1.0 / ((alpha if beta is None else beta[:, None]) + _EPS)
-    s = torch.sin(x * alpha)
-    return x + gain * s * s
+    alpha, gain = snake_coefficients(alpha, beta, logscale)
+    s = torch.sin(x * alpha[:, None])
+    return x + gain[:, None] * s * s
 
 
 class SnakeBeta(nn.Module):

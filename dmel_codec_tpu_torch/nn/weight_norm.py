@@ -7,8 +7,9 @@ layout:
   * Conv1d          [out, in, k] -> one g per OUTPUT channel
   * Conv2d          [out, in, k_h, k_w] -> one g per OUTPUT channel
   * ConvTranspose1d [in, out, k] -> one g per INPUT channel
-`weight()` materialises g * v / ||v|| (in float32, cast back to v's dtype);
-the serving vocoder calls it once per conv.
+`weight()` materialises g * v / ||v|| in the parameters' dtype, op by op
+as the JAX `weight_norm_kernel` does (a bf16 model gets the JAX package's
+bf16 weights); the serving vocoder calls it once per conv.
 """
 
 from __future__ import annotations
@@ -21,9 +22,8 @@ import torch.nn.functional as F
 
 
 def weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    vf = v.float()
-    norm = vf.square().sum(dim=tuple(range(1, v.dim())), keepdim=True).sqrt()
-    return (g.float().reshape(norm.shape) * vf / norm).to(v.dtype)
+    norm = (v * v).sum(dim=tuple(range(1, v.dim())), keepdim=True).sqrt()
+    return g.reshape(norm.shape) * v / norm
 
 
 class _WeightNormed(nn.Module):

@@ -6,6 +6,11 @@ alias_free_activation chain, exact at both edges):
   * on a CPU tensor it runs the plain PyTorch version,
     `anti_alias_activation_reference`;
   * on a CUDA tensor it launches kernel K1 (csrc/anti_alias.cu) or raises.
+The snake's coefficients, alpha and 1 / (beta + eps), exp'd under
+`logscale`, are taken in the parameters' dtype (`snake_coefficients`; the
+kernel rounds them so itself), as the JAX op takes them before its kernel
+(ops/anti_alias.py:607-612): bf16 parameters give bf16-rounded
+coefficients. The rest is float32 arithmetic with the result in x's dtype.
 The backward pass differentiates the plain version, as the JAX op's custom
 VJP differentiates its oracle.
 """
@@ -30,10 +35,11 @@ def anti_alias_activation_reference(
     beta: Optional[torch.Tensor],
     logscale: bool = False,
 ) -> torch.Tensor:
-    """Plain version: float32 arithmetic, result in x's dtype."""
+    """Plain version: coefficients in the parameters' dtype, float32
+    arithmetic, result in x's dtype."""
     filt = torch.from_numpy(FILT)
     u = upsample1d(x.float(), filt, 2, _KS)
-    v = snake_beta(u, alpha.float(), None if beta is None else beta.float(), logscale)
+    v = snake_beta(u, alpha, beta, logscale)
     return downsample1d(v, filt, 2, _KS).to(x.dtype)
 
 
@@ -41,13 +47,11 @@ def _launch(x, alpha, beta, logscale: bool) -> torch.Tensor:
     lib = library.load()
     library.check_plane(x)
     b, c, t = x.shape
-    a = library.channel_vector(alpha, x, c)
-    bt = None if beta is None else library.channel_vector(beta, x, c)
+    a, bt, param_bf16 = library.snake_parameters(alpha, beta, x, c)
     y = torch.empty_like(x)
     rc = lib.dmel_anti_alias(
-        x.data_ptr(), y.data_ptr(), a.data_ptr(),
-        None if bt is None else bt.data_ptr(),
-        int(logscale), b, c, t, int(x.dtype == torch.bfloat16),
+        x.data_ptr(), y.data_ptr(), a.data_ptr(), None if bt is None else bt.data_ptr(),
+        int(logscale), param_bf16, b, c, t, int(x.dtype == torch.bfloat16),
         library.taps(FILT), library.stream(x),
     )
     library.check(lib, rc, "dmel_anti_alias")

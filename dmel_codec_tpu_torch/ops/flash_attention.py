@@ -16,9 +16,10 @@ dtype:
     (csrc/flash_attention.cu) forward, and under autograd FA-dKV and FA-dQ
     (csrc/flash_attention_bwd.cu) backward.
 In bf16 the kernels run their products on the tensor cores and round the
-probabilities P (before P V and P^T dO) and dS (before dS^T Q) to bf16, as
-jax's Pallas kernels do; the plain versions keep both float32 (the exact
-float32-product functions the kernels are held against).
+probabilities P (before P V and P^T dO), dS (before dS^T Q) and scale * dS
+(before dS K) to bf16, as jax's Pallas kernels do; the plain versions keep
+them float32 (the exact float32-product functions the kernels are held
+against).
 The kernels never form the [S, S] score matrix in device memory, index the
 KV head themselves (no repeat of K/V) and mask a ragged last tile (no
 padding of S). Under autograd the forward also stores each row's

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "dmel_anti_alias": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "dmel_anti_alias": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "dmel_act_conv": [
         _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _F, _I, _I,
         _I, _I, _I, _I, _I, _I, _P, _P,
@@ -44,14 +44,14 @@ _SIGNATURES = {
     ],
     "dmel_flash_attention_config": [_I, _I, _I, _I, _I, _P],
     "dmel_flash_attention_bwd_config": [_I, _I, _I, _I, _I, _I, _P],
-    "dmel_anti_alias_variant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "dmel_anti_alias_variant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "dmel_stage_v1": [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
     ],
     "dmel_cf_act": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "dmel_rows_slice": [_P, _P, _I, _I, _I, _I, _P],
     "dmel_rows_roll": [_P, _P, _I, _I, _I, _I, _P],
-    "dmel_tap_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dmel_tap_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "dmel_stage_v1_scratch_floats": [],
     "dmel_stage_v1_smem_bytes": [],
 }
@@ -184,6 +184,18 @@ def channel_vector(p: torch.Tensor, like: torch.Tensor, n: int) -> torch.Tensor:
     if p.shape != (n,) or p.device != like.device:
         raise ValueError(f"expected a [{n}] tensor on {like.device}, got {tuple(p.shape)} on {p.device}")
     return p.detach().to(torch.float32).contiguous()
+
+
+def snake_parameters(alpha: torch.Tensor, beta, like: torch.Tensor, n: int):
+    """K1's snake parameters as its kernels take them: alpha and beta (or
+    None) as float32 vectors, and whether they are bf16 values (the kernel
+    then rounds their exps and 1 / (beta + eps) to bf16, as the plain
+    version's `snake_coefficients` computes them in bf16)."""
+    dtypes = {alpha.dtype} | ({beta.dtype} if beta is not None else set())
+    if not dtypes <= {torch.float32, torch.bfloat16} or len(dtypes) > 1:
+        raise TypeError(f"alpha and beta must share float32 or bfloat16, got {sorted(map(str, dtypes))}")
+    bt = None if beta is None else channel_vector(beta, like, n)
+    return channel_vector(alpha, like, n), bt, int(alpha.dtype == torch.bfloat16)
 
 
 def taps(filt: np.ndarray):

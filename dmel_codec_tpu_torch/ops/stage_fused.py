@@ -34,10 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from dmel_codec_tpu_torch.nn.resample import downsample1d, upsample1d
+from dmel_codec_tpu_torch.nn.snake import snake_coefficients
 from dmel_codec_tpu_torch.ops import library
 from dmel_codec_tpu_torch.ops.anti_alias import FILT
-
-_EPS = 1e-9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,27 +70,25 @@ class StageSpec:
 def pack_stage(resblocks: Sequence[torch.nn.Module], spec: StageSpec) -> dict:
     """AMPBlock1 modules -> {w: 18 x [k, C_out, C_in], b: [C, 18],
     a: [C, 18] (exp'd alpha), ib: [C, 18] (1/(beta+eps))}, float32; one
-    column per conv and per the activation in front of it."""
+    column per conv and per the activation in front of it. As the JAX
+    `pack_stage`: the weight norm and the coefficients are computed in the
+    parameters' dtype, and only then held as float32."""
     ws, biases, alphas, inv_betas = [], [], [], []
     for blk in resblocks:
         for c1, c2 in zip(blk.convs1, blk.convs2):
             for conv in (c1, c2):
                 ws.append(conv.weight().float().permute(2, 0, 1).contiguous())
-                biases.append(conv.bias.float())
+                biases.append(conv.bias)
         for act in blk.activations:
-            alpha = act.act.alpha.float()
-            beta = act.act.beta.float() if spec.activation == "snakebeta" else None
-            if spec.logscale:
-                alpha = torch.exp(alpha)
-                beta = torch.exp(beta) if beta is not None else None
+            beta = act.act.beta if spec.activation == "snakebeta" else None
+            alpha, inv_beta = snake_coefficients(act.act.alpha, beta, spec.logscale)
             alphas.append(alpha)
-            inv_betas.append(1.0 / ((alpha if beta is None else beta) + _EPS))
-    return {
-        "w": ws,
-        "b": torch.stack(biases, dim=1),
-        "a": torch.stack(alphas, dim=1),
-        "ib": torch.stack(inv_betas, dim=1),
-    }
+            inv_betas.append(inv_beta)
+
+    def cols(values):  # [C, 18] float32
+        return torch.stack(values, dim=1).float()
+
+    return {"w": ws, "b": cols(biases), "a": cols(alphas), "ib": cols(inv_betas)}
 
 
 def _reference(x: torch.Tensor, packed: dict, spec: StageSpec, round_planes: bool) -> torch.Tensor:

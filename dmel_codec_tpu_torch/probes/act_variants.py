@@ -40,14 +40,14 @@ def variant_reference(
     variant: str,
     logscale: bool = True,
 ) -> torch.Tensor:
-    """Plain version of each variant: float32 arithmetic, result in x's dtype."""
+    """Plain version of each variant: coefficients in the parameters' dtype
+    (as K1's), float32 arithmetic, result in x's dtype."""
     if variant == "full":
         return anti_alias_activation_reference(x, alpha, beta, logscale)
     if variant == "copy":
         return x.clone()
     if variant == "no_fir":
-        b = None if beta is None else beta.float()
-        return snake_beta(x.float(), alpha.float(), b, logscale).to(x.dtype)
+        return snake_beta(x.float(), alpha, beta, logscale).to(x.dtype)
     if variant == "no_snake":
         filt = torch.from_numpy(FILT)
         return downsample1d(upsample1d(x.float(), filt, 2, 12), filt, 2, 12).to(x.dtype)
@@ -69,12 +69,11 @@ def run_variant(
     lib = library.load()
     library.check_plane(x)
     b, c, t = x.shape
-    a = library.channel_vector(alpha, x, c)
-    bt = None if beta is None else library.channel_vector(beta, x, c)
+    a, bt, param_bf16 = library.snake_parameters(alpha, beta, x, c)
     y = torch.empty_like(x)
     rc = lib.dmel_anti_alias_variant(
         x.data_ptr(), y.data_ptr(), a.data_ptr(), None if bt is None else bt.data_ptr(),
-        int(logscale), b, c, t, int(x.dtype == torch.bfloat16), library.taps(FILT),
+        int(logscale), param_bf16, b, c, t, int(x.dtype == torch.bfloat16), library.taps(FILT),
         VARIANTS.index(variant), library.stream(x),
     )
     library.check(lib, rc, "dmel_anti_alias_variant")

@@ -1,22 +1,32 @@
-"""Times of the flash-attention kernels FA, FA-dKV and FA-dQ at the LM's
-main-path shapes, and a same-card comparison of two checkouts' kernels.
+"""Times of the redesigned kernels at their main-path shapes (the
+flash-attention kernels FA, FA-dKV and FA-dQ at the LM's shapes, P4 at the
+probe's 264 planes at C = 96 and 192), and a same-card comparison of two
+checkouts.
 
     python3 -m dmel_codec_tpu_torch.probes.flash_times              # this checkout
     python3 -m dmel_codec_tpu_torch.probes.flash_times --ab OTHER   # OTHER, this, this, OTHER
 
 With `--ab` each run is its own process (this file run as a script from
-the checkout's root) that imports the port from its checkout, builds that checkout's kernels from its own `csrc/` (into its
-`build/`), and times them through its `ops/flash_attention.py` (both must
-have `_launch(q, k, v, with_lse)`, `flash_attention_dkv(q, k, v, grad, lse,
-delta)` and `flash_attention_dq(...)`); the runs alternate so that a drift
-of the card shows as a difference between the two runs of one checkout.
-Prints one line per shape and run, and as its last line a JSON object
-{checkout: {case: ms per launch, mean of its runs}}.
+the checkout's root) that imports the port from its checkout, builds that
+checkout's kernels from its own `csrc/` (into its `build/`), and times them
+through its `ops/flash_attention.py` (`_launch(q, k, v, with_lse)`,
+`flash_attention_dkv(q, k, v, grad, lse, delta)`, `flash_attention_dq(...)`)
+and its `probes/sublane_ops.tap_matmul` (a width that checkout refuses is
+left out); the runs alternate so that a drift of the card shows as a
+difference between the two runs of one checkout. Each run also records
+what must not change, or must change by a stated amount: a hash of the
+float32 FA-dQ output at [2, 1024] (the same bits in every run: the float32
+kernel is the same code), and the flagship vocoder's bf16 waveform on
+seeded random weights with spread snake parameters (written to the
+checkout's `build/ab_vocoder.pt`; the difference between the checkouts is
+printed). Prints one line per case and run, and as its last line a JSON
+object {checkout: {case: ms per launch, mean of its runs}, "vocoder": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -28,16 +38,19 @@ HERE = Path(__file__).resolve().parents[2]
 CASES = [("fwd", 2, 2048, 14, 2, 64, "bfloat16"), ("fwd+L", 2, 1024, 14, 2, 64, "float32"),
          ("bwd", 2, 1024, 14, 2, 64, "float32"), ("bwd", 2, 2048, 14, 2, 64, "float32"),
          ("bwd", 2, 2048, 14, 2, 64, "bfloat16")]
+P4_WIDTHS, P4_PLANES = (96, 192), 264  # x [264, 2176, C] @ w [C, C], 11 taps of step 8
 
 
 def time_here(root: Path, reps: int = 20) -> dict:
-    """ms per launch of the checkout at `root`, keyed "FA bfloat16 [2, 2048]" etc."""
+    """ms per launch of the checkout at `root`, keyed "FA bfloat16 [2, 2048]" etc., and the
+    float32 FA-dQ hash ("bits ..."); writes the vocoder's waveform to `root`/build."""
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("flash_times: the probe times CUDA kernels and needs a GPU")
     sys.path.insert(0, str(root))
     from dmel_codec_tpu_torch.ops import flash_attention as fa
+    from dmel_codec_tpu_torch.probes import sublane_ops
 
     def cuda_ms(fn, n):  # CUDA events over n launches after one warm-up
         fn()
@@ -51,6 +64,7 @@ def time_here(root: Path, reps: int = 20) -> dict:
         return start.elapsed_time(end) / n
 
     assert Path(fa.__file__).resolve().is_relative_to(root.resolve()), fa.__file__
+    (root / "build").mkdir(exist_ok=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
     with torch.no_grad():
@@ -68,7 +82,40 @@ def time_here(root: Path, reps: int = 20) -> dict:
                 delta = (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
                 out[f"FA-dKV {tag}"] = cuda_ms(lambda: fa.flash_attention_dkv(q, k, v, g, lse, delta), reps)
                 out[f"FA-dQ {tag}"] = cuda_ms(lambda: fa.flash_attention_dq(q, k, v, g, lse, delta), reps)
+                if (s, dt) == (1024, "float32"):
+                    dq = fa.flash_attention_dq(q, k, v, g, lse, delta).cpu().numpy()
+                    out[f"bits FA-dQ {tag}"] = hashlib.sha256(dq.tobytes()).hexdigest()
+        for c in P4_WIDTHS:
+            xb = torch.randn((P4_PLANES, sublane_ops.MM_ROWS, c), device="cuda", generator=gen).to(torch.bfloat16)
+            w = torch.randn((c, c), device="cuda", generator=gen).to(torch.bfloat16)
+            try:
+                sublane_ops.tap_matmul(xb, w)
+            except ValueError:  # a width this checkout's P4 does not take
+                continue
+            out[f"P4 C = {c} [{P4_PLANES} planes]"] = cuda_ms(lambda: sublane_ops.tap_matmul(xb, w), reps)
+        torch.save(vocoder_bf16(), root / "build" / "ab_vocoder.pt")
     return out
+
+
+def vocoder_bf16():
+    """The flagship serving vocoder's bf16 waveform (CPU) for a seeded mel
+    of 2 x 96 frames, on random weights from a fixed seed with log-alpha /
+    log-beta spread (they start at 0, where exp is exact in any dtype)."""
+    import torch
+    from dmel_codec_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig, FusedBigVGAN
+    from dmel_codec_tpu_torch.nn.snake import SnakeBeta
+
+    torch.manual_seed(0)
+    model = BigVGAN(BigVGANConfig())
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, SnakeBeta):
+                for p in (m.alpha, m.beta):
+                    if p is not None:
+                        p.normal_(0.0, 0.1)
+    vocoder = FusedBigVGAN(model.eval().to("cuda", torch.bfloat16))
+    mel = torch.randn((2, 96, model.config.num_mels), generator=torch.Generator().manual_seed(1))
+    return vocoder(mel.to("cuda", torch.bfloat16)).float().cpu()
 
 
 def main(argv=None) -> dict:
@@ -80,8 +127,10 @@ def main(argv=None) -> dict:
         times = time_here(args.root)
         print(json.dumps(times))
         return times
+    import torch
+
     runs = [args.ab, HERE, HERE, args.ab]
-    table = {}
+    table, bits = {}, {}
     for i, root in enumerate(runs):
         proc = subprocess.run([sys.executable, __file__, "--root", str(root.resolve())],
                               cwd=root, capture_output=True, text=True, timeout=900)
@@ -89,9 +138,22 @@ def main(argv=None) -> dict:
             raise RuntimeError(f"timing {root} failed:\n{proc.stderr[-4000:]}")
         times = json.loads(proc.stdout.strip().splitlines()[-1])
         for case, ms in times.items():
+            if case.startswith("bits "):
+                print(f"run {i + 1} {root}: {case}: sha256 {ms[:16]}")
+                bits.setdefault(case, set()).add(ms)
+                continue
             print(f"run {i + 1} {root}: {case}: {ms:.4f} ms")
             table.setdefault(str(root), {}).setdefault(case, []).append(ms)
+    for case, hashes in bits.items():
+        if len(hashes) != 1:
+            raise AssertionError(f"{case}: the runs gave different bits ({len(hashes)} hashes)")
+        print(f"{case}: the same bits in all four runs")
     means = {root: {case: sum(v) / len(v) for case, v in cases.items()} for root, cases in table.items()}
+    other, here = (torch.load(Path(r) / "build" / "ab_vocoder.pt") for r in (args.ab, HERE))
+    diff = (here - other).abs()
+    means["vocoder"] = {"max_abs_diff": diff.max().item(), "mean_abs_diff": diff.mean().item(),
+                        "max_abs_out": other.abs().max().item(), "same_bits": (here == other).float().mean().item()}
+    print(f"flagship vocoder, bf16, 2 x 96 frames: this checkout against {args.ab}: {means['vocoder']}")
     print(json.dumps(means))
     return means
 

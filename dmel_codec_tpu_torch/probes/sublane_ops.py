@@ -9,20 +9,29 @@ columns the channels, and off over OFFSETS = (0, 1, 3, 5, 7, 9):
 P2 and P3 take float32 planes [rows, cols] and add in the order of
 OFFSETS, so they equal the JAX kernels to the bit. P3 is `np.roll`'s
 rotate of the whole plane and NOT P2's sum (the two differ wherever
-i < 9). P4 takes bfloat16 operands x [rows, K], w [K, N] and accumulates in
-float32. Every function also takes a leading planes axis [P, ...], so that
-a timing can fill the card; P = 1 is the JAX probe's case. On a CPU tensor
-each runs its plain version (`slice_reference`, `roll_reference`,
-`tap_matmul_reference`); on a CUDA tensor it launches its kernel
-(csrc/probes.cu: `dmel_rows_slice`, `dmel_rows_roll`, `dmel_tap_matmul`, the
-last a hand-written mma.sync product) or raises.
+i < 9). P4 takes bfloat16 operands x [rows, K], w [K, N] (K a multiple of
+16, N of 8, both up to 256) and accumulates in float32. Every function also
+takes a leading planes axis [P, ...], so that a timing can fill the card;
+P = 1 is the JAX probe's case. On a CPU tensor each runs its plain version
+(`slice_reference`, `roll_reference`, `tap_matmul_reference`); on a CUDA
+tensor it launches its kernel (csrc/probes.cu: `dmel_rows_slice`,
+`dmel_rows_roll`, `dmel_tap_matmul`) or raises.
+
+P4 has two kernels, chosen by shape alone (`tap_matmul_path`), never by a
+failed build or launch: "wgmma", the Hopper kernel (TMA-staged,
+64-byte-swizzled tiles of 128 rows x all of N, `wgmma.mma_async`), where K
+and N are multiples of 32, step a multiple of 8 and 128 + step * (taps - 1)
+<= 256 (the flagship 11 taps of step 8 at C = 96 and 192 among them); else
+"mma", the general `mma.sync` kernel (64 rows per block). Each launch counts
+in `tap_matmul.launches` and in `tap_matmul.launches_by_path[path]`.
 
     python -m dmel_codec_tpu_torch.probes.sublane_ops
 
 checks the three against their plain versions at the JAX probe's shapes
-(x [1280, 96] -> [112, 96]; x [2176, 96] @ w [96, 96], 11 taps -> [1024, 96])
-at P = 1 and P = 264, raising if P2 or P3 differ from plain by a bit or P4 by
-more than 1e-4 of max |y|, and prints ms per launch at both beside the bounds.
+(x [1280, 96] -> [112, 96]; x [2176, C] @ w [C, C], 11 taps -> [1024, C],
+C = 96 as the JAX probe and C = 192, K2's widest fused stage) at P = 1 and
+P = 264, raising if P2 or P3 differ from plain by a bit or P4 by more than
+1e-4 of max |y|, and prints ms per launch at both beside the bounds.
 """
 
 from __future__ import annotations
@@ -36,7 +45,10 @@ OFFSETS = (0, 1, 3, 5, 7, 9)
 ROWS, LANES, OUT_ROWS = 1280, 96, 112        # P2 / P3 at the JAX probe's shape
 MM_ROWS, MM_OUT, TAPS, STEP = 2176, 1024, 11, 8  # P4
 FILL_PLANES = 264  # two blocks' worth of planes per SM of an H100
-MM_TOL = 1e-4  # of max |y|: only the order of 11 x 96 float32 additions differs from plain
+MM_TOL = 1e-4  # of max |y|: only the order of 11 x C float32 additions differs from plain
+MM_MAX = 256  # K, N
+WG_ROWS, WG_MAX_ROWS = 128, 256  # the wgmma kernel's output rows per tile; TMA's largest box
+WIDTHS = (96, 192)  # C of the timed P4 shapes: the JAX probe's, and K2's widest fused stage
 
 
 def slice_reference(x: torch.Tensor, out_rows: int = OUT_ROWS) -> torch.Tensor:
@@ -104,6 +116,14 @@ def roll_rows(x: torch.Tensor, out_rows: int = OUT_ROWS) -> torch.Tensor:
     return _rows_op(x, out_rows, "dmel_rows_roll", roll_rows)
 
 
+def tap_matmul_path(k: int, n: int, taps: int = TAPS, step: int = STEP) -> str:
+    """P4's kernel for this shape: "wgmma" where the Hopper kernel takes it,
+    else "mma" (module docstring)."""
+    if k % 32 == 0 and n % 32 == 0 and step % 8 == 0 and WG_ROWS + step * (taps - 1) <= WG_MAX_ROWS:
+        return "wgmma"
+    return "mma"
+
+
 def tap_matmul(
     x: torch.Tensor, w: torch.Tensor, out_rows: int = MM_OUT, taps: int = TAPS, step: int = STEP
 ) -> torch.Tensor:
@@ -116,21 +136,29 @@ def tap_matmul(
     if w.dim() != 2 or w.shape[0] != k or w.device != x.device or w.dtype != torch.bfloat16 or not w.is_contiguous():
         raise ValueError(f"w must be a contiguous bfloat16 [{k}, N] on {x.device}, got {w.dtype} {tuple(w.shape)} on {w.device}")
     n = w.shape[1]
-    if k % 16 or n % 8 or k > 128 or n > 128:
-        raise ValueError(f"K must be a multiple of 16 and N of 8, both up to 128; got K = {k}, N = {n}")
+    if k < 16 or k % 16 or n < 8 or n % 8 or k > MM_MAX or n > MM_MAX:
+        raise ValueError(f"K must be a multiple of 16 and N of 8, both up to {MM_MAX}; got K = {k}, N = {n}")
     if taps < 1 or step < 0 or out_rows < 1 or step * (taps - 1) + out_rows > rows:
         raise ValueError(f"{taps} taps of step {step} and {out_rows} output rows do not fit {rows} rows")
+    path = tap_matmul_path(k, n, taps, step)
+    if path == "wgmma" and (xp.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("x and w must start on a 16-byte boundary (the wgmma kernel stages them with TMA)")
+    if path == "mma" and p > 65535:
+        raise ValueError(f"the mma kernel takes at most 65535 planes, got {p}")
     y = torch.empty((p, out_rows, n), device=x.device, dtype=torch.float32)
     rc = lib.dmel_tap_matmul(
-        xp.data_ptr(), w.data_ptr(), y.data_ptr(), p, rows, out_rows, k, n, taps, step, library.stream(x)
+        xp.data_ptr(), w.data_ptr(), y.data_ptr(), p, rows, out_rows, k, n, taps, step,
+        int(path == "wgmma"), library.stream(x),
     )
     library.check(lib, rc, "dmel_tap_matmul")
     tap_matmul.launches += 1
+    tap_matmul.launches_by_path[path] += 1
     return y if x.dim() == 3 else y[0]
 
 
-# P2 / P3 / P4 launches, counted where the kernel is launched
+# P2 / P3 / P4 launches, counted where the kernel is launched (P4 also by path)
 slice_rows.launches = roll_rows.launches = tap_matmul.launches = 0
+tap_matmul.launches_by_path = {"wgmma": 0, "mma": 0}
 
 
 def rows_bound_ms(planes: int, cols: int = LANES, out_rows: int = OUT_ROWS) -> float:
@@ -149,20 +177,21 @@ def tap_matmul_bound_ms(planes: int, k: int = LANES, n: int = LANES, out_rows: i
     return {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": flops / PEAK_BF16 * 1e3}
 
 
-def _inputs(planes: int, device):
-    """Seeded x [P, 1280, 96] float32, xb [P, 2176, 96] and w [96, 96] bfloat16."""
+def _inputs(planes: int, device, c: int = LANES):
+    """Seeded x [P, 1280, 96] float32, xb [P, 2176, C] and w [C, C] bfloat16."""
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.randn((planes, ROWS, LANES), device=device, generator=gen)
-    xb = torch.randn((planes, MM_ROWS, LANES), device=device, generator=gen).to(torch.bfloat16)
-    w = torch.randn((LANES, LANES), device=device, generator=gen).to(torch.bfloat16)
+    xb = torch.randn((planes, MM_ROWS, c), device=device, generator=gen).to(torch.bfloat16)
+    w = torch.randn((c, c), device=device, generator=gen).to(torch.bfloat16)
     return x, xb, w
 
 
 def check_probes(planes: int, device="cuda") -> dict:
-    """Errors of P2, P3 and P4 against plain on `planes` planes, and the
-    largest |P3 - P2|. Raises unless P2 and P3 give plain's bits, P4 is
-    within MM_TOL of max |y|, and P3 differs from P2 (two functions)."""
-    x, xb, w = _inputs(planes, device)
+    """Errors of P2, P3 and P4 (at each of WIDTHS) against plain on
+    `planes` planes, and the largest |P3 - P2|. Raises unless P2 and P3 give
+    plain's bits, P4 is within MM_TOL of max |y|, and P3 differs from P2
+    (two functions)."""
+    x, _, _ = _inputs(planes, device)
     out = {}
     for name, fn, ref in (("slice", slice_rows, slice_reference), ("roll", roll_rows, roll_reference)):
         got, want = fn(x), ref(x)
@@ -172,21 +201,25 @@ def check_probes(planes: int, device="cuda") -> dict:
     out["roll vs slice"] = float((roll_rows(x) - slice_rows(x)).abs().max())
     if not out["roll vs slice"] > 1.0:
         raise AssertionError(f"roll_rows equals slice_rows to {out['roll vs slice']:.3e}: they are two functions")
-    want = tap_matmul_reference(xb, w)
-    out["matmul"], out["max |y|"] = float((tap_matmul(xb, w) - want).abs().max()), float(want.abs().max())
-    if not out["matmul"] <= MM_TOL * out["max |y|"]:
-        raise AssertionError(f"tap_matmul, {planes} planes: max abs err {out['matmul']:.3e} vs plain at max |y| {out['max |y|']:.1f}")
+    for c in WIDTHS:
+        _, xb, w = _inputs(planes, device, c)
+        want = tap_matmul_reference(xb, w)
+        err, top = float((tap_matmul(xb, w) - want).abs().max()), float(want.abs().max())
+        out[f"matmul {c}"], out[f"max |y| {c}"] = err, top
+        if not err <= MM_TOL * top:
+            raise AssertionError(f"tap_matmul, {planes} planes, C = {c}: max abs err {err:.3e} vs plain at max |y| {top:.1f}")
     return out
 
 
 def time_probes(planes: int, reps: int = 20, device="cuda") -> dict:
-    """Mean ms per launch of P2, P3 and P4 on `planes` planes."""
-    x, xb, w = _inputs(planes, device)
-    return {
-        "slice": cuda_ms(lambda: slice_rows(x), reps),
-        "roll": cuda_ms(lambda: roll_rows(x), reps),
-        "matmul": cuda_ms(lambda: tap_matmul(xb, w), reps),
-    }
+    """Mean ms per launch of P2, P3 and P4 (at each of WIDTHS, keys
+    "matmul C") on `planes` planes."""
+    x, _, _ = _inputs(planes, device)
+    out = {"slice": cuda_ms(lambda: slice_rows(x), reps), "roll": cuda_ms(lambda: roll_rows(x), reps)}
+    for c in WIDTHS:
+        _, xb, w = _inputs(planes, device, c)
+        out[f"matmul {c}"] = cuda_ms(lambda: tap_matmul(xb, w), reps)
+    return out
 
 
 def main() -> dict:
@@ -196,16 +229,21 @@ def main() -> dict:
     print(torch.cuda.get_device_name(0))
     for planes in (1, FILL_PLANES):
         err = check_probes(planes)
-        print(f"P = {planes}: max err vs plain: slice {err['slice']:.2e}, roll {err['roll']:.2e}, matmul "
-              f"{err['matmul']:.2e} (max |y| {err['max |y|']:.1f}); roll vs slice {err['roll vs slice']:.2f} (two functions)")
+        print(f"P = {planes}: max err vs plain: slice {err['slice']:.2e}, roll {err['roll']:.2e}, "
+              + ", ".join(f"matmul C = {c} {err[f'matmul {c}']:.2e} (max |y| {err[f'max |y| {c}']:.1f})" for c in WIDTHS)
+              + f"; roll vs slice {err['roll vs slice']:.2f} (two functions)")
     table = {}
-    print(f"{'planes':<8}{'slice':>9}{'roll':>9}{'bound':>9}{'matmul':>9}{'bound':>9}   (ms per launch)")
+    print(f"{'planes':<8}{'slice':>9}{'roll':>9}{'bound':>9}"
+          + "".join(f"{'matmul ' + str(c):>12}{'bound':>9}" for c in WIDTHS) + "   (ms per launch)")
     for planes in (1, FILL_PLANES):
         ms = table[planes] = time_probes(planes)
         print(f"{planes:<8}{ms['slice']:>9.4f}{ms['roll']:>9.4f}{rows_bound_ms(planes):>9.5f}"
-              f"{ms['matmul']:>9.4f}{max(tap_matmul_bound_ms(planes).values()):>9.5f}", flush=True)
-    flops = TAPS * 2 * MM_OUT * LANES * LANES
-    print(f"matmul at P = {FILL_PLANES}: {FILL_PLANES * flops / table[FILL_PLANES]['matmul'] / 1e9:.1f} TFLOP/s")
+              + "".join(f"{ms[f'matmul {c}']:>12.4f}{max(tap_matmul_bound_ms(planes, c, c).values()):>9.5f}"
+                        for c in WIDTHS), flush=True)
+    for c in WIDTHS:
+        flops = FILL_PLANES * TAPS * 2 * MM_OUT * c * c
+        print(f"matmul at P = {FILL_PLANES}, C = {c}: {flops / table[FILL_PLANES][f'matmul {c}'] / 1e9:.1f} TFLOP/s "
+              f"({tap_matmul_path(c, c)} kernel)")
     return table
 
 

@@ -163,24 +163,78 @@ def test_rows_take_a_planes_axis_and_other_sizes():
 # ---- P4 ---------------------------------------------------------------------------
 
 
+def _tap_matmul_against_k_matmul(jax_sublane, c: int, rows: int, seed: int):
+    """P4's plain version against `k_matmul` in interpret mode on x [rows, C]
+    @ w [C, C] (the JAX kernel's 11 taps of step 8 -> 1024 rows)."""
+    rng = np.random.default_rng(seed)
+    x = jnp.asarray(rng.standard_normal((rows, c)), jnp.bfloat16)
+    w = jnp.asarray(rng.standard_normal((c, c)), jnp.bfloat16)
+    want = np.asarray(pl.pallas_call(
+        partial(jax_sublane.k_matmul, taps=sublane_ops.TAPS),
+        out_shape=jax.ShapeDtypeStruct((sublane_ops.MM_OUT, c), jnp.float32), interpret=True)(x, w))
+    xt = torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
+    wt = torch.from_numpy(np.array(w.astype(jnp.float32))).to(torch.bfloat16)
+    got = sublane_ops.tap_matmul(xt, wt)
+    assert got.dtype == torch.float32 and got.shape == (sublane_ops.MM_OUT, c)
+    scale = np.abs(want).max()
+    assert np.abs(got.numpy() - want).max() <= 1e-2 * scale
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * scale  # what the CPU run shows
+
+
 def test_tap_matmul_plain_matches_jax_kernel(jax_sublane):
     """P4 against `k_matmul` in interpret mode at the probe's shape: bf16
     operands and float32 sums on both sides, 11 x 96 products per output in
     another order (~1e-6 of max|y|); 1e-2 of max|y| is the gate the card's
     run uses too, where the tensor cores add in their own order."""
-    rng = np.random.default_rng(5)
-    x = jnp.asarray(rng.standard_normal((sublane_ops.MM_ROWS, 96)), jnp.bfloat16)
-    w = jnp.asarray(rng.standard_normal((96, 96)), jnp.bfloat16)
-    want = np.asarray(pl.pallas_call(
-        partial(jax_sublane.k_matmul, taps=sublane_ops.TAPS),
-        out_shape=jax.ShapeDtypeStruct((sublane_ops.MM_OUT, 96), jnp.float32), interpret=True)(x, w))
-    xt = torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
-    wt = torch.from_numpy(np.array(w.astype(jnp.float32))).to(torch.bfloat16)
-    got = sublane_ops.tap_matmul(xt, wt)
-    assert got.dtype == torch.float32 and got.shape == (sublane_ops.MM_OUT, 96)
-    scale = np.abs(want).max()
-    assert np.abs(got.numpy() - want).max() <= 1e-2 * scale
-    assert np.abs(got.numpy() - want).max() <= 1e-5 * scale  # what the CPU run shows
+    _tap_matmul_against_k_matmul(jax_sublane, 96, sublane_ops.MM_ROWS, 5)
+
+
+def test_tap_matmul_plain_matches_jax_kernel_at_k2_width(jax_sublane):
+    """The same at K = N = 192 (K2's widest fused stage, which the wgmma
+    kernel takes), on the fewest rows the JAX kernel reads (1024 + 80)."""
+    _tap_matmul_against_k_matmul(jax_sublane, 192, sublane_ops.MM_OUT + 80, 7)
+
+
+# (K, N, taps, step): what P4 takes and by which kernel; None = refused
+TAP_SHAPES = [((96, 96, 11, 8), "wgmma"), ((192, 192, 11, 8), "wgmma"), ((256, 256, 11, 8), "wgmma"),
+              ((128, 128, 7, 8), "wgmma"), ((32, 64, 17, 8), "wgmma"), ((96, 96, 18, 8), "mma"),
+              ((192, 192, 11, 4), "mma"), ((32, 24, 5, 3), "mma"), ((16, 8, 1, 8), "mma"), ((48, 256, 3, 8), "mma"),
+              ((264, 96, 11, 8), None), ((96, 264, 11, 8), None), ((200, 96, 11, 8), None), ((96, 100, 11, 8), None),
+              ((8, 8, 1, 8), None)]
+
+
+@pytest.mark.parametrize("shape,path", TAP_SHAPES, ids=lambda v: str(v))
+def test_tap_matmul_widths_and_paths(monkeypatch, shape, path):
+    """The wrapper on a tensor that is not on the CPU (`meta`, with the
+    library and the device check stood in for): K and N multiples of 16 and
+    8 up to 256 launch, by the kernel that `tap_matmul_path` names and with
+    that path's count; wider or ragged widths raise before any launch."""
+    k, n, taps, step = shape
+    calls = []
+
+    class Lib:
+        def dmel_tap_matmul(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(library, "load", lambda: Lib())
+    monkeypatch.setattr(sublane_ops, "_planes", lambda x, dtype, name: x if x.dim() == 3 else x[None])
+    monkeypatch.setattr(library, "stream", lambda x: 0)
+    x = torch.empty((2, 130 + step * (taps - 1), k), device="meta", dtype=torch.bfloat16)
+    w = torch.empty((k, n), device="meta", dtype=torch.bfloat16)
+    before = (sublane_ops.tap_matmul.launches, dict(sublane_ops.tap_matmul.launches_by_path))
+    if path is None:
+        with pytest.raises(ValueError, match="multiple of 16 and N of 8"):
+            sublane_ops.tap_matmul(x, w, 130, taps, step)
+        assert not calls and sublane_ops.tap_matmul.launches == before[0]
+        return
+    assert sublane_ops.tap_matmul_path(k, n, taps, step) == path
+    y = sublane_ops.tap_matmul(x, w, 130, taps, step)
+    assert y.shape == (2, 130, n) and y.dtype == torch.float32
+    (args,) = calls
+    assert args[3:11] == (2, 130 + step * (taps - 1), 130, k, n, taps, step, int(path == "wgmma"))
+    assert sublane_ops.tap_matmul.launches == before[0] + 1
+    assert sublane_ops.tap_matmul.launches_by_path[path] == before[1][path] + 1
 
 
 def test_tap_matmul_is_a_dilated_conv():
@@ -192,6 +246,17 @@ def test_tap_matmul_is_a_dilated_conv():
     kernel = w.float().T[:, :, None].expand(16, 32, 5)
     want = torch.nn.functional.conv1d(x[:, :132].float().transpose(1, 2), kernel, dilation=8).transpose(1, 2)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_tap_matmul_bound_at_k2_width():
+    """P4's bound at 264 planes of x [2176, 192] @ w [192, 192]: 219 GFLOP
+    at the bf16 rate, and the 1104 rows read, y and w in bytes."""
+    b = sublane_ops.tap_matmul_bound_ms(264, 192, 192)
+    flops = 264 * 11 * 2 * 1024 * 192 * 192
+    assert flops == 219_244_658_688
+    assert b["operations"] == pytest.approx(flops / 989e12 * 1e3)  # 0.2217 ms
+    assert b["bytes"] == pytest.approx((264 * (1104 * 192 * 2 + 1024 * 192 * 4) + 192 * 192 * 2) / 3.35e12 * 1e3)
+    assert b["operations"] > b["bytes"]
 
 
 def test_bounds_count_this_shape():

@@ -220,6 +220,52 @@ def test_fused_v1_bf16_matches_jax_v1_at_a_wide_stage(monkeypatch):
     assert (got == want).mean() >= 0.5
 
 
+def test_fused_v1_bf16_own_packing_matches_jax_v1(monkeypatch):
+    """The test above with the port's own packing: `FusedBigVGAN(use_v2=
+    False)` on the bf16 model packs its stage itself, and that packing is
+    the JAX `pack_stage`'s to the bit (w, b, a, ib), so the stage holds
+    against the JAX v1 stage on the JAX stage's input under the same bound:
+    one bf16 ulp of the largest output, at least half the outputs the same
+    bits."""
+    import dmel_codec_tpu.ops.stage_fused as jax_stage_fused
+    from dmel_codec_tpu.models.bigvgan import bigvgan_apply_fused
+
+    kw = dict(num_mels=20, upsample_initial_channel=128, upsample_rates=(2,), upsample_kernel_sizes=(4,))
+    jparams = init_params(JaxBigVGAN(config=JaxBigVGANConfig(**kw)), 11, jnp.zeros((1, 8, kw["num_mels"])))
+    cfg = BigVGANConfig(**kw)
+    port = BigVGAN(cfg)
+    port.load_state_dict(bigvgan_state_dict_from_jax(jparams, cfg))
+    fused = FusedBigVGAN(port.eval().to(torch.bfloat16), use_v2=False)
+    assert fused.routes == ["K2/v1"]
+
+    seen = []
+    real = jax_stage_fused.fused_amp_stage
+
+    def recording(x, packed, *args, **kwargs):
+        y = real(x, packed, *args, **kwargs)
+        seen.append((x, packed, y))
+        return y
+
+    monkeypatch.setattr(jax_stage_fused, "fused_amp_stage", recording)
+    mel = (0.3 * np.random.default_rng(5).standard_normal((1, 256, kw["num_mels"]))).astype(np.float32)
+    bigvgan_apply_fused(jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), jparams),
+                        jnp.asarray(mel).astype(jnp.bfloat16), JaxBigVGANConfig(**kw),
+                        use_v2=False, interpret=True, tile_w=128)
+    (x, packed, want), = seen
+    _, own = fused.stages[0]
+    for got_w, want_w in zip(own["w"], packed["w"], strict=True):
+        assert got_w.dtype == torch.bfloat16
+        np.testing.assert_array_equal(to_np(got_w.float()), np.asarray(want_w.astype(jnp.float32)))
+    for key in ("b", "a", "ib"):
+        np.testing.assert_array_equal(to_np(own[key]), np.asarray(packed[key]))
+    x = torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16().transpose(1, 2).contiguous()
+    got = to_np(fused.resblocks(0, x).float().transpose(1, 2))
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.shape == want.shape == (1, 512, 64)
+    assert np.abs(got - want).max() <= 2.0**-7 * np.abs(want).max()
+    assert (got == want).mean() >= 0.5
+
+
 @pytest.mark.parametrize("dtype,v1", [(torch.bfloat16, True), (torch.bfloat16, False), (torch.float32, True)])
 def test_k2_v1_mode_dispatch(monkeypatch, dtype, v1):
     """K2's 18 launches with a recording library: v1 mode on bf16 rounds

@@ -159,6 +159,32 @@ def test_cpu_tensors_route_forward_and_backward_through_the_plain_versions(monke
     assert counts == (fa.flash_attention.launches, fa.flash_attention_dkv.launches, fa.flash_attention_dq.launches)
 
 
+@pytest.mark.parametrize("kernel,dtype", [("FA-dQ", torch.float32), ("FA-dQ", torch.bfloat16),
+                                          ("FA-dKV", torch.bfloat16), ("FA", torch.bfloat16)])
+def test_launch_config_reports_the_library(monkeypatch, kernel, dtype):
+    """`launch_config` asks the library for the launch this kernel makes at
+    q's shape and dtype (FA-dQ: which = 1, the bf16 flag picking the
+    tensor-core kernel) and returns its grid, threads and shared bytes; the
+    library itself answers only on the card (chip_smoke.py phase 19)."""
+    seen = []
+
+    class Lib:
+        def _answer(self, *args):
+            seen.append(args[:-1])
+            args[-1][:] = [7, 14, 2, 128, 55296]
+            return 0
+
+        dmel_flash_attention_config = dmel_flash_attention_bwd_config = _answer
+
+    monkeypatch.setattr(library, "load", lambda: Lib())
+    q = torch.zeros((2, 448, 14, 64), dtype=dtype)
+    cfg = fa.launch_config(kernel, q)
+    assert cfg == {"grid": (7, 14, 2), "threads": 128, "smem_bytes": 55296}
+    bf = int(dtype == torch.bfloat16)
+    want = (2, 448, 14, 64, bf) if kernel == "FA" else ({"FA-dKV": 0, "FA-dQ": 1}[kernel], 2, 448, 14, 64, bf)
+    assert seen == [want]
+
+
 def test_non_cpu_tensors_never_reach_the_plain_versions(monkeypatch, tmp_path):
     """With no nvcc (and no built library) a tensor that is not on the CPU
     raises in the forward, with and without autograd, and in the backward;
