@@ -13,16 +13,23 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      shapes in a codec request and in a streaming window, float32 and
      bfloat16, and with bf16 parameters (the coefficients the kernel rounds
      itself);
-  4. K2 (fused AMP stage) against its plain version at every fused width,
-     B = 2 and a streaming window's B = 1, float32 and bfloat16;
+  4. K2 (fused AMP stage; bf16 on the tensor cores, float32 on the CUDA
+     cores) against its plain version at every fused width, B = 2 and a
+     streaming window's B = 1, and at ragged shapes, float32 and bfloat16;
+     then launch by launch against act_conv_reference: every (k, d) of the
+     widest fused stage and of a ragged C = 40 under both bf16 contracts,
+     alone, onto a residual and as a block's last launch;
   5. the main path at the flagship width with seeded random bf16 weights:
      three requests of 16 clips x 4 s through log-mel -> DMelCodec.encode ->
      DMelCodec.decode -> serving BigVGAN, with output checks and kernel
-     launch counts; then xRT with its per-part split, a one-request
-     torch.profiler breakdown, the vocoder stage by stage, and each kernel's
-     time beside its plain version at the main-path shapes;
+     launch counts (every bf16 K2 launch on the tensor-core kernel); then
+     xRT with its per-part split, a one-request torch.profiler breakdown
+     (which must name K2's tensor-core kernel), the vocoder stage by stage,
+     each kernel's time beside its plain version at the main-path shapes
+     (K2 also in float32, on the CUDA cores), and K2's bf16 time by part
+     (probes/stage_parts.py);
   6. stage-wise kernel-vs-plain error of the vocoder in float32, each stage
-     fed the same input;
+     fed the same input (the float32 K2 launches, on the CUDA cores);
   7. FA (causal GQA flash attention) against its plain version at the slow
      decoder's head layout, main-path and ragged lengths, and at head sizes
      16 to 128, float32 (CUDA cores) and bfloat16 (tensor cores);
@@ -49,9 +56,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      wider fused stages) against the same plain version at s2 (C = 192)
      and s3 (C = 96), and its time beside K2's v2 mode; K1 and K2 timed at
      the window's shapes too;
- 12. window invariance of K1, K2 and K2-v1 in float32: a kernel run on a
-     slice of the signal gives the bits of its run on the whole signal,
-     beyond its receptive field from the cuts;
+ 12. window invariance of K1, K2 and K2-v1 in float32, and of K2 in bf16
+     at three widths: a kernel run on a slice of the signal gives the bits
+     of its run on the whole signal, beyond its receptive field from the
+     cuts;
  13. the streaming path at full width (models/streaming.py): chunked
      against one-shot on an 8 s clip in float32 (tokens equal, decode and
      vocoder within tolerance, both `use_v2`), a 10-minute clip through
@@ -134,6 +142,7 @@ FUSE_MAX_CHANNELS = 192
 DEVICE = "cuda:0"
 K1_SOURCE = "dmel_codec_tpu_torch/csrc/anti_alias.cu"
 K2_SOURCE = "dmel_codec_tpu_torch/csrc/stage_fused.cu"
+K2_TC_SOURCE = "dmel_codec_tpu_torch/csrc/stage_fused_tc.cu"
 FA_SOURCE = "dmel_codec_tpu_torch/csrc/flash_attention.cu"
 FA_BWD_SOURCE = "dmel_codec_tpu_torch/csrc/flash_attention_bwd.cu"
 V1_SOURCE = "dmel_codec_tpu_torch/csrc/stage_fused_v1.cu"
@@ -177,6 +186,14 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, rel: float) ->
 #    random weights' gain: 2e-5.
 #  K2 bf16: 54 bf16 rounding points on each side; a flip there is one ulp
 #    (<= 2^-7) and flips compound down the chain: 5e-2.
+#  K2 launch bf16 (one act -> conv launch against act_conv_reference): both
+#    sides take the same bf16 operands and sum in float32 in another order
+#    (the tensor cores; cuDNN's FIR convs and torch.sin in the plain
+#    version), so an activation value next to a rounding boundary may round
+#    the other way (2^-8 of itself, in one product of C x k) and the conv's
+#    output, rounded to bf16 under v2 and in a bf16 out, may land one
+#    rounding away: one bf16 ulp of max |out| for each of the two roundings
+#    and as much again for the flips: 2^-6.
 #  K2-v1 f32: as K2.
 #  K2-v1 bf16: both sides keep the planes float32 and round only the 18
 #    conv operands and the result; one bf16 ulp of the output for a result
@@ -214,7 +231,7 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, rel: float) ->
 #    stream (and through the 12 fast layers behind it): 1e-2 of max |logit|
 #    on average, and 12 times that for the largest of ~10^8 logits.
 TOL = {("K1", torch.float32): 1e-6, ("K1", torch.bfloat16): 2.0**-7,
-       ("K2", torch.float32): 2e-5, ("K2", torch.bfloat16): 5e-2,
+       ("K2", torch.float32): 2e-5, ("K2", torch.bfloat16): 5e-2, ("K2 launch", torch.bfloat16): 2.0**-6,
        ("K2-v1", torch.float32): 2e-5, ("K2-v1", torch.bfloat16): 2.0**-6,
        ("FA", torch.float32): 2e-5, ("FA", torch.bfloat16): 2.0**-7,
        ("FA-bwd", torch.float32): 2e-5, ("FA-bwd", torch.bfloat16): 2.0**-6}
@@ -274,19 +291,21 @@ def fa_bound_ms(b: int, s: int, h: int, kh: int, hd: int, itemsize: int):
     return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
 
 
-def stage_bound_ms(stages, batch: int, kernel_sizes):
-    """Least time for fused AMP stages [(C, T), ...] in bf16: per stage 18
-    convs of C x C x k (six of each kernel size) on bf16 operands at the
-    tensor-core rate, 18 float32 activations, the plane in and out once and
-    the weights once. Returns {"bytes": ms, "operations": ms}."""
+def stage_bound_ms(stages, batch: int, kernel_sizes, itemsize: int = 2):
+    """Least time for fused AMP stages [(C, T), ...] in bf16 (itemsize 2)
+    or float32 (4): per stage 18 convs of C x C x k (six of each kernel
+    size) at the tensor-core rate of bf16 operands (float32: the CUDA
+    cores'), 18 float32 activations, the plane in and out once and the
+    weights once. Returns {"bytes": ms, "operations": ms}."""
     conv = act = nbytes = 0.0
     for c, t_len in stages:
         n = batch * c * t_len
         conv += 2 * c * n * 6 * sum(kernel_sizes)
         act += 18 * K1_FLOPS_PER_SAMPLE * n
-        nbytes += 2 * n * 2 + 6 * sum(kernel_sizes) * c * c * 2
+        nbytes += 2 * n * itemsize + 6 * sum(kernel_sizes) * c * c * itemsize
+    conv_peak = PEAK_BF16 if itemsize == 2 else PEAK_F32
     return {"bytes": nbytes / PEAK_BYTES * 1e3,
-            "operations": max(conv / PEAK_BF16, act / PEAK_F32) * 1e3}
+            "operations": max(conv / conv_peak, act / PEAK_F32) * 1e3}
 
 
 @torch.no_grad()
@@ -325,7 +344,7 @@ def set_flash(model: torch.nn.Module, on: bool) -> None:
             m.config = dataclasses.replace(m.config, flash_attention=on)
 
 
-def profile_once(what: str, fn, parts: str = "") -> dict:
+def profile_once(what: str, fn, parts: str = "", kernels: dict | None = None) -> dict:
     """Device kernel time by name over one call (torch.profiler, CUDA
     activity). Busy share = summed kernel time / the call's wall time under
     the profiler (its own host overhead inflates the idle share). A
@@ -334,7 +353,8 @@ def profile_once(what: str, fn, parts: str = "") -> dict:
     are left out of the kernels' sum. The ranges whose name starts with
     `parts` (if given) are logged and returned as {part: ms}; a range nested
     in one of them (the optimizer's own) takes its kernels from it, so a
-    part ends where the last range that began inside it ends."""
+    part ends where the last range that began inside it ends. `kernels`,
+    if given, receives {kernel name: ms} of the call."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -359,6 +379,8 @@ def profile_once(what: str, fn, parts: str = "") -> dict:
                 by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
                 by_name[e.name][1] += 1
     busy_ms = sum(v[0] for v in by_name.values())
+    if kernels is not None:
+        kernels.update({name: v[0] for name, v in by_name.items()})
     if not by_name:
         log(f"  profile of {what}: no device time recorded (not measured)")
         return {}
@@ -428,9 +450,10 @@ def main() -> None:
     from dmel_codec_tpu_torch.ops import library
     from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation, anti_alias_activation_reference
     from dmel_codec_tpu_torch.ops.stage_fused import (
-        V1_MAX_CHANNELS, StageSpec, amp_stage, amp_stage_v1, pack_stage, stage_reference, stage_reference_v1,
+        V1_MAX_CHANNELS, StageSpec, act_conv, act_conv_reference, amp_stage, amp_stage_v1, conv_site, pack_stage,
+        stage_reference, stage_reference_v1,
     )
-    from dmel_codec_tpu_torch.probes import act_variants, cf_act, sublane_ops
+    from dmel_codec_tpu_torch.probes import act_variants, cf_act, stage_parts, sublane_ops
     from dmel_codec_tpu_torch.train.codec_trainer import CodecTrainConfig, CodecTrainer
     from dmel_codec_tpu_torch.train.checkpoint import CheckpointManager
     from dmel_codec_tpu_torch.train.lm_trainer import LMTrainConfig, LMTrainer
@@ -530,9 +553,12 @@ def main() -> None:
                 for i in stage_packs]
     k2_cases += [(f"window s{i}", stage_packs[i], (1, *win_shapes[i]), (torch.float32, torch.bfloat16))
                  for i in stage_packs]
-    k2_cases += [("ragged", random_pack(40), (1, 40, 1000), (torch.float32,)),
-                 ("short", stage_packs[last], (2, shapes[last][0], 50), (torch.float32,)),
-                 ("one sample", stage_packs[last], (1, shapes[last][0], 1), (torch.float32,))]
+    ragged_pack = random_pack(40)
+    k2_cases += [("ragged", ragged_pack, (1, 40, 1000), (torch.float32, torch.bfloat16)),
+                 ("short", stage_packs[last], (2, shapes[last][0], 50), (torch.float32, torch.bfloat16)),
+                 ("one sample", stage_packs[last], (1, shapes[last][0], 1), (torch.float32, torch.bfloat16)),
+                 ("ragged short", ragged_pack, (2, 40, 50), (torch.bfloat16,))]
+    errs["K2 bf16"] = 0.0
     for name, (spec, packed), shape, dts in k2_cases:
         x32 = torch.randn(shape, device=dev, generator=gen)
         for dt in dts:
@@ -541,9 +567,41 @@ def main() -> None:
             torch.cuda.synchronize()
             want = stage_reference(x, packed, spec)
             e = check_close(f"{name} {list(shape)} {dt}", got, want, TOL[("K2", dt)])
-            if dt == torch.float32:
-                errs["K2"] = max(errs["K2"], e)
+            key = "K2" if dt == torch.float32 else "K2 bf16"
+            errs[key] = max(errs[key], e)
             del got, want
+    # each launch against its plain version: the 18 convs (every (k, d)) of the
+    # widest fused stage and of the ragged C = 40 under both bf16 contracts,
+    # alone, onto a residual, and as a block's last launch (residual, running
+    # sum, mean, bf16 out); float32 launches (the CUDA-core kernel) alone
+    log("K2 launch by launch vs act_conv_reference:")
+    errs["K2 launch"] = 0.0
+    for (spec, packed), shape in ((stage_packs[min(stage_packs)], (2, shapes[min(stage_packs)][0], 777)),
+                                  (ragged_pack, (1, 40, 300))):
+        planes = [torch.randn(shape, device=dev, generator=gen) for _ in range(3)]
+        src, res, acc_in = planes[0].bfloat16(), planes[1].bfloat16(), planes[2]
+        worst = {}
+        for n in range(18):
+            for v1 in (False, True):
+                for how, kw in (("alone", {}), ("onto res", {"res": res}),
+                                ("last", {"res": res, "acc_in": acc_in, "mean_of": 3, "out_dtype": torch.bfloat16})):
+                    got = act_conv(src, packed, spec, n, torch.bfloat16, v1=v1, **kw)
+                    torch.cuda.synchronize()
+                    want = act_conv_reference(src, packed, spec, n, torch.bfloat16, v1=v1, **kw)
+                    e = max_err(got, want) / max(1.0, want.float().abs().max().item())
+                    worst[(v1, how)] = max(worst.get((v1, how), 0.0), e)
+                    if not e <= TOL[("K2 launch", torch.bfloat16)]:
+                        raise AssertionError(f"launch {n} {conv_site(spec, n)} v1={v1} {how}: kernel disagrees ({e:.3e})")
+            if n % 2 == 0:
+                got = act_conv(planes[0], packed, spec, n, torch.float32)
+                torch.cuda.synchronize()
+                e = check_close(f"  float32 launch {n} {conv_site(spec, n)} {list(shape)}", got,
+                                act_conv_reference(planes[0], packed, spec, n, torch.float32), TOL[("K2", torch.float32)])
+                errs["K2"] = max(errs["K2"], e)
+        for (v1, how), e in worst.items():
+            log(f"  C = {spec.channels} {list(shape)} bf16, 18 launches, {'v1' if v1 else 'v2'} {how}: largest error "
+                f"{e:.3e} of max(1, max|plain|) (tol {TOL[('K2 launch', torch.bfloat16)]:.2e})")
+            errs["K2 launch"] = max(errs["K2 launch"], e)
 
     # ---- 5. the main path
     log("main path: flagship DMelCodec + BigVGAN, seeded random weights, bf16")
@@ -576,6 +634,7 @@ def main() -> None:
         return codec.decode(idx, ilen, generator=gen)
 
     anti_alias_activation.launches = amp_stage.launches = 0
+    amp_stage.launches_by_kernel.update(tensor_cores=0, cuda_cores=0)
     with torch.no_grad():
         outs = []
         for r in range(3):
@@ -584,8 +643,11 @@ def main() -> None:
             outs.append((idx, wav))
         torch.cuda.synchronize()
     launches = {"K1": anti_alias_activation.launches, "K2": amp_stage.launches}
+    k2_by_kernel = dict(amp_stage.launches_by_kernel)
     log(f"  launches over 3 requests: K1 {launches['K1']}, K2 {launches['K2']} "
-        f"(expected {3 * want_k1} and {3 * want_k2})")
+        f"(expected {3 * want_k1} and {3 * want_k2}); K2 by kernel {k2_by_kernel}")
+    # every bf16 K2 launch runs on the tensor cores, none on the CUDA-core kernel
+    assert k2_by_kernel == {"tensor_cores": 3 * want_k2, "cuda_cores": 0}, k2_by_kernel
     for r, (idx, wav) in enumerate(outs):
         assert idx.shape == (BATCH, ccfg.dmel_groups * ccfg.n_codebooks, frames // 4), idx.shape
         assert 0 <= int(idx.min()) and int(idx.max()) < ccfg.codebook_size, (idx.min(), idx.max())
@@ -608,7 +670,13 @@ def main() -> None:
     log(f"  xRT {xrt:.2f} ({BATCH} x {SECONDS} s per request, {total_ms:.2f} ms): "
         f"front end {ms_front:.2f} ms, decode {ms_mid:.2f} ms, vocoder {ms_voc:.2f} ms")
     with torch.no_grad():
-        profile_once("one request", lambda: vocoder(mid(*front(audio))))
+        request_kernels = {}
+        profile_once("one request", lambda: vocoder(mid(*front(audio))), kernels=request_kernels)
+    tc_names = [name for name in request_kernels if "act_conv_tc_kernel" in name]
+    if request_kernels:  # the profiler recorded device time: it must name the tensor-core kernel
+        assert tc_names and not any("act_conv_kernel" in name for name in request_kernels), list(request_kernels)
+        log(f"  profiled K2: {sum(request_kernels[n] for n in tc_names):.2f} ms in {tc_names[0][:60]}")
+    with torch.no_grad():
         # the vocoder stage by stage (each fed its real input), summing to its total
         x = vocoder.pre(gen_mel)
         parts = {"conv_pre": cuda_ms(lambda: vocoder.pre(gen_mel), reps)}
@@ -620,7 +688,7 @@ def main() -> None:
         + f" (sum {sum(parts.values()):.2f} ms)")
 
     # kernel vs plain time at the main-path shapes (bf16, B = 16), per request
-    ms = {"K1": 0.0, "K2": 0.0}
+    ms = {"K1": 0.0, "K2": 0.0, "K2 float32": 0.0}
     plain_ms = {"K1": 0.0, "K2": 0.0}
     with torch.no_grad():
         for name, shape, count in (("act_post", k1_shapes["act_post"], 1),
@@ -637,11 +705,21 @@ def main() -> None:
             x = torch.randn((BATCH, c, t_len), device=dev, generator=gen).to(torch.bfloat16)
             k = cuda_ms(lambda: amp_stage(x, packed, spec), 3)
             p = cuda_ms(lambda: stage_reference(x, packed, spec), 3)
-            log(f"  K2 s{i} [{BATCH}, {c}, {t_len}] bf16: kernel {k:.3f} ms (18 launches), plain {p:.3f} ms")
+            x32 = x.float()
+            k32 = cuda_ms(lambda: amp_stage(x32, packed, spec), 1)
+            log(f"  K2 s{i} [{BATCH}, {c}, {t_len}] bf16: kernel {k:.3f} ms (18 launches, tensor cores), plain "
+                f"{p:.3f} ms; float32: kernel {k32:.3f} ms (CUDA cores)")
             ms["K2"] += k
             plain_ms["K2"] += p
+            ms["K2 float32"] += k32
     log(f"  per request: K1 {ms['K1']:.3f} ms vs plain {plain_ms['K1']:.3f} ms; "
-        f"K2 {ms['K2']:.3f} ms vs plain {plain_ms['K2']:.3f} ms")
+        f"K2 {ms['K2']:.3f} ms vs plain {plain_ms['K2']:.3f} ms (float32 on the CUDA cores {ms['K2 float32']:.3f} ms)")
+    log("  K2 bf16 by part (the tensor-core kernel with parts removed; ms per stage):")
+    k2_parts = {}
+    for (what, *shape), row in stage_parts.main().items():
+        for part, v in row.items():
+            k2_parts.setdefault(what.split()[0], {}).setdefault(part, 0.0)
+            k2_parts[what.split()[0]][part] += v
 
     # ---- 6. stage-wise kernel vs plain, float32, same input per stage
     log("stage-wise vocoder error, float32, kernel vs plain on the same input:")
@@ -650,6 +728,8 @@ def main() -> None:
     fused32 = FusedBigVGAN(voc32, fuse_max_channels=FUSE_MAX_CHANNELS)
     with torch.no_grad():
         x = fused32.pre(mel_tf(audio)[:, :frames])
+    # the float32 path's K2 launches, on the CUDA-core kernel (the kernels line's count for it)
+    amp_stage.launches_by_kernel.update(tensor_cores=0, cuda_cores=0)
     for i in range(len(fused32.stages)):
         got = fused32.stage(i, x)
         torch.cuda.synchronize()
@@ -658,6 +738,8 @@ def main() -> None:
         kind = "K2" if fused32.stages[i][0] is not None else "K1"
         check_close(f"s{i} ({kind}) {list(got.shape)}", got, want, TOL[("K2", torch.float32)])
         x = got
+    k2_f32_launches = dict(amp_stage.launches_by_kernel)
+    assert k2_f32_launches == {"tensor_cores": 0, "cuda_cores": want_k2}, k2_f32_launches
     got = fused32.post(x)
     with plain_kernels():
         want = fused32.post(x)
@@ -760,6 +842,7 @@ def main() -> None:
             f"  max_new_tokens: {LM_FRAMES}\n  max_seq_len: 4096\n  cache_dtype: bfloat16\n"
         )
         anti_alias_activation.launches = amp_stage.launches = flash_attention.launches = 0
+        amp_stage.launches_by_kernel.update(tensor_cores=0, cuda_cores=0)
         t0 = time.perf_counter()
         infer_lm.main(["--config", str(tmp / "infer.yaml"), "--prompt", prompt, "--out", str(tmp / "out.wav"),
                        "--seed", str(seed), "--device", DEVICE])
@@ -776,7 +859,8 @@ def main() -> None:
     n_frames = audio_ids.shape[0]
     log(f"  infer_lm: {wall_s:.2f} s wall with loading; WAV {wav.shape} at {wav_sr} Hz, rms "
         f"{float(np.sqrt(np.mean(np.square(wav)))):.4f}; the same seed generates {n_frames} frames; "
-        f"launches K1 {serve_launches['K1']}, K2 {serve_launches['K2']}, FA {serve_launches['FA']} "
+        f"launches K1 {serve_launches['K1']}, K2 {serve_launches['K2']} {amp_stage.launches_by_kernel}, "
+        f"FA {serve_launches['FA']} "
         f"(expected {want_k1}, {want_k2}, 0: the prompt is shorter than flash_min_seq)")
     assert wav_sr == SR and wav.dtype == np.float32 and np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
     # infer_lm drops the last generated frame; a frame is 4 mel frames of 256 samples
@@ -893,8 +977,11 @@ def main() -> None:
         x32 = torch.randn(shape, device=dev, generator=gen)
         for dt in (torch.float32, torch.bfloat16):
             x = x32.to(dt)
+            before = dict(amp_stage.launches_by_kernel)
             got = amp_stage(x, packed, spec, v1=True)
             torch.cuda.synchronize()
+            kernel = "tensor_cores" if dt == torch.bfloat16 else "cuda_cores"
+            assert amp_stage.launches_by_kernel[kernel] == before[kernel] + 18, (kernel, amp_stage.launches_by_kernel)
             want = stage_reference_v1(x, packed, spec)
             e = check_close(f"{name} {list(shape)} {dt}", got, want, TOL[("K2-v1", dt)])
             if dt == torch.float32:
@@ -962,7 +1049,7 @@ def main() -> None:
         f"K2 {win_ms['K2']:.3f} ms vs plain {win_plain_ms['K2']:.3f} ms")
 
     # ---- 12. window invariance
-    log("window invariance, float32: a kernel on x[:, :, 777:3001] against that region of its run on x "
+    log("window invariance, float32 (and bf16 for K2): a kernel on x[:, :, 777:3001] against that region of its run on x "
         "(beyond its reach from the cuts); expected: the same bits")
     cut_a, cut_b = 777, 3001
     alpha24 = 0.3 * torch.randn(24, device=dev, generator=gen)
@@ -973,6 +1060,11 @@ def main() -> None:
                        lambda v, sp=spec, pk=packed: amp_stage(v, pk, sp)),
                       (f"K2-v1 C = {spec.channels}", spec.channels, spec.receptive,
                        lambda v, sp=spec, pk=packed: amp_stage_v1(v, pk, sp))]
+    # bf16: K2's tensor-core kernel at s5, s4 and s2 (its tiles start at other samples on the slice)
+    for i in (s5, s4, s2):
+        spec, packed = stage_packs[i]
+        inv_cases += [(f"K2 bf16 C = {spec.channels}", spec.channels, spec.receptive,
+                       lambda v, sp=spec, pk=packed: amp_stage(v.bfloat16(), pk, sp))]
     for name, c, reach, fn in inv_cases:
         x = torch.randn((2, c, 5000), device=dev, generator=gen)
         whole, part = fn(x), fn(x[:, :, cut_a:cut_b].contiguous())
@@ -1033,6 +1125,7 @@ def main() -> None:
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = 0
+        amp_stage.launches_by_kernel.update(tensor_cores=0, cuda_cores=0)
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1046,6 +1139,7 @@ def main() -> None:
         n_k2 = fused.routes.count("K2") + fused.routes.count("K2/v1")
         assert use_v2 or "K2" not in fused.routes, fused.routes  # use_v2=False runs v1 at every fused stage
         assert counts == {"K1": n_windows * want_k1, "K2": n_windows * 18 * n_k2, "K2-v1": n_windows * n_v1}, counts
+        assert amp_stage.launches_by_kernel["cuda_cores"] == 0, amp_stage.launches_by_kernel  # bf16: tensor cores only
         stream_stats[use_v2] = {"seconds": seconds, "xrt": LONG_MINUTES * 60 / seconds, "peak": peak,
                                 "resident": resident, **counts}
         log(f"  use_v2={use_v2}: {seconds:.3f} s, xRT {LONG_MINUTES * 60 / seconds:.2f} with host staging; peak device "
@@ -1148,6 +1242,7 @@ def main() -> None:
     k1_bound = {"bytes": k1_bytes / PEAK_BYTES * 1e3, "operations": k1_flops / PEAK_F32 * 1e3}
     ksizes = vcfg.resblock_kernel_sizes
     k2_bound = stage_bound_ms([shapes[i] for i in stage_packs], BATCH, ksizes)
+    k2_f32_bound = stage_bound_ms([shapes[i] for i in stage_packs], BATCH, ksizes, itemsize=4)
     # K2-v1: the logical work of its two stages (no halo), as K2's, at the
     # streaming window's shapes (its `ms`) and at a codec request's
     v1_bound = stage_bound_ms([win_shapes[s4], win_shapes[s5]], 1, ksizes)
@@ -1904,13 +1999,25 @@ def main() -> None:
          "bound_ms": bounds["K1"][0], "bound_by": bounds["K1"][1], "library_ms": None,
          "per": f"codec request ({want_k1} launches)",
          "window_ms": win_ms["K1"], "window_plain_ms": win_plain_ms["K1"]},
-        {"name": "amp_stage act->conv (K2)", "route": "cuda", "source": K2_SOURCE,
+        {"name": "amp_stage act->conv (K2)", "route": "cuda", "source": K2_TC_SOURCE,
          "replaces": "dmel_codec_tpu/ops/stage_fused.py:806", "launches": launches["K2"],
-         "max_abs_err": errs["K2"], "ms": ms["K2"], "plain_ms": plain_ms["K2"],
+         "max_abs_err": errs["K2 bf16"], "ms": ms["K2"], "plain_ms": plain_ms["K2"],
          "bound_ms": bounds["K2"][0], "bound_by": bounds["K2"][1], "library_ms": None,
          "per": f"codec request ({want_k2} launches)",
          "window_ms": win_ms["K2"], "window_plain_ms": win_plain_ms["K2"],
-         "v1_mode": "route K2/v1 (use_v2=False at C > 48): operand_bf16 = 1, plane_bf16 = 0, float32 planes; "
+         "kernels": [
+             {"name": "act_conv_tc_kernel", "dtype": "bfloat16", "route": "cuda", "source": K2_TC_SOURCE,
+              "launches": k2_by_kernel["tensor_cores"], "launches_in": "the main path's 3 codec requests",
+              "ms": ms["K2"], "window_ms": win_ms["K2"], "max_abs_err": errs["K2 bf16"],
+              "launch_max_rel_err": errs["K2 launch"], "parts_ms": k2_parts,
+              "design": "wgmma m64nNk16 on a bf16 activation tile in the no-swizzle K-major layout (taps as "
+                        "descriptor offsets), weights streamed by TMA bulk copies through an mbarrier ring, "
+                        "16 warps: a warp per input channel for the activation, 4 warpgroups for the products"},
+             {"name": "act_conv_kernel", "dtype": "float32", "route": "cuda", "source": K2_SOURCE,
+              "launches": k2_f32_launches["cuda_cores"], "launches_in": "phase 6's float32 vocoder stages",
+              "ms": ms["K2 float32"], "max_abs_err": errs["K2"],
+              "bound_ms": max(k2_f32_bound.values()), "bound_by": max(k2_f32_bound, key=k2_f32_bound.get)}],
+         "v1_mode": "route K2/v1 (use_v2=False at C > 48): plane_bf16 = 0, float32 planes, taps and v; "
                     "held against stage_reference_v1 at s2 and s3", "v1_mode_max_abs_err": errs["K2/v1"]},
         {"name": "flash_attention (FA)", "route": "cuda", "source": FA_SOURCE,
          "replaces": "dmel_codec_tpu/models/transformer.py:197", "launches": launches["FA"],

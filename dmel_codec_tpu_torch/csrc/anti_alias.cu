@@ -17,7 +17,10 @@
 // both snake phases for half-rate indices [t0-3, t0+TILE+3) once each, then
 // the down FIR. The 2x-rate signal never touches device memory and any T
 // works without a tail patch. Arithmetic in float32, output in the input
-// dtype (float32 or bfloat16). The snake's per-channel coefficients, alpha
+// dtype (float32 or bfloat16); on bf16 input the taps come rounded to bf16
+// from the wrapper and v is rounded to bf16 before the down FIR, the two
+// rounding points of the JAX kernel's bf16 banded matmuls
+// (ops/anti_alias.py:317-372). The snake's per-channel coefficients, alpha
 // and 1 / (beta + eps) (exp'd under logscale), are computed in the
 // parameters' dtype as the JAX op computes them before its kernel
 // (ops/anti_alias.py:607-612): with bf16 parameters each step is rounded to
@@ -80,16 +83,16 @@ anti_alias_kernel(const void* __restrict__ x, void* __restrict__ y,
   for (int i = threadIdx.x; i < TILE + 2 * VH; i += THREADS) {
     float e, o;
     if (V == FULL) {
-      dmel::snake_phases(xs, xbase, t0 - VH + i, T, taps, a, inv_beta, e, o);
-    } else {  // NO_SNAKE: the same phases and edge rule around an identity
+      dmel::snake_phases(xs, xbase, t0 - VH + i, T, taps, a, inv_beta, bf16, e, o);
+    } else {  // NO_SNAKE: the same phases, rounding and edge rule around an identity
       const int s = t0 - VH + i;
       if (s < 0) {
-        e = o = dmel::up_even(xs, xbase, 0, taps);
+        e = o = dmel::round_to(dmel::up_even(xs, xbase, 0, taps), bf16);
       } else if (s >= T) {
-        e = o = dmel::up_odd(xs, xbase, T - 1, taps);
+        e = o = dmel::round_to(dmel::up_odd(xs, xbase, T - 1, taps), bf16);
       } else {
-        e = dmel::up_even(xs, xbase, s, taps);
-        o = dmel::up_odd(xs, xbase, s, taps);
+        e = dmel::round_to(dmel::up_even(xs, xbase, s, taps), bf16);
+        o = dmel::round_to(dmel::up_odd(xs, xbase, s, taps), bf16);
       }
     }
     ve[i] = e;
@@ -123,7 +126,8 @@ extern "C" const char* dmel_error_string(int code) {
 // x, y: [B, C, T] contiguous, float32 (bf16 = 0) or bfloat16 (bf16 = 1).
 // alpha, beta: [C] float32 on the device, the parameters' values (bf16
 // ones when param_bf16 = 1); beta == nullptr selects snake.
-// taps: 12 host floats. Returns cudaGetLastError() after the launch.
+// taps: 12 host floats (bf16 values when bf16 = 1; the kernel rounds v
+// then). Returns cudaGetLastError() after the launch.
 extern "C" int dmel_anti_alias(const void* x, void* y, const float* alpha,
                                const float* beta, int logscale, int param_bf16, int B, int C,
                                int T, int bf16, const float* taps, void* stream) {

@@ -1,5 +1,6 @@
 // Shared device helpers for the anti-aliased snake activation (K1,
-// anti_alias.cu) and the fused AMP stage (K2, stage_fused.cu).
+// anti_alias.cu) and the fused AMP stage (K2, stage_fused.cu and
+// stage_fused_tc.cu).
 //
 // The activation is the reference chain UpSample1d (replicate 5, 12-tap
 // kaiser-sinc, x2) -> snake -> DownSample1d (replicate 5/6 of the
@@ -15,10 +16,15 @@
 // Post-snake edges: v_e[s] = v_o[s] = v_e[0] for s < 0 and
 // v_e[s] = v_o[s] = v_o[T-1] for s >= T, which is exactly the reference's
 // replicate pad of the 2x signal.
+//
+// bf16 contract (K1 on bf16 x; K2's v2 contract on bf16 planes): the
+// caller passes the taps rounded to bf16 (the factor 2 stays exact) and
+// sets round_v; float32 and K2's v1 contract keep float32 taps and v.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace dmel {
 
@@ -36,6 +42,39 @@ __device__ __forceinline__ void store_f(void* p, long long i, float v, int bf16)
     static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
   } else {
     static_cast<float*>(p)[i] = v;
+  }
+}
+
+// v[0..3] += p[i .. i + 3], p float32 (16-byte aligned at i) or bf16 (8-byte).
+__device__ __forceinline__ void add4(float (&v)[4], const void* p, long long i, int bf16) {
+  if (bf16) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(p) + i);
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+    v[0] += __low2float(lo);
+    v[1] += __high2float(lo);
+    v[2] += __low2float(hi);
+    v[3] += __high2float(hi);
+  } else {
+    const float4 f = *reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
+    v[0] += f.x;
+    v[1] += f.y;
+    v[2] += f.z;
+    v[3] += f.w;
+  }
+}
+
+// p[i .. i + 3] = v, as add4's types and alignment.
+__device__ __forceinline__ void store4(void* p, long long i, const float (&v)[4], int bf16) {
+  if (bf16) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 raw;
+    raw.x = *reinterpret_cast<const uint32_t*>(&lo);
+    raw.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p) + i) = raw;
+  } else {
+    *reinterpret_cast<float4*>(static_cast<float*>(p) + i) = make_float4(v[0], v[1], v[2], v[3]);
   }
 }
 
@@ -70,16 +109,18 @@ __device__ __forceinline__ float snake(float u, float alpha, float inv_beta) {
 
 // Both snake phases at half-rate index s, with the post-snake edge rules.
 // Reads xs at times s-3 .. s+3 (or 0-3 .. 2 / T-3 .. T+2 at the edges).
+// round_v rounds the snake's output v to bf16 before the down FIR reads it
+// (the bf16 contract of the JAX kernels, which store v in the plane dtype).
 __device__ __forceinline__ void snake_phases(const float* xs, int base, int s, int T,
                                              Taps tp, float alpha, float inv_beta,
-                                             float& e, float& o) {
+                                             int round_v, float& e, float& o) {
   if (s < 0) {
-    e = o = snake(up_even(xs, base, 0, tp), alpha, inv_beta);
+    e = o = round_to(snake(up_even(xs, base, 0, tp), alpha, inv_beta), round_v);
   } else if (s >= T) {
-    e = o = snake(up_odd(xs, base, T - 1, tp), alpha, inv_beta);
+    e = o = round_to(snake(up_odd(xs, base, T - 1, tp), alpha, inv_beta), round_v);
   } else {
-    e = snake(up_even(xs, base, s, tp), alpha, inv_beta);
-    o = snake(up_odd(xs, base, s, tp), alpha, inv_beta);
+    e = round_to(snake(up_even(xs, base, s, tp), alpha, inv_beta), round_v);
+    o = round_to(snake(up_odd(xs, base, s, tp), alpha, inv_beta), round_v);
   }
 }
 

@@ -1,18 +1,20 @@
-// K2: one fused act -> conv step of a BigVGAN AMP resblock stage.
+// K2, float32: one fused act -> conv step of a BigVGAN AMP resblock stage
+// on the CUDA cores. The bf16 steps run on the tensor cores
+// (stage_fused_tc.cu); ops/stage_fused.py picks the kernel by dtype, as the
+// JAX kernel runs bf16 convs on the matrix unit and float32 at HIGHEST.
 //
 // Replaces the Pallas TPU kernel `_kernel_v2` / `fused_amp_stage_v2`
 // (dmel_codec_tpu/ops/stage_fused.py), which runs a whole upsample stage —
 // for k in (3, 7, 11): xb = x; for d in (1, 3, 5):
 // xb += conv_{k,1}(act(conv_{k,d}(act(xb)))); out = mean of the three xb —
 // in one pass. ops/stage_fused.py amp_stage drives this kernel 18 times per
-// stage (one launch per act -> conv pair) and stage_reference is the plain
-// PyTorch version.
+// float32 stage (one launch per act -> conv pair); act_conv_reference is the
+// plain PyTorch version of one launch, stage_reference of the 18.
 //
 // Bound on the H100: the C x C x k convs. At the flagship C = 192 a stage is
 // ~1.8 TFLOP (18 convs, mean k = 7) against ~0.1 GB of plane traffic per
-// launch, so it is compute-bound. This first version runs the conv on the
-// float32 CUDA cores (register-tiled FMA from shared memory), not on the
-// tensor cores.
+// launch, so it is compute-bound; float32 runs the conv on the CUDA cores
+// (register-tiled FMA from shared memory).
 //
 // Why one launch per pair and not per stage: the stage's receptive field is
 // 96 samples per side, so a whole-stage block holding a time tile of W with
@@ -30,15 +32,8 @@
 // chunks of CI = 16: input window -> both snake phases -> activation
 // (zero outside [0, T), the conv's zero padding) -> FMA over (ci, tap).
 //
-// Numeric contracts. v2 (stage_fused.py:398-403, 702-705; `amp_stage`'s
-// default): the activation input, the activation output and the conv output
-// are rounded to the plane dtype (identity for float32); the residual spine
-// and the running sum are float32; arithmetic is float32 throughout. v1
-// (stage_fused.py:145-149, 253-268, 297; `use_v2=False` at stages wider than
-// K2-v1 takes): only the conv operands are rounded (the activation output
-// here, the weights by the wrapper), the planes between launches stay
-// float32. Two flags select the roundings: `operand_bf16` the activation
-// output, `plane_bf16` the activation input and the conv output.
+// Float32 throughout: the v1 and v2 contracts are the same function here
+// (they differ only in where bf16 planes are rounded).
 #include "common.cuh"
 
 namespace {
@@ -49,15 +44,11 @@ constexpr int XH = 8;    // input halo beyond the activation window
 
 template <int CO_T>
 __global__ void __launch_bounds__(8 * CO_T)
-act_conv_kernel(const void* __restrict__ src, int src_bf16,
-                const void* __restrict__ w, int w_bf16,
+act_conv_kernel(const float* __restrict__ src, const float* __restrict__ w,
                 const float* __restrict__ bias, int bias_stride,
                 const float* __restrict__ alpha, const float* __restrict__ inv_beta,
-                int ab_stride,
-                const void* res, int res_bf16,
-                const float* acc_in,
-                void* out, int out_bf16, float scale, int operand_bf16,
-                int plane_bf16, int C, int T, int k, int d, dmel::Taps taps) {
+                int ab_stride, const float* res, const float* acc_in, float* out,
+                float scale, int C, int T, int k, int d, dmel::Taps taps) {
   constexpr int NT = 8 * CO_T;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -97,9 +88,7 @@ act_conv_kernel(const void* __restrict__ src, int src_bf16,
       float v = 0.f;
       if (ci < nci) {
         const int t = dmel::clampi(xbase + i - ci * LX, 0, T - 1);
-        v = dmel::round_to(
-            dmel::load_f(src, plane + static_cast<long long>(ci0 + ci) * T + t, src_bf16),
-            plane_bf16);
+        v = src[plane + static_cast<long long>(ci0 + ci) * T + t];
       }
       xs[i] = v;
     }
@@ -110,7 +99,7 @@ act_conv_kernel(const void* __restrict__ src, int src_bf16,
       const int j = i / (CI * CO_T);
       float v = 0.f;
       if (ci < nci && co0 + co < C) {
-        v = dmel::load_f(w, (static_cast<long long>(j) * C + co0 + co) * C + ci0 + ci, w_bf16);
+        v = w[(static_cast<long long>(j) * C + co0 + co) * C + ci0 + ci];
       }
       ws[(ci * k + j) * CO_T + co] = v;
     }
@@ -122,7 +111,7 @@ act_conv_kernel(const void* __restrict__ src, int src_bf16,
       if (ci < nci) {
         const int c = ci0 + ci;
         dmel::snake_phases(xs + ci * LX, xbase, vbase + i - ci * LV, T, taps,
-                           alpha[c * ab_stride], inv_beta[c * ab_stride], e, o);
+                           alpha[c * ab_stride], inv_beta[c * ab_stride], 0, e, o);
       }
       ve[i] = e;
       vo[i] = o;
@@ -135,7 +124,7 @@ act_conv_kernel(const void* __restrict__ src, int src_bf16,
       const int t = abase + r;
       float v = 0.f;
       if (ci < nci && t >= 0 && t < T) {
-        v = dmel::round_to(dmel::down(ve + ci * LV + r, vo + ci * LV + r, taps), operand_bf16);
+        v = dmel::down(ve + ci * LV + r, vo + ci * LV + r, taps);
       }
       as[i] = v;
     }
@@ -159,7 +148,7 @@ act_conv_kernel(const void* __restrict__ src, int src_bf16,
     }
   }
 
-  // epilogue: out = scale * (round(conv + bias) [+ res] [+ acc_in])
+  // epilogue: out = scale * (conv + bias [+ res] [+ acc_in])
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     const int co = co0 + ty * 4 + c;
@@ -170,20 +159,19 @@ act_conv_kernel(const void* __restrict__ src, int src_bf16,
       const int t = t0 + tx + 32 * q;
       if (t >= T) continue;
       const long long idx = plane + static_cast<long long>(co) * T + t;
-      float v = dmel::round_to(acc[c][q] + b, plane_bf16);
-      if (res != nullptr) v += dmel::load_f(res, idx, res_bf16);
+      float v = acc[c][q] + b;
+      if (res != nullptr) v += res[idx];
       if (acc_in != nullptr) v += acc_in[idx];
-      dmel::store_f(out, idx, v * scale, out_bf16);
+      out[idx] = v * scale;
     }
   }
 }
 
 template <int CO_T>
-int launch(const void* src, int src_bf16, const void* w, int w_bf16, const float* bias,
-           int bias_stride, const float* alpha, const float* inv_beta, int ab_stride,
-           const void* res, int res_bf16, const float* acc_in, void* out, int out_bf16,
-           float scale, int operand_bf16, int plane_bf16, int B, int C, int T, int k,
-           int d, dmel::Taps tp, cudaStream_t stream) {
+int launch(const float* src, const float* w, const float* bias, int bias_stride,
+           const float* alpha, const float* inv_beta, int ab_stride, const float* res,
+           const float* acc_in, float* out, float scale, int B, int C, int T, int k, int d,
+           dmel::Taps tp, cudaStream_t stream) {
   const int P = d * (k - 1) / 2;
   const int LA = TT + 2 * P;
   const size_t floats =
@@ -196,36 +184,31 @@ int launch(const void* src, int src_bf16, const void* w, int w_bf16, const float
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + TT - 1) / TT, (C + CO_T - 1) / CO_T, B);
   act_conv_kernel<CO_T><<<grid, 8 * CO_T, bytes, stream>>>(
-      src, src_bf16, w, w_bf16, bias, bias_stride, alpha, inv_beta, ab_stride, res,
-      res_bf16, acc_in, out, out_bf16, scale, operand_bf16, plane_bf16, C, T, k, d, tp);
+      src, w, bias, bias_stride, alpha, inv_beta, ab_stride, res, acc_in, out, scale, C, T,
+      k, d, tp);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// One act -> conv step on [B, C, T] planes (all contiguous, same shape):
-//   out = scale * (round(conv_{k,d}(act(src)) + bias) [+ res] [+ acc_in])
-// w: [k][C][C] (tap, out, in) in float32 or bfloat16. bias, alpha
-// (exp'd), inv_beta: float32 columns read as p[c * stride]. res and acc_in
-// may be null; out may alias res or acc_in (each element is read before it
-// is written, by the same thread). operand_bf16 rounds the activation's
-// output to bf16, plane_bf16 the activation's input and the conv's output
-// (both 1: the v2 contract; 1 and 0: v1's). co_tile in {24, 48, 64} picks
-// the instantiation. Returns cudaGetLastError() after the launch.
-extern "C" int dmel_act_conv(const void* src, int src_bf16, const void* w, int w_bf16,
-                             const float* bias, int bias_stride, const float* alpha,
-                             const float* inv_beta, int ab_stride, const void* res,
-                             int res_bf16, const float* acc_in, void* out, int out_bf16,
-                             float scale, int operand_bf16, int plane_bf16, int B, int C,
-                             int T, int k, int d, int co_tile, const float* taps,
-                             void* stream) {
+// One float32 act -> conv step on [B, C, T] planes (all contiguous, same
+// shape):  out = scale * (conv_{k,d}(act(src)) + bias [+ res] [+ acc_in])
+// w: [k][C][C] (tap, out, in). bias, alpha (exp'd), inv_beta: columns read
+// as p[c * stride]. res and acc_in may be null; out may alias res or acc_in
+// (each element is read before it is written, by the same thread). co_tile
+// in {24, 48, 64} picks the instantiation. Returns cudaGetLastError() after
+// the launch.
+extern "C" int dmel_act_conv(const float* src, const float* w, const float* bias,
+                             int bias_stride, const float* alpha, const float* inv_beta,
+                             int ab_stride, const float* res, const float* acc_in, float* out,
+                             float scale, int B, int C, int T, int k, int d, int co_tile,
+                             const float* taps, void* stream) {
   dmel::Taps tp;
   for (int i = 0; i < 12; ++i) tp.f[i] = taps[i];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DMEL_LAUNCH(N)                                                                  \
-  return launch<N>(src, src_bf16, w, w_bf16, bias, bias_stride, alpha, inv_beta,       \
-                   ab_stride, res, res_bf16, acc_in, out, out_bf16, scale,              \
-                   operand_bf16, plane_bf16, B, C, T, k, d, tp, s)
+  return launch<N>(src, w, bias, bias_stride, alpha, inv_beta, ab_stride, res, acc_in,  \
+                   out, scale, B, C, T, k, d, tp, s)
   switch (co_tile) {
     case 24: DMEL_LAUNCH(24);
     case 48: DMEL_LAUNCH(48);

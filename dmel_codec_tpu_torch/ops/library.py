@@ -1,8 +1,9 @@
 """Build and bind the CUDA kernels in ../csrc.
 
-At first use `load()` compiles every `csrc/*.cu` with nvcc for sm_90a into
-one shared library with a plain C interface, under `build/` at the root of
-the checkout (named by a hash of the sources and flags, so an edited source
+At first use `load()` compiles every `csrc/*.cu` with nvcc for sm_90a, one
+nvcc per source, all at once, and links the objects into one shared
+library with a plain C interface, under `build/` at the root of the
+checkout (named by a hash of the sources and flags, so an edited source
 rebuilds), and binds it with ctypes. The compiler's resource report
 (`-Xptxas -v`) is kept next to it. Nothing here runs at import time, and
 there is no fallback: if the library cannot be built or loaded, `load()`
@@ -27,15 +28,16 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--threads", "0",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "dmel_anti_alias": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
-    "dmel_act_conv": [
-        _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _F, _I, _I,
-        _I, _I, _I, _I, _I, _I, _P, _P,
+    "dmel_act_conv": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P],
+    "dmel_act_conv_tc": [
+        _P, _I, _P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _F, _I,
+        _I, _I, _I, _I, _I, _P, _I, _P,
     ],
     "dmel_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "dmel_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -85,13 +87,27 @@ def build() -> tuple[Path, float]:
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sorted(CSRC.glob("*.cu"))]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(sorted(CSRC.glob("*.cu")), objs)]
+    logs, failed = [], []
+    for proc in procs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{proc.args[-1]} ({proc.returncode}):\n{err}")
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr}")
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stderr)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    out.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, out)
     return out, seconds
 

@@ -5,22 +5,28 @@ xb = x; for d in (1, 3, 5): xb += conv_{k,1}(act(conv_{k,d}(act(xb))));
 output = mean of the three xb — on channels-first [B, C, T], from
 `pack_stage`'s arrays (weight norm folded, alpha/beta pre-exp'd):
   * on a CPU tensor `amp_stage` runs the plain version, `stage_reference`;
-  * on a CUDA tensor it runs kernel K2 (csrc/stage_fused.cu): one launch per
-    act -> conv pair, 18 per stage, with no torch op in between.
-`amp_stage(..., v1=True)` runs the same kernel under the v1 contract (its
+  * on a CUDA tensor it runs kernel K2: one launch per act -> conv pair, 18
+    per stage (`launch_plan`), with no torch op in between; a bf16 stage's
+    launches run on the tensor cores (csrc/stage_fused_tc.cu), a float32
+    stage's on the CUDA cores (csrc/stage_fused.cu), as the JAX kernel runs
+    bf16 convs on the matrix unit and float32 at HIGHEST.
+`act_conv` is one launch and `act_conv_reference` its plain version; the
+plain stage is `launch_plan` run through `act_conv_reference`.
+`amp_stage(..., v1=True)` runs the same kernels under the v1 contract (its
 plain version `stage_reference_v1`): the JAX `fused_amp_stage`
 (`use_v2=False`) at stages wider than K2-v1 takes.
 `amp_stage_v1` is the same function as one launch per stage (kernel K2-v1,
 csrc/stage_fused_v1.cu; the JAX `fused_amp_stage`, `use_v2=False`), for
 C <= V1_MAX_CHANNELS; its plain version is `stage_reference_v1`.
 
-bf16 contracts. K2 (the JAX v2 kernel's, stage_fused.py:398-403):
-activation input, activation output and conv output are rounded to the
+bf16 contracts. K2 (the JAX v2 kernel's, stage_fused.py:398-403, 500-519):
+the activation's input, its 12 taps, the snake's output v (before the down
+FIR), the activation's output and the conv's output are rounded to the
 input dtype, the residual spine and the running sum stay float32. K2-v1
-and K2 in v1 mode (the JAX v1 kernel's, stage_fused.py:145-149, 253-268,
+and K2 in v1 mode (the JAX v1 kernel's, stage_fused.py:145-149, 231-268,
 297): only the conv operands (the activation's output and the weights)
-are rounded to the input dtype; everything else stays float32 until the
-one cast at the end.
+are rounded to the input dtype; taps, v and everything else stay float32
+until the one cast at the end.
 For float32 inputs both plain versions are exactly the JAX package's oracle.
 """
 
@@ -28,15 +34,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from dmel_codec_tpu_torch.nn.resample import downsample1d, upsample1d
 from dmel_codec_tpu_torch.nn.snake import snake_coefficients
 from dmel_codec_tpu_torch.ops import library
-from dmel_codec_tpu_torch.ops.anti_alias import FILT
+from dmel_codec_tpu_torch.ops.anti_alias import FILT, FILT_BF16, activation_chain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,53 +96,163 @@ def pack_stage(resblocks: Sequence[torch.nn.Module], spec: StageSpec) -> dict:
     return {"w": ws, "b": cols(biases), "a": cols(alphas), "ib": cols(inv_betas)}
 
 
-def _reference(x: torch.Tensor, packed: dict, spec: StageSpec, round_planes: bool) -> torch.Tensor:
-    """The stage in float32 arithmetic, result in x's dtype. The conv's
-    operands are always rounded to x's dtype; `round_planes` also rounds
-    the activation's input and the conv's output (K2's contract)."""
-    dt = x.dtype
-    filt = torch.from_numpy(FILT)
+def conv_site(spec: StageSpec, n: int) -> Tuple[int, int]:
+    """(k, d) of conv n: a pair's first conv takes the pair's dilation, its
+    second dilation 1."""
+    for k, dils in zip(spec.kernel_sizes, spec.dilations):
+        if n < 2 * len(dils):
+            return k, dils[n // 2] if n % 2 == 0 else 1
+        n -= 2 * len(dils)
+    raise IndexError("conv index out of range for the spec")
+
+
+def act_conv_reference(
+    src: torch.Tensor,
+    packed: dict,
+    spec: StageSpec,
+    n: int,
+    dtype: torch.dtype,
+    *,
+    v1: bool = False,
+    res: Optional[torch.Tensor] = None,
+    acc_in: Optional[torch.Tensor] = None,
+    mean_of: int = 1,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """One K2 launch as plain PyTorch: conv n on activation n of src,
+    out = (round(conv(act(src)) + b) [+ res] [+ acc_in]) / mean_of, in
+    float32 arithmetic, returned in out_dtype. `dtype` is the stage's: the
+    conv operands (the activation's output, the weights) are rounded to it.
+    v2 (not `v1`) also rounds the activation's input and the conv's output,
+    and on bf16 the taps and the snake's output v (the JAX v2 kernel's bf16
+    matmuls); v1 keeps them float32."""
+    k, d = conv_site(spec, n)
 
     def rnd(v):
-        return v.to(dt).float()
+        return v.to(dtype).float()
 
-    def rnd_plane(v):
-        return rnd(v) if round_planes else v
+    a = packed["a"][:, n, None].float()
+    ib = packed["ib"][:, n, None].float()
 
-    n = 0  # conv n and the activation in front of it
-    acc = None
-    for k, dils in zip(spec.kernel_sizes, spec.dilations):
-        xb = x.float()
-        for d in dils:
-            y = xb
-            for which_d in (d, 1):
-                a = packed["a"][:, n, None].float()
-                ib = packed["ib"][:, n, None].float()
-                u = upsample1d(rnd_plane(y), filt, 2, 12)
-                s = torch.sin(u * a)
-                y = rnd(downsample1d(u + ib * s * s, filt, 2, 12))
-                w = packed["w"][n].to(dt).float().permute(1, 2, 0)  # [co, ci, k]
-                b = packed["b"][:, n].float()
-                y = rnd_plane(F.conv1d(y, w, b, padding=which_d * (k - 1) // 2, dilation=which_d))
-                n += 1
-            xb = xb + y
-        acc = xb if acc is None else acc + xb
-    return (acc / len(spec.kernel_sizes)).to(dt)
+    def snake_fn(u):
+        s = torch.sin(u * a)
+        return u + ib * s * s
+
+    y = src.float() if v1 else rnd(src.float())
+    y = rnd(activation_chain(y, snake_fn, not v1 and dtype == torch.bfloat16))
+    w = packed["w"][n].to(dtype).float().permute(1, 2, 0)  # [co, ci, k]
+    y = F.conv1d(y, w, packed["b"][:, n].float(), padding=d * (k - 1) // 2, dilation=d)
+    if not v1:
+        y = rnd(y)
+    if res is not None:
+        y = res.float() + y
+    if acc_in is not None:
+        y = acc_in + y
+    if mean_of != 1:
+        y = y / mean_of
+    return y.to(out_dtype)
+
+
+def launch_plan(spec: StageSpec):
+    """K2's launches for one stage, in order, as (n, src, out, res, acc_in,
+    mean_of) over the planes "x" (the input), "t1" (a pair's middle), "xb"
+    (the residual spine), "acc" (the running sum of the blocks) and "y"
+    (the output): for k in kernel_sizes: xb = x; for d in dils:
+    xb += conv_{k,1}(act(conv_{k,d}(act(xb)))); y = mean of the xb."""
+    plan, n, n_blk = [], 0, len(spec.kernel_sizes)
+    for kb, dils in enumerate(spec.dilations):
+        for p in range(len(dils)):
+            resid = "x" if p == 0 else "xb"
+            plan.append((n, resid, "t1", None, None, 1))  # t1 = conv_{k,d}(act(xb))
+            if p < len(dils) - 1:  # xb += conv_{k,1}(act(t1))
+                plan.append((n + 1, "t1", "xb", resid, None, 1))
+            else:  # the block's last pair folds xb into the running sum
+                final = kb == n_blk - 1
+                plan.append((n + 1, "t1", "y" if final else "acc", resid, "acc" if kb > 0 else None,
+                             n_blk if final else 1))
+            n += 2
+    return plan
+
+
+def _plane_dtypes(dtype: torch.dtype, v1: bool) -> dict:
+    """The dtype of each plane of `launch_plan`: the residual spine and the
+    running sum float32, t1 in the stage's dtype (float32 under v1)."""
+    return {"x": dtype, "t1": torch.float32 if v1 else dtype, "xb": torch.float32,
+            "acc": torch.float32, "y": dtype}
+
+
+def _reference(x: torch.Tensor, packed: dict, spec: StageSpec, v1: bool) -> torch.Tensor:
+    """The stage as K2's launches in plain PyTorch, result in x's dtype."""
+    dtypes = _plane_dtypes(x.dtype, v1)
+    planes = {"x": x}
+    for n, src, out, res, acc_in, mean_of in launch_plan(spec):
+        planes[out] = act_conv_reference(
+            planes[src], packed, spec, n, x.dtype, v1=v1, res=planes.get(res), acc_in=planes.get(acc_in),
+            mean_of=mean_of, out_dtype=dtypes[out],
+        )
+    return planes["y"]
 
 
 def stage_reference(x: torch.Tensor, packed: dict, spec: StageSpec) -> torch.Tensor:
-    """K2's plain version: planes between the ops rounded to x's dtype."""
-    return _reference(x, packed, spec, round_planes=True)
+    """K2's plain version under the v2 contract."""
+    return _reference(x, packed, spec, v1=False)
 
 
 def stage_reference_v1(x: torch.Tensor, packed: dict, spec: StageSpec) -> torch.Tensor:
-    """K2-v1's plain version: planes float32, only conv operands rounded."""
-    return _reference(x, packed, spec, round_planes=False)
+    """K2-v1's plain version (and K2's in v1 mode): planes float32, only
+    conv operands rounded."""
+    return _reference(x, packed, spec, v1=True)
+
+
+# ---- the kernels: float32 on the CUDA cores, bf16 on the tensor cores ---------
+
+TC_WIDTHS = (24, 32, 48, 64, 96, 128, 160, 192)  # the bf16 kernel's N instantiations
+TC_SLOT_BYTES = 32768  # most bytes of one streamed (tap, K chunk) of weights
+
+
+def tc_plan(c: int) -> Tuple[int, int, int, int]:
+    """How the bf16 kernel tiles a stage of C channels: (N, blocks of N,
+    KP, KC). N: the narrowest instantiation that holds C (rounded up to 8),
+    or blocks of 192 beyond; KP: C rounded up to 16; KC: the widest
+    multiple of 16 up to 96 dividing KP whose KC x N bf16 fit
+    TC_SLOT_BYTES."""
+    c8 = -(-c // 8) * 8
+    n = next((w for w in TC_WIDTHS if w >= c8), TC_WIDTHS[-1])
+    kp = -(-c // 16) * 16
+    kc = max(m for m in range(16, min(kp, 96) + 1, 16) if kp % m == 0 and (m == 16 or m * n * 2 <= TC_SLOT_BYTES))
+    return n, -(-c // n), kp, kc
+
+
+def tc_weights(ws: Sequence[torch.Tensor], c: int) -> Tuple[torch.Tensor, list]:
+    """[k, C_out, C_in] conv weights -> one bf16 tensor in the layout the
+    bf16 kernel streams ([N block][tap][K chunk][KC / 8][N][8] per conv,
+    zero-padded) and each conv's offset in it, in elements."""
+    n, blocks, kp, kc = tc_plan(c)
+    parts, offsets, at = [], [], 0
+    for w in ws:
+        k = w.shape[0]
+        wp = torch.zeros((k, blocks * n, kp), dtype=torch.bfloat16, device=w.device)
+        wp[:, :c, :c] = w
+        t = wp.view(k, blocks, n, kp // kc, kc // 8, 8).permute(1, 0, 3, 4, 2, 5).reshape(-1)
+        parts.append(t)
+        offsets.append(at)
+        at += t.numel()
+    return torch.cat(parts), offsets
+
+
+def tc_unpack(flat: torch.Tensor, offsets: Sequence[int], kernel_sizes: Sequence[int], c: int) -> list:
+    """`tc_weights`' inverse: the [k, C, C] bf16 weights of each conv."""
+    n, blocks, kp, kc = tc_plan(c)
+    ws = []
+    for at, k in zip(offsets, kernel_sizes):
+        t = flat[at: at + blocks * k * kp * n].view(blocks, k, kp // kc, kc // 8, n, 8)
+        ws.append(t.permute(1, 0, 4, 2, 3, 5).reshape(k, blocks * n, kp)[:, :c, :c])
+    return ws
 
 
 def _co_tile(c: int) -> int:
-    """Output-channel tile of a K2 block (kernel instantiations 24/48/64;
-    channels past C are masked)."""
+    """Output-channel tile of a float32 K2 block (kernel instantiations
+    24/48/64; channels past C are masked)."""
     for tile in (64, 48, 24):
         if c % tile == 0:
             return tile
@@ -150,80 +265,88 @@ def _check_input(x: torch.Tensor, spec: StageSpec) -> None:
         raise ValueError(f"x has {x.shape[1]} channels, spec says {spec.channels}")
 
 
-def _kernel_args(x: torch.Tensor, packed: dict, spec: StageSpec):
-    """Checks x and the packed arrays against spec; returns the conv
-    weights in x's dtype and the float32 columns, on x's device."""
-    _check_input(x, spec)
-    c = x.shape[1]
+def _kernel_args(packed: dict, spec: StageSpec, dtype: torch.dtype, device: torch.device):
+    """Checks the packed arrays against spec; returns the conv weights in
+    `dtype` and the float32 columns, on `device`."""
+    c = spec.channels
     n_convs = sum(2 * len(d) for d in spec.dilations)
     if len(packed["w"]) != n_convs:
         raise ValueError(f"packed has {len(packed['w'])} convs, spec needs {n_convs}")
-    ws = [w.to(device=x.device, dtype=x.dtype).contiguous() for w in packed["w"]]
+    ws = [w.to(device=device, dtype=dtype).contiguous() for w in packed["w"]]
     kernel_of = [k for k, dl in zip(spec.kernel_sizes, spec.dilations) for _ in range(2 * len(dl))]
     for w, k in zip(ws, kernel_of):
         if w.shape != (k, c, c):
             raise ValueError(f"conv weight {tuple(w.shape)} is not [{k}, {c}, {c}]")
-    cols = {
-        key: packed[key].to(device=x.device, dtype=torch.float32).contiguous()
-        for key in ("b", "a", "ib")
-    }
+    cols = {key: packed[key].to(device=device, dtype=torch.float32).contiguous() for key in ("b", "a", "ib")}
     for key, col in cols.items():
         if col.shape != (c, n_convs):
             raise ValueError(f"packed[{key!r}] is {tuple(col.shape)}, not [{c}, {n_convs}]")
     return ws, cols, n_convs
 
 
-def _run_kernel(x: torch.Tensor, packed: dict, spec: StageSpec, v1: bool = False) -> torch.Tensor:
-    """K2's 18 launches. v2: planes rounded to x's dtype (`plane_bf16`);
-    v1: the planes stay float32 (t1 too) and only the activation's output,
-    a conv operand, is rounded (`operand_bf16`)."""
-    lib = library.load()
-    ws, cols, n_convs = _kernel_args(x, packed, spec)
-    bsz, c, t = x.shape
-    dt = x.dtype
-    bf = int(dt == torch.bfloat16)
-    plane_bf = 0 if v1 else bf
-    f32 = torch.float32
-    xb = torch.empty(x.shape, dtype=f32, device=x.device)
-    acc = torch.empty_like(xb)
-    t1 = torch.empty_like(xb) if v1 else torch.empty_like(x)
-    y = torch.empty_like(x)
-    taps = library.taps(FILT)
-    strm = library.stream(x)
-    co_tile = _co_tile(c)
+def _k2_args(packed: dict, spec: StageSpec, dtype: torch.dtype, device: torch.device) -> dict:
+    """What K2's launches need besides the planes, made once per dtype and
+    device and kept in `packed` (a snapshot of the weights, like `packed`
+    itself): float32, the weights as they are; bf16, `tc_weights`' layout;
+    the float32 columns and the taps of each contract."""
+    key = ("K2", dtype, device)
+    if key not in packed:
+        ws, cols, n_convs = _kernel_args(packed, spec, dtype, device)
+        args = {**cols, "n_convs": n_convs, "bf16": dtype == torch.bfloat16,
+                "taps": {False: library.taps(FILT), True: library.taps(FILT_BF16 if dtype == torch.bfloat16 else FILT)}}
+        if args["bf16"]:
+            args["w_tc"], args["offsets"] = tc_weights(ws, spec.channels)
+            args["plan"] = tc_plan(spec.channels)
+        else:
+            args["w"], args["co_tile"] = ws, _co_tile(spec.channels)
+        packed[key] = args
+    return packed[key]
 
-    def step(src, n, k, d, out, res=None, acc_in=None, scale=1.0):
-        """Conv n (dilation d) on activation n of src."""
+
+def _launch(lib, args: dict, spec: StageSpec, n: int, src, out, res, acc_in, mean_of: int, v1: bool,
+            parts: int = 3) -> None:
+    """One K2 launch on planes that passed the checks: the tensor-core kernel
+    for a bf16 stage, the CUDA-core kernel for a float32 one. `parts` < 3
+    drops parts of the bf16 kernel (probes/stage_parts.py)."""
+    bsz, c, t = src.shape
+    k, d = conv_site(spec, n)
+    ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
+    cols = [args["b"].data_ptr() + 4 * n, args["n_convs"], args["a"].data_ptr() + 4 * n,
+            args["ib"].data_ptr() + 4 * n, args["n_convs"]]
+    strm = library.stream(src)
+    if args["bf16"]:
+        bf = lambda v: int(v is not None and v.dtype == torch.bfloat16)  # noqa: E731
+        nb, _, kp, kc = args["plan"]
+        rc = lib.dmel_act_conv_tc(
+            src.data_ptr(), bf(src), args["w_tc"].data_ptr() + 2 * args["offsets"][n], nb, kp, kc, *cols,
+            ptr(res), bf(res), ptr(acc_in), out.data_ptr(), bf(out), float(mean_of), int(not v1),
+            bsz, c, t, k, d, args["taps"][not v1], parts, strm,
+        )
+        library.check(lib, rc, "dmel_act_conv_tc")
+        amp_stage.launches_by_kernel["tensor_cores"] += 1
+    else:
+        if parts != 3:
+            raise ValueError("only the bf16 kernel has parts to drop")
         rc = lib.dmel_act_conv(
-            src.data_ptr(), int(src.dtype == torch.bfloat16),
-            ws[n].data_ptr(), bf,
-            cols["b"].data_ptr() + 4 * n, n_convs,
-            cols["a"].data_ptr() + 4 * n, cols["ib"].data_ptr() + 4 * n, n_convs,
-            None if res is None else res.data_ptr(), int(res is not None and res.dtype == torch.bfloat16),
-            None if acc_in is None else acc_in.data_ptr(),
-            out.data_ptr(), int(out.dtype == torch.bfloat16), scale, bf, plane_bf,
-            bsz, c, t, k, d, co_tile, taps, strm,
+            src.data_ptr(), args["w"][n].data_ptr(), *cols, ptr(res), ptr(acc_in), out.data_ptr(),
+            1.0 / mean_of, bsz, c, t, k, d, args["co_tile"], args["taps"][False], strm,
         )
         library.check(lib, rc, "dmel_act_conv")
-        amp_stage.launches += 1
+        amp_stage.launches_by_kernel["cuda_cores"] += 1
+    amp_stage.launches += 1
 
-    n_blk = len(spec.kernel_sizes)
-    n = 0
-    for kb, (k, dils) in enumerate(zip(spec.kernel_sizes, spec.dilations)):
-        for p, d in enumerate(dils):
-            resid = x if p == 0 else xb
-            step(resid, n, k, d, t1)  # t1 = conv_{k,d}(act(xb))
-            if p < len(dils) - 1:  # xb += conv_{k,1}(act(t1))
-                step(t1, n + 1, k, 1, xb, res=resid)
-            else:  # last pair of the block: fold xb into the running sum
-                final = kb == n_blk - 1
-                step(
-                    t1, n + 1, k, 1, y if final else acc,
-                    res=resid, acc_in=acc if kb > 0 else None,
-                    scale=1.0 / n_blk if final else 1.0,
-                )
-            n += 2
-    return y
+
+def _run_kernel(x: torch.Tensor, packed: dict, spec: StageSpec, v1: bool = False, parts: int = 3) -> torch.Tensor:
+    """K2's launches (`launch_plan`) on planes of `_plane_dtypes`; out may
+    alias res (xb += ...) and acc_in, never src."""
+    lib = library.load()
+    _check_input(x, spec)
+    args = _k2_args(packed, spec, x.dtype, x.device)
+    planes = {name: x if name == "x" else torch.empty(x.shape, dtype=dt, device=x.device)
+              for name, dt in _plane_dtypes(x.dtype, v1).items()}
+    for n, src, out, res, acc_in, mean_of in launch_plan(spec):
+        _launch(lib, args, spec, n, planes[src], planes[out], planes.get(res), planes.get(acc_in), mean_of, v1, parts)
+    return planes["y"]
 
 
 def amp_stage(x: torch.Tensor, packed: dict, spec: StageSpec, v1: bool = False) -> torch.Tensor:
@@ -233,7 +356,44 @@ def amp_stage(x: torch.Tensor, packed: dict, spec: StageSpec, v1: bool = False) 
     return _run_kernel(x, packed, spec, v1)
 
 
-amp_stage.launches = 0  # K2 launches (18 per stage call), counted in _run_kernel
+amp_stage.launches = 0  # K2 launches (18 per stage call), counted in _launch
+amp_stage.launches_by_kernel = {"tensor_cores": 0, "cuda_cores": 0}  # bf16 / float32 launches
+
+
+def act_conv(
+    src: torch.Tensor,
+    packed: dict,
+    spec: StageSpec,
+    n: int,
+    dtype: torch.dtype,
+    *,
+    v1: bool = False,
+    res: Optional[torch.Tensor] = None,
+    acc_in: Optional[torch.Tensor] = None,
+    mean_of: int = 1,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """One K2 launch, `act_conv_reference`'s function, by the kernel of the
+    stage dtype `dtype` (its plain version on a CPU tensor). A float32
+    stage takes float32 planes; a bf16 one float32 or bf16 src, res and
+    out, and a float32 acc_in."""
+    if src.device.type == "cpu":
+        return act_conv_reference(src, packed, spec, n, dtype, v1=v1, res=res, acc_in=acc_in,
+                                  mean_of=mean_of, out_dtype=out_dtype)
+    lib = library.load()
+    _check_input(src, spec)
+    for name, v in (("res", res), ("acc_in", acc_in)):
+        if v is not None:
+            library.check_plane(v, name)
+            if v.shape != src.shape or v.device != src.device:
+                raise ValueError(f"{name} must be {tuple(src.shape)} on {src.device}")
+    float32 = [acc_in] if dtype == torch.bfloat16 else [src, res, acc_in, torch.empty(0, dtype=out_dtype)]
+    if any(v is not None and v.dtype != torch.float32 for v in float32):
+        raise TypeError("acc_in, and every plane of a float32 stage, must be float32")
+    args = _k2_args(packed, spec, dtype, src.device)
+    out = torch.empty(src.shape, dtype=out_dtype, device=src.device)
+    _launch(lib, args, spec, n, src, out, res, acc_in, mean_of, v1)
+    return out
 
 
 # ---- K2-v1: the whole stage in one launch -----------------------------------
@@ -259,7 +419,7 @@ def _v1_args(x: torch.Tensor, packed: dict, spec: StageSpec, lib) -> dict:
     and the spec as C arrays."""
     key = ("v1", x.dtype, x.device)
     if key not in packed:
-        ws, cols, _ = _kernel_args(x, packed, spec)
+        ws, cols, _ = _kernel_args(packed, spec, x.dtype, x.device)
         c = spec.channels
         scratch = lib.dmel_stage_v1_scratch_floats()
         tile = v1_tile(c, spec, scratch, lib.dmel_stage_v1_smem_bytes())

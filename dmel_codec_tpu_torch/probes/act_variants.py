@@ -22,10 +22,9 @@ from typing import Optional
 
 import torch
 
-from dmel_codec_tpu_torch.nn.resample import downsample1d, upsample1d
 from dmel_codec_tpu_torch.nn.snake import snake_beta
 from dmel_codec_tpu_torch.ops import library
-from dmel_codec_tpu_torch.ops.anti_alias import FILT, anti_alias_activation_reference
+from dmel_codec_tpu_torch.ops.anti_alias import FILT, FILT_BF16, activation_chain, anti_alias_activation_reference
 from dmel_codec_tpu_torch.probes.timing import cuda_ms, require_gpu
 
 VARIANTS = ("full", "copy", "no_snake", "no_fir")  # the kernel's enum order
@@ -41,16 +40,16 @@ def variant_reference(
     logscale: bool = True,
 ) -> torch.Tensor:
     """Plain version of each variant: coefficients in the parameters' dtype
-    (as K1's), float32 arithmetic, result in x's dtype."""
+    and, on bf16 x, bf16 taps and v (as K1's), float32 arithmetic, result in
+    x's dtype."""
     if variant == "full":
         return anti_alias_activation_reference(x, alpha, beta, logscale)
     if variant == "copy":
         return x.clone()
     if variant == "no_fir":
         return snake_beta(x.float(), alpha, beta, logscale).to(x.dtype)
-    if variant == "no_snake":
-        filt = torch.from_numpy(FILT)
-        return downsample1d(upsample1d(x.float(), filt, 2, 12), filt, 2, 12).to(x.dtype)
+    if variant == "no_snake":  # as "full", the identity in place of snake (its v rounded on bf16 x too)
+        return activation_chain(x.float(), lambda u: u, x.dtype == torch.bfloat16).to(x.dtype)
     raise ValueError(f"unknown variant {variant!r}, expected one of {VARIANTS}")
 
 
@@ -70,10 +69,11 @@ def run_variant(
     library.check_plane(x)
     b, c, t = x.shape
     a, bt, param_bf16 = library.snake_parameters(alpha, beta, x, c)
+    bf16 = x.dtype == torch.bfloat16
     y = torch.empty_like(x)
     rc = lib.dmel_anti_alias_variant(
         x.data_ptr(), y.data_ptr(), a.data_ptr(), None if bt is None else bt.data_ptr(),
-        int(logscale), param_bf16, b, c, t, int(x.dtype == torch.bfloat16), library.taps(FILT),
+        int(logscale), param_bf16, b, c, t, int(bf16), library.taps(FILT_BF16 if bf16 else FILT),
         VARIANTS.index(variant), library.stream(x),
     )
     library.check(lib, rc, "dmel_anti_alias_variant")

@@ -1,7 +1,8 @@
 """Times of the redesigned kernels at their main-path shapes (the
 flash-attention kernels FA, FA-dKV and FA-dQ at the LM's shapes, P4 at the
-probe's 264 planes at C = 96 and 192), and a same-card comparison of two
-checkouts.
+probe's 264 planes at C = 96 and 192, K2's bf16 stages s2..s5 of the
+flagship vocoder at a codec request's and a streaming window's shapes), and
+a same-card comparison of two checkouts.
 
     python3 -m dmel_codec_tpu_torch.probes.flash_times              # this checkout
     python3 -m dmel_codec_tpu_torch.probes.flash_times --ab OTHER   # OTHER, this, this, OTHER
@@ -10,13 +11,15 @@ With `--ab` each run is its own process (this file run as a script from
 the checkout's root) that imports the port from its checkout, builds that
 checkout's kernels from its own `csrc/` (into its `build/`), and times them
 through its `ops/flash_attention.py` (`_launch(q, k, v, with_lse)`,
-`flash_attention_dkv(q, k, v, grad, lse, delta)`, `flash_attention_dq(...)`)
-and its `probes/sublane_ops.tap_matmul` (a width that checkout refuses is
-left out); the runs alternate so that a drift of the card shows as a
-difference between the two runs of one checkout. Each run also records
-what must not change, or must change by a stated amount: a hash of the
-float32 FA-dQ output at [2, 1024] (the same bits in every run: the float32
-kernel is the same code), and the flagship vocoder's bf16 waveform on
+`flash_attention_dkv(q, k, v, grad, lse, delta)`, `flash_attention_dq(...)`),
+its `probes/sublane_ops.tap_matmul` (a width that checkout refuses is
+left out) and its `ops/stage_fused.amp_stage(x, packed, spec)`; the runs
+alternate so that a drift of the card shows as a difference between the
+two runs of one checkout. Each run also records what must not change, or
+must change by a stated amount: hashes of the float32 FA-dQ output at
+[2, 1024] and of the float32 K2 stage at a window's s3 (the same bits in
+every run: the float32 kernels are the same code), and the flagship
+vocoder's bf16 waveform on
 seeded random weights with spread snake parameters (written to the
 checkout's `build/ab_vocoder.pt`; the difference between the checkouts is
 printed). Prints one line per case and run, and as its last line a JSON
@@ -28,6 +31,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -39,6 +43,10 @@ CASES = [("fwd", 2, 2048, 14, 2, 64, "bfloat16"), ("fwd+L", 2, 1024, 14, 2, 64, 
          ("bwd", 2, 1024, 14, 2, 64, "float32"), ("bwd", 2, 2048, 14, 2, 64, "float32"),
          ("bwd", 2, 2048, 14, 2, 64, "bfloat16")]
 P4_WIDTHS, P4_PLANES = (96, 192), 264  # x [264, 2176, C] @ w [C, C], 11 taps of step 8
+# K2: (case, B, C, T) of the flagship's fused stages, 16 x 4 s (372 mel frames) and one window (560)
+K2_CASES = tuple((f"{what} s{i}", b, c, frames * rate) for what, b, frames in (("request", 16, 372), ("window", 1, 560))
+                 for i, c, rate in ((2, 192, 32), (3, 96, 64), (4, 48, 128), (5, 24, 256)))
+K2_BITS = ("window s3", 1, 96, 560 * 64)  # the float32 stage whose bits every run must share
 
 
 def time_here(root: Path, reps: int = 20) -> dict:
@@ -50,6 +58,7 @@ def time_here(root: Path, reps: int = 20) -> dict:
         raise SystemExit("flash_times: the probe times CUDA kernels and needs a GPU")
     sys.path.insert(0, str(root))
     from dmel_codec_tpu_torch.ops import flash_attention as fa
+    from dmel_codec_tpu_torch.ops.stage_fused import StageSpec, amp_stage
     from dmel_codec_tpu_torch.probes import sublane_ops
 
     def cuda_ms(fn, n):  # CUDA events over n launches after one warm-up
@@ -93,8 +102,29 @@ def time_here(root: Path, reps: int = 20) -> dict:
             except ValueError:  # a width this checkout's P4 does not take
                 continue
             out[f"P4 C = {c} [{P4_PLANES} planes]"] = cuda_ms(lambda: sublane_ops.tap_matmul(xb, w), reps)
+        cpu = torch.Generator().manual_seed(2)
+        for i, (name, b, c, t) in enumerate(K2_CASES + (K2_BITS,)):
+            spec, packed = StageSpec(channels=c), k2_pack(c, cpu)
+            x = torch.randn((b, c, t), generator=cpu).to("cuda")
+            if i < len(K2_CASES):
+                xb = x.bfloat16()
+                out[f"K2 bf16 {name} {[b, c, t]} (18 launches)"] = cuda_ms(lambda: amp_stage(xb, packed, spec), 3)
+            else:
+                y = amp_stage(x, packed, spec).cpu().numpy()
+                out[f"bits K2 float32 {name} {[b, c, t]}"] = hashlib.sha256(y.tobytes()).hexdigest()
         torch.save(vocoder_bf16(), root / "build" / "ab_vocoder.pt")
     return out
+
+
+def k2_pack(c: int, gen):
+    """`pack_stage`-shaped arrays of a C-channel stage (on the card) from a
+    CPU generator, the same in every checkout."""
+    import torch
+
+    ws = [torch.randn((k, c, c), generator=gen) / math.sqrt(k * c) for k in (3, 7, 11) for _ in range(6)]
+    cols = {"b": 0.05 * torch.randn((c, 18), generator=gen), "a": torch.exp(0.1 * torch.randn((c, 18), generator=gen)),
+            "ib": 1.0 / (torch.exp(0.1 * torch.randn((c, 18), generator=gen)) + 1e-9)}
+    return {"w": [w.cuda() for w in ws], **{k: v.cuda() for k, v in cols.items()}}
 
 
 def vocoder_bf16():

@@ -169,12 +169,14 @@ def test_k1_coefficients_bf16_match_jax(monkeypatch, with_beta, logscale):
 def test_k1_plain_bf16_against_jax_kernel():
     """K1's plain version against the JAX op's Pallas kernel (interpret
     mode) on bf16 input and parameters. Both take the same bf16
-    coefficients; the JAX kernel also runs its FIRs as bf16 banded matmuls
-    and a polynomial sin, the port's plain version in float32, so results
-    next to a rounding boundary round apart: within one bf16 ulp of max |y|
-    and at least half the outputs the same bits (measured at C = 24 / 64:
-    4.1e-3 / 3.8e-3 of max |y|, 0.564 / 0.558 the same bits; with the
-    float32-exp'd coefficients of before, 4.1e-3 / 7.6e-3 and 0.465 / 0.456)."""
+    coefficients, round the 12 taps to bf16 (the JAX kernel's FIRs are bf16
+    banded matmuls) and round the snake's output v to bf16 before the down
+    FIR; what is left is the order of float32 sums, the kernel's polynomial
+    sin and the JAX op's float32-tap oracle on the last rows of a ragged
+    tail, so a rare result next to a rounding boundary rounds apart: at
+    least 99 % of the outputs the same bits and within half a bf16 ulp of
+    max |y| (measured at C = 24 / 64: every output the same bits; with
+    float32 taps and v, 0.564 / 0.558 and 4.1e-3 / 3.8e-3 of max |y|)."""
     for c, seed in ((24, 3), (64, 5)):
         x, alpha, beta = _k1_inputs(c, seed)
         x = np.concatenate([x, -x], axis=1)  # T = 128: the kernel path (T >= 32)
@@ -185,5 +187,5 @@ def test_k1_plain_bf16_against_jax_kernel():
                                               to_port(beta), True)
         got = _np(got.transpose(1, 2))
         assert got.shape == want.shape
-        assert np.abs(got - want).max() <= 2.0**-7 * np.abs(want).max()
-        assert (got == want).mean() >= 0.5
+        assert np.abs(got - want).max() <= 2.0**-8 * np.abs(want).max()
+        assert (got == want).mean() >= 0.99

@@ -25,7 +25,7 @@ from dmel_codec_tpu_torch.cli import common, infer_lm, stream_codec, train_codec
 from dmel_codec_tpu_torch.ops import flash_attention as fa_ops
 from dmel_codec_tpu_torch.ops import library
 from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation, anti_alias_activation_reference
-from dmel_codec_tpu_torch.ops.stage_fused import StageSpec, amp_stage, amp_stage_v1
+from dmel_codec_tpu_torch.ops.stage_fused import StageSpec, act_conv, amp_stage, amp_stage_v1
 from dmel_codec_tpu_torch.probes import act_variants, cf_act, sublane_ops
 from dmel_codec_tpu_torch.train.codec_trainer import CodecTrainer
 from dmel_codec_tpu_torch.train.lm_loop import LMFitLoop
@@ -109,6 +109,26 @@ def test_cf_act_plain_in_bfloat16_rounds_once():
     got = cf_act.cf_act_windowed(xb, a, ib, 64)
     assert got.dtype == torch.bfloat16
     assert torch.equal(got, cf_act.cf_act_reference(xb.float(), a, ib).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("shape,w", [((2, 24, 4096), 1024), ((1, 5, 700), 256)])
+def test_cf_act_plain_bf16_matches_jax_kernel(jax_cf, shape, w):
+    """On bf16 input P1's JAX kernel keeps float32 taps and a float32 snake
+    output (`cf_act_kernel` works on `x.astype(float32)` with float32 taps
+    and rounds once at the end), unlike K1's and K2's banded bf16 matmuls:
+    P1's plain version, which does the same, gives at least 99 % of its
+    bits, within half a bf16 ulp of max |y| (measured 0.9999 / 0.9997 and
+    1.8e-3 / 2.9e-7; with bf16 taps and v it would be 0.573 / 0.558)."""
+    x, alpha, beta = _cf_inputs(shape, 0)
+    ib = 1.0 / (beta + 1e-9)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    want = jax_cf.cf_act_windowed(xb, jnp.asarray(alpha)[None, :, None], jnp.asarray(ib)[None, :, None],
+                                  w=w, halo=128, interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    got = cf_act.cf_act_windowed(torch.from_numpy(x).bfloat16(), torch.from_numpy(alpha)[None, :, None],
+                                 torch.from_numpy(ib)[None, :, None], w).float().numpy()
+    assert (got == want).mean() >= 0.99
+    assert np.abs(got - want).max() <= 2.0**-8 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("w", [0, cf_act.MAX_WINDOW + 1])
@@ -327,6 +347,9 @@ def _wrapper_calls():
     return [
         ("K1", anti_alias_activation, lambda d: anti_alias_activation(on(d, 1, 8, 50), on(d, 8), on(d, 8), True)),
         ("K2", amp_stage, lambda d: amp_stage(on(d, 1, 8, 50), packed(d), spec)),
+        ("K2 bf16", amp_stage, lambda d: amp_stage(on(d, 1, 8, 50, dtype=torch.bfloat16), packed(d), spec)),
+        ("K2 launch", amp_stage,
+         lambda d: act_conv(on(d, 1, 8, 50), packed(d), spec, 4, torch.bfloat16, res=on(d, 1, 8, 50))),
         ("K2-v1", amp_stage_v1, lambda d: amp_stage_v1(on(d, 1, 8, 50), packed(d), spec)),
         ("FA", fa_ops.flash_attention,
          lambda d: fa_ops.flash_attention(on(d, 1, 8, 4, 16), on(d, 1, 8, 2, 16), on(d, 1, 8, 2, 16))),

@@ -28,7 +28,7 @@ from dmel_codec_tpu_torch.models import bigvgan
 from dmel_codec_tpu_torch.models.bigvgan import AMPBlock2, BigVGAN, BigVGANConfig, FusedBigVGAN
 from dmel_codec_tpu_torch.nn.snake import snake_beta
 from dmel_codec_tpu_torch.ops import library, stage_fused
-from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation_reference
+from dmel_codec_tpu_torch.ops.anti_alias import FILT, FILT_BF16, anti_alias_activation_reference
 from dmel_codec_tpu_torch.ops.stage_fused import (
     V1_MAX_CHANNELS,
     StageSpec,
@@ -268,16 +268,21 @@ def test_fused_v1_bf16_own_packing_matches_jax_v1(monkeypatch):
 
 @pytest.mark.parametrize("dtype,v1", [(torch.bfloat16, True), (torch.bfloat16, False), (torch.float32, True)])
 def test_k2_v1_mode_dispatch(monkeypatch, dtype, v1):
-    """K2's 18 launches with a recording library: v1 mode on bf16 rounds
-    the activation's output only (operand_bf16 = 1, plane_bf16 = 0) and
-    keeps t1 (the output of each pair's first launch, the input of its
-    second) float32; v2 rounds the planes too and keeps t1 in bf16;
-    float32 rounds nothing."""
+    """K2's 18 launches with a recording library: on bf16 every launch
+    takes the tensor-core kernel, whose operands are bf16 either way; v1
+    mode keeps the planes, the taps and v float32 (plane_bf16 = 0) and t1
+    (the output of each pair's first launch, the input of its second)
+    float32; v2 rounds the planes, takes bf16 taps and keeps t1 in bf16;
+    float32 takes the CUDA-core kernel, which rounds nothing."""
     calls = []
 
     class Lib:
         def dmel_act_conv(self, *args):
-            calls.append(args)
+            calls.append(("cuda_cores", args))
+            return 0
+
+        def dmel_act_conv_tc(self, *args):
+            calls.append(("tensor_cores", args))
             return 0
 
     monkeypatch.setattr(library, "load", lambda: Lib())
@@ -287,12 +292,15 @@ def test_k2_v1_mode_dispatch(monkeypatch, dtype, v1):
     n = stage_fused.amp_stage.launches
     stage_fused._run_kernel(torch.zeros((1, 8, 50), dtype=dtype), tp, StageSpec(channels=8), v1=v1)
     assert stage_fused.amp_stage.launches == n + 18 and len(calls) == 18
-    bf = int(dtype == torch.bfloat16)
-    # positions in dmel_act_conv's argument list
-    src_bf16, w_bf16, out_bf16, operand_bf16, plane_bf16 = 1, 3, 13, 15, 16
-    t1_bf16 = int(bf and not v1)
-    for i, args in enumerate(calls):
-        assert (args[w_bf16], args[operand_bf16], args[plane_bf16]) == (bf, bf, 0 if v1 else bf)
+    if dtype == torch.float32:
+        assert {kernel for kernel, _ in calls} == {"cuda_cores"}
+        return
+    # positions in dmel_act_conv_tc's argument list
+    src_bf16, out_bf16, plane_bf16, taps = 1, 15, 17, 23
+    t1_bf16 = int(not v1)
+    for i, (kernel, args) in enumerate(calls):
+        assert kernel == "tensor_cores" and args[plane_bf16] == (0 if v1 else 1)
+        assert list(args[taps]) == (FILT if v1 else FILT_BF16).tolist()
         if i % 2 == 0:  # t1 = conv(act(xb))
             assert args[out_bf16] == t1_bf16
         else:  # reads t1
