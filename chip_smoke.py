@@ -11,8 +11,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
   2. build the CUDA kernels from dmel_codec_tpu_torch/csrc into build/;
   3. K1 (anti-aliased snake) against its plain version at the vocoder's
      shapes in a codec request and in a streaming window, float32 and
-     bfloat16, and with bf16 parameters (the coefficients the kernel rounds
-     itself);
+     bfloat16, at ragged lengths (T = 1..64, 700, 1000; x at an offset
+     that is no 16-byte boundary: its head and tail path), and with bf16
+     parameters (the coefficients the kernel rounds itself); its sinf
+     without conversions against sinf over every float (no bit may differ
+     but the sign); its launch (grid, threads, shared memory per block);
   4. K2 (fused AMP stage; bf16 on the tensor cores, float32 on the CUDA
      cores) against its plain version at every fused width, B = 2 and a
      streaming window's B = 1, and at ragged shapes, float32 and bfloat16;
@@ -24,10 +27,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      DMelCodec.decode -> serving BigVGAN, with output checks and kernel
      launch counts (every bf16 K2 launch on the tensor-core kernel); then
      xRT with its per-part split, a one-request torch.profiler breakdown
-     (which must name K2's tensor-core kernel), the vocoder stage by stage,
-     each kernel's time beside its plain version at the main-path shapes
-     (K2 also in float32, on the CUDA cores), and K2's bf16 time by part
-     (probes/stage_parts.py);
+     (which must name K1's kernel and K2's tensor-core kernel), the vocoder
+     stage by stage, each kernel's time beside its plain version at the
+     main-path shapes (K2 also in float32, on the CUDA cores), K2's and
+     K2-v1's bf16 time by part (probes/stage_parts.py), and K1's
+     instruction-issue floor counted from its SASS (probes/k1_floor.py);
   6. stage-wise kernel-vs-plain error of the vocoder in float32, each stage
      fed the same input (the float32 K2 launches, on the CUDA cores);
   7. FA (causal GQA flash attention) against its plain version at the slow
@@ -47,17 +51,21 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
  10. FA, its plain version and PyTorch's scaled_dot_product_attention (a
      yardstick only: nothing in the port calls it) at the main-path shape,
      with FA's launch (grid, threads and shared memory per block);
- 11. K2-v1 (the whole AMP stage in one launch) against its plain version
-     at the two flagship widths it holds (C = 48 and 24), at a codec
-     request's lengths and at a streaming window's (the path that
-     launches it), float32 and bfloat16, ragged lengths and widths, its
-     refusal of a wider stage, and its time beside K2's and the plain
-     version's at both; K2 in v1 mode (what `use_v2=False` runs at the
+ 11. K2-v1 (the whole AMP stage in one launch; bf16 on the tensor cores
+     in clusters of 8 CTAs, float32 on the CUDA cores) against its plain
+     version at the two flagship widths it holds (C = 48 and 24), at a
+     codec request's lengths and at a streaming window's (the path that
+     launches it), float32 and bfloat16, ragged lengths and widths (C = 5,
+     7, 40 in both dtypes), its refusal of a wider stage, its launch (grid,
+     threads, shared memory, cluster), and its time beside K2's in v1 mode
+     (the same contract, 18 launches) and v2 mode and the plain version's
+     at both; K2 in v1 mode (what `use_v2=False` runs at the
      wider fused stages) against the same plain version at s2 (C = 192)
      and s3 (C = 96), and its time beside K2's v2 mode; K1 and K2 timed at
      the window's shapes too;
- 12. window invariance of K1, K2 and K2-v1 in float32, and of K2 in bf16
-     at three widths: a kernel run on a slice of the signal gives the bits
+ 12. window invariance of K1, K2 and K2-v1 in float32, of K1 and K2-v1 in
+     bf16 and of K2 in bf16 at three widths: a kernel run on a slice of the
+     signal gives the bits
      of its run on the whole signal, beyond its receptive field from the
      cuts;
  13. the streaming path at full width (models/streaming.py): chunked
@@ -447,13 +455,13 @@ def main() -> None:
     from dmel_codec_tpu_torch.models.bigvgan import AMPBlock1, BigVGAN, BigVGANConfig, FusedBigVGAN
     from dmel_codec_tpu_torch.models.codec import DMelCodec, DMelCodecConfig
     from dmel_codec_tpu_torch.models import streaming
-    from dmel_codec_tpu_torch.ops import library
+    from dmel_codec_tpu_torch.ops import anti_alias, library
     from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation, anti_alias_activation_reference
     from dmel_codec_tpu_torch.ops.stage_fused import (
         V1_MAX_CHANNELS, StageSpec, act_conv, act_conv_reference, amp_stage, amp_stage_v1, conv_site, pack_stage,
-        stage_reference, stage_reference_v1,
+        stage_reference, stage_reference_v1, v1_launch_config,
     )
-    from dmel_codec_tpu_torch.probes import act_variants, cf_act, stage_parts, sublane_ops
+    from dmel_codec_tpu_torch.probes import act_variants, cf_act, k1_floor, stage_parts, sublane_ops
     from dmel_codec_tpu_torch.train.codec_trainer import CodecTrainConfig, CodecTrainer
     from dmel_codec_tpu_torch.train.checkpoint import CheckpointManager
     from dmel_codec_tpu_torch.train.lm_trainer import LMTrainConfig, LMTrainer
@@ -534,6 +542,37 @@ def main() -> None:
             if dt == torch.float32:
                 errs["K1"] = max(errs["K1"], e)
             del got, want
+
+    # ragged lengths, every T up to 64 (a row shorter than a lane's run, a
+    # unit, the halo), and x at an offset that is no 16-byte boundary (the
+    # kernel's head and tail path, element by element)
+    for t_len in range(1, 65):
+        alpha = 0.3 * torch.randn(3, device=dev, generator=gen)
+        x32 = torch.randn((2, 3, t_len), device=dev, generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            got = anti_alias_activation(x32.to(dt), alpha, alpha, True)
+            want = anti_alias_activation_reference(x32.to(dt), alpha, alpha, True)
+            scale = max(1.0, want.float().abs().max().item())
+            assert max_err(got, want) <= TOL[("K1", dt)] * scale, (t_len, dt, max_err(got, want))
+    log("  T = 1..64 [2, 3, T], float32 and bf16: within tolerance")
+    flat = torch.randn(3 * 7 * 1000 + 8, device=dev, generator=gen)
+    for off in (1, 3):
+        alpha = 0.3 * torch.randn(7, device=dev, generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            x = flat.to(dt)[off: off + 3 * 7 * 1000].view(3, 7, 1000)
+            e = check_close(f"x at element offset {off} [3, 7, 1000] {dt}", anti_alias_activation(x, alpha, None, True),
+                            anti_alias_activation_reference(x, alpha, None, True), TOL[("K1", dt)])
+            if dt == torch.float32:
+                errs["K1"] = max(errs["K1"], e)
+    k1_sin_bad = anti_alias.sin_replica_mismatches()
+    log(f"  K1's sinf without conversions against sinf, every float below 105615: {k1_sin_bad} differ beyond the sign")
+    assert k1_sin_bad == 0, k1_sin_bad
+    k1_launch = anti_alias.launch_config(torch.empty(k1_shapes["s1"], device=dev, dtype=torch.bfloat16).normal_(),
+                                         torch.zeros(k1_shapes["s1"][1], device=dev))
+    log(f"  launch at s1 {list(k1_shapes['s1'])} bf16: grid {k1_launch['grid']} blocks of {k1_launch['threads']} threads, "
+        f"{k1_launch['smem_bytes']} bytes of shared memory, {k1_launch['units_per_row']} units of "
+        f"{32 * anti_alias.RUN} per row in tasks of {k1_launch['units_per_task']}, 16-byte vectors "
+        f"{bool(k1_launch['vec'])}")
 
     # ---- 4. K2 vs plain: every fused width at B = 2, then ragged shapes
     # (T not a multiple of the 128-sample tile, C not a multiple of the
@@ -673,9 +712,12 @@ def main() -> None:
         request_kernels = {}
         profile_once("one request", lambda: vocoder(mid(*front(audio))), kernels=request_kernels)
     tc_names = [name for name in request_kernels if "act_conv_tc_kernel" in name]
-    if request_kernels:  # the profiler recorded device time: it must name the tensor-core kernel
+    k1_names = [name for name in request_kernels if "anti_alias_kernel" in name]
+    if request_kernels:  # the profiler recorded device time: it must name K1's kernel and K2's tensor-core kernel
         assert tc_names and not any("act_conv_kernel" in name for name in request_kernels), list(request_kernels)
+        assert k1_names, list(request_kernels)
         log(f"  profiled K2: {sum(request_kernels[n] for n in tc_names):.2f} ms in {tc_names[0][:60]}")
+        log(f"  profiled K1: {sum(request_kernels[n] for n in k1_names):.2f} ms in {k1_names[0][:60]}")
     with torch.no_grad():
         # the vocoder stage by stage (each fed its real input), summing to its total
         x = vocoder.pre(gen_mel)
@@ -715,11 +757,17 @@ def main() -> None:
     log(f"  per request: K1 {ms['K1']:.3f} ms vs plain {plain_ms['K1']:.3f} ms; "
         f"K2 {ms['K2']:.3f} ms vs plain {plain_ms['K2']:.3f} ms (float32 on the CUDA cores {ms['K2 float32']:.3f} ms)")
     log("  K2 bf16 by part (the tensor-core kernel with parts removed; ms per stage):")
-    k2_parts = {}
+    k2_parts, v1_parts = {}, {}
     for (what, *shape), row in stage_parts.main().items():
+        # K2: per request and per window; K2-v1: per dtype and request / window (s4 + s5)
+        key, table = ((what.split()[2] + " " + what.split()[1], v1_parts) if what.startswith("K2-v1")
+                      else (what.split()[0], k2_parts))
         for part, v in row.items():
-            k2_parts.setdefault(what.split()[0], {}).setdefault(part, 0.0)
-            k2_parts[what.split()[0]][part] += v
+            table.setdefault(key, {}).setdefault(part, 0.0)
+            table[key][part] += v
+    log("  K2-v1 by part (ms per s4 + s5): " + "; ".join(
+        f"{k}: " + ", ".join(f"{p} {v:.3f}" for p, v in row.items()) for k, row in v1_parts.items()))
+    k1_issue = k1_floor.main()
 
     # ---- 6. stage-wise kernel vs plain, float32, same input per stage
     log("stage-wise vocoder error, float32, kernel vs plain on the same input:")
@@ -949,10 +997,11 @@ def main() -> None:
                  for i in (s4, s5)]
     v1_cases += [(f"ragged T = {t_len}", stage_packs[s5], (b, 24, t_len), (torch.float32, torch.bfloat16))
                  for b, t_len in ((1, 1), (3, 37), (2, 50), (2, 700), (1, 1000))]
-    v1_cases += [("ragged C = 5", random_pack(5), (1, 5, 700), (torch.float32,)),
-                 ("ragged C = 7", random_pack(7), (3, 7, 37), (torch.float32,)),
-                 ("ragged C = 40", random_pack(40), (1, 40, 1000), (torch.float32,))]
-    errs["K2-v1"] = 0.0
+    v1_cases += [("ragged C = 5", random_pack(5), (1, 5, 700), (torch.float32, torch.bfloat16)),
+                 ("ragged C = 7", random_pack(7), (3, 7, 37), (torch.float32, torch.bfloat16)),
+                 ("ragged C = 40", random_pack(40), (1, 40, 1000), (torch.float32, torch.bfloat16)),
+                 ("ragged C = 40, two clusters", random_pack(40), (1, 40, 9000), (torch.bfloat16,))]
+    errs["K2-v1"] = errs["K2-v1 bf16"] = 0.0
     for name, (spec, packed), shape, dts in v1_cases:
         x32 = torch.randn(shape, device=dev, generator=gen)
         for dt in dts:
@@ -961,9 +1010,17 @@ def main() -> None:
             torch.cuda.synchronize()
             want = stage_reference_v1(x, packed, spec)
             e = check_close(f"{name} {list(shape)} {dt}", got, want, TOL[("K2-v1", dt)])
-            if dt == torch.float32:
-                errs["K2-v1"] = max(errs["K2-v1"], e)
+            key = "K2-v1" if dt == torch.float32 else "K2-v1 bf16"
+            errs[key] = max(errs[key], e)
             del got, want
+    v1_launch = {}
+    for i in (s4, s5):
+        spec, packed = stage_packs[i]
+        cfg = v1_launch_config(torch.randn((1, *win_shapes[i]), device=dev, generator=gen).bfloat16(), packed, spec)
+        v1_launch[f"s{i}"] = cfg
+        log(f"  bf16 launch at a window's s{i} [1, {spec.channels}, {win_shapes[i][1]}]: grid {cfg['grid']} in clusters of "
+            f"{cfg['cluster']}, {cfg['threads']} threads and {cfg['smem_bytes']} bytes of shared memory a block, "
+            f"{cfg['tile']} columns a block")
     # K2 in v1 mode: what FusedBigVGAN(use_v2=False) runs at the fused stages
     # wider than K2-v1 takes (route "K2/v1"), held against K2-v1's plain version
     log("K2 in v1 mode (route K2/v1) vs plain (stage_reference_v1):")
@@ -1003,9 +1060,10 @@ def main() -> None:
     else:
         raise AssertionError("amp_stage_v1 took a stage wider than V1_MAX_CHANNELS")
     # times at a codec request's shapes (B = 16), then at a streaming
-    # window's (B = 1), which is what the path that launches K2-v1 gives it
-    v1_request = {"K2-v1": 0.0, "K2": 0.0, "plain": 0.0}
-    v1_window = {"K2-v1": 0.0, "K2": 0.0, "plain": 0.0}
+    # window's (B = 1), which is what the path that launches K2-v1 gives it;
+    # beside K2 in v1 mode (the same contract in 18 launches) and in v2 mode
+    v1_request = {"K2-v1": 0.0, "K2 v1 mode": 0.0, "K2": 0.0, "plain": 0.0}
+    v1_window = {"K2-v1": 0.0, "K2 v1 mode": 0.0, "K2": 0.0, "plain": 0.0}
     with torch.no_grad():
         for what, bsz, shp, total in (("request", BATCH, shapes, v1_request), ("window", 1, win_shapes, v1_window)):
             for i in (s4, s5):
@@ -1013,16 +1071,19 @@ def main() -> None:
                 c, t_len = shp[i]
                 x = torch.randn((bsz, c, t_len), device=dev, generator=gen).to(torch.bfloat16)
                 t_v1 = [cuda_ms(lambda: amp_stage_v1(x, packed, spec), 3)]
+                t_k2v1 = cuda_ms(lambda: amp_stage(x, packed, spec, v1=True), 3)
                 t_k2 = cuda_ms(lambda: amp_stage(x, packed, spec), 3)
                 t_v1.append(cuda_ms(lambda: amp_stage_v1(x, packed, spec), 3))
                 t_plain = cuda_ms(lambda: stage_reference_v1(x, packed, spec), 3)
                 log(f"  {what} s{i} [{bsz}, {c}, {t_len}] bf16: K2-v1 {t_v1[0]:.3f} / {t_v1[1]:.3f} ms (1 launch), "
-                    f"K2 {t_k2:.3f} ms (18 launches), plain {t_plain:.3f} ms")
+                    f"K2 in v1 mode {t_k2v1:.3f} ms and v2 mode {t_k2:.3f} ms (18 launches each), plain {t_plain:.3f} ms")
                 total["K2-v1"] += sum(t_v1) / 2
+                total["K2 v1 mode"] += t_k2v1
                 total["K2"] += t_k2
                 total["plain"] += t_plain
         for what, total in (("request", v1_request), ("window", v1_window)):
-            log(f"  s{s4} + s{s5} per {what}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in total.items()))
+            log(f"  s{s4} + s{s5} per {what}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in total.items())
+                + f"; K2-v1 / K2 in v1 mode {total['K2-v1'] / total['K2 v1 mode']:.3f}")
         ms["K2-v1"], plain_ms["K2-v1"] = v1_window["K2-v1"], v1_window["plain"]
 
         # K1 and K2 at the window's shapes, as the streaming path launches them
@@ -1049,22 +1110,28 @@ def main() -> None:
         f"K2 {win_ms['K2']:.3f} ms vs plain {win_plain_ms['K2']:.3f} ms")
 
     # ---- 12. window invariance
-    log("window invariance, float32 (and bf16 for K2): a kernel on x[:, :, 777:3001] against that region of its run on x "
-        "(beyond its reach from the cuts); expected: the same bits")
+    log("window invariance, float32 (and bf16 for K1, K2 and K2-v1): a kernel on x[:, :, 777:3001] against that region "
+        "of its run on x (beyond its reach from the cuts); expected: the same bits")
     cut_a, cut_b = 777, 3001
     alpha24 = 0.3 * torch.randn(24, device=dev, generator=gen)
-    inv_cases = [("K1", 24, 6, lambda v: anti_alias_activation(v, alpha24, alpha24, True))]
+    inv_cases = [("K1", 24, 6, lambda v: anti_alias_activation(v, alpha24, alpha24, True)),
+                 ("K1 bf16", 24, 6, lambda v: anti_alias_activation(v.bfloat16(), alpha24, alpha24, True))]
     for i in (s5, s4):
         spec, packed = stage_packs[i]
         inv_cases += [(f"K2 C = {spec.channels}", spec.channels, spec.receptive,
                        lambda v, sp=spec, pk=packed: amp_stage(v, pk, sp)),
                       (f"K2-v1 C = {spec.channels}", spec.channels, spec.receptive,
                        lambda v, sp=spec, pk=packed: amp_stage_v1(v, pk, sp))]
-    # bf16: K2's tensor-core kernel at s5, s4 and s2 (its tiles start at other samples on the slice)
+    # bf16: K2's tensor-core kernel at s5, s4 and s2 (its tiles start at other samples on the slice),
+    # K2-v1's cluster kernel at s5 and s4
     for i in (s5, s4, s2):
         spec, packed = stage_packs[i]
         inv_cases += [(f"K2 bf16 C = {spec.channels}", spec.channels, spec.receptive,
                        lambda v, sp=spec, pk=packed: amp_stage(v.bfloat16(), pk, sp))]
+    for i in (s5, s4):
+        spec, packed = stage_packs[i]
+        inv_cases += [(f"K2-v1 bf16 C = {spec.channels}", spec.channels, spec.receptive,
+                       lambda v, sp=spec, pk=packed: amp_stage_v1(v.bfloat16(), pk, sp))]
     for name, c, reach, fn in inv_cases:
         x = torch.randn((2, c, 5000), device=dev, generator=gen)
         whole, part = fn(x), fn(x[:, :, cut_a:cut_b].contiguous())
@@ -1998,7 +2065,14 @@ def main() -> None:
          "max_abs_err": errs["K1"], "ms": ms["K1"], "plain_ms": plain_ms["K1"],
          "bound_ms": bounds["K1"][0], "bound_by": bounds["K1"][1], "library_ms": None,
          "per": f"codec request ({want_k1} launches)",
-         "window_ms": win_ms["K1"], "window_plain_ms": win_plain_ms["K1"]},
+         "window_ms": win_ms["K1"], "window_plain_ms": win_plain_ms["K1"],
+         "issue_floor_ms": k1_issue["request_ms"], "issue_floor_window_ms": k1_issue["window_ms"],
+         "issue_per_output": k1_issue["per_output"], "sin_replica_mismatches": k1_sin_bad,
+         "design": "a warp per unit of 256 outputs of a row (8 a lane) in a grid-stride loop, 4 blocks of 256 "
+                   "threads an SM; 16-byte loads (the next unit's while this one computes) and stores on the row's "
+                   "aligned body; up FIRs, snakes and down FIR from register windows with neighbours' values by "
+                   "shuffles; sinf's reduction and polynomials without its float<->int conversions; the parent's bits",
+         "launch": k1_launch},
         {"name": "amp_stage act->conv (K2)", "route": "cuda", "source": K2_TC_SOURCE,
          "replaces": "dmel_codec_tpu/ops/stage_fused.py:806", "launches": launches["K2"],
          "max_abs_err": errs["K2 bf16"], "ms": ms["K2"], "plain_ms": plain_ms["K2"],
@@ -2066,7 +2140,16 @@ def main() -> None:
          "bound_ms": bounds["K2-v1"][0], "bound_by": bounds["K2-v1"][1], "library_ms": None,
          "per": f"s{s4} + s{s5} of one streaming window, B = 1 x {VOCODE_CHUNK + 2 * VOCODE_HALO} frames "
                 f"(2 launches); launches: the {LONG_MINUTES}-minute chunked_vocode with use_v2=False",
-         "k2_same_ms": v1_window["K2"], "request_ms": v1_request["K2-v1"], "request_k2_same_ms": v1_request["K2"],
+         "k2_same_ms": v1_window["K2"], "k2_v1_mode_same_ms": v1_window["K2 v1 mode"],
+         "request_ms": v1_request["K2-v1"], "request_k2_same_ms": v1_request["K2"],
+         "request_k2_v1_mode_same_ms": v1_request["K2 v1 mode"], "max_abs_err_bf16": errs["K2-v1 bf16"],
+         "parts_ms": v1_parts, "launch": {k_: {kk: list(vv) if isinstance(vv, tuple) else vv for kk, vv in v_.items()}
+                                          for k_, v_ in v1_launch.items()},
+         "design": "bf16: a cluster of 8 CTAs of 512 threads owns 8 adjacent tiles (W = 256 columns at C = 48, 512 "
+                   "at C <= 32) and pulls its neighbours' edge columns through distributed shared memory after each "
+                   "of the 36 operations; convs on wgmma m64nNk16 over a bf16 plane in the no-swizzle K-major "
+                   "layout (taps as descriptor offsets), each conv's weights by one bulk copy; float32: one CTA "
+                   "per tile on the CUDA cores, its receptive field recomputed",
          "request_plain_ms": v1_request["plain"], "request_bound_ms": max(v1_request_bound.values())},
         {"name": "run_variant (K1 ablation probe)", "route": "cuda", "source": K1_SOURCE,
          "replaces": "scripts/exp_act_variants.py:173", "launches": launches["probe"],

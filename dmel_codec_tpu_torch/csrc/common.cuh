@@ -132,4 +132,32 @@ __device__ __forceinline__ float down(const float* e, const float* o, Taps tp) {
   return acc;
 }
 
+// up_even / up_odd (the same sums in the same order) on a register window
+// w[j] = x at the time of position q + j - 5 (even: q + 5 - i, odd: q + 6 - i).
+template <int W>
+__device__ __forceinline__ float up_even_w(const float (&w)[W], int q, const Taps& tp) {
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) acc += tp.f[2 * i + 1] * w[q + 5 - i];
+  return 2.f * acc;
+}
+
+template <int W>
+__device__ __forceinline__ float up_odd_w(const float (&w)[W], int q, const Taps& tp) {
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) acc += tp.f[2 * i] * w[q + 6 - i];
+  return 2.f * acc;
+}
+
+// down (the same sum in the same order) at output q of register windows
+// e[j] = v_e at q + j - 2, o[j] = v_o at q + j - 3 (relative to output q = 0).
+template <int W>
+__device__ __forceinline__ float down_w(const float (&e)[W], const float (&o)[W], int q, const Taps& tp) {
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) acc += tp.f[2 * i + 1] * e[q + i] + tp.f[2 * i] * o[q + i];
+  return acc;
+}
+
 }  // namespace dmel

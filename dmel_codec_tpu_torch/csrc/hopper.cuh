@@ -2,8 +2,9 @@
 // through shared memory: mbarriers, TMA (tensor-map boxes and 1-D bulk
 // copies), wgmma's shared-memory matrix descriptors and the asynchronous
 // warpgroup product wgmma.mma_async (m64nNk16, bf16 operands, float32 sums)
-// for the widths the kernels use. Used by P4 (probes.cu) and K2's bf16
-// kernel (stage_fused_tc.cu). sm_90a only.
+// for the widths the kernels use, and cluster barriers and peer reads. Used
+// by P4 (probes.cu), K2's bf16 kernel (stage_fused_tc.cu) and K2-v1's
+// (stage_fused_v1.cu). sm_90a only.
 #pragma once
 
 #include <cuda.h>
@@ -355,6 +356,37 @@ __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_grou
 template <int PENDING>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Thread-block clusters: this CTA's rank and the cluster's size, a barrier
+// of all threads of the cluster (release / acquire: shared-memory writes
+// before it are seen by the peers' reads after it), and 16-byte reads of a
+// peer CTA's shared memory at the address that is `addr` in this CTA.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint4 ld_peer(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 }  // namespace dmel

@@ -150,25 +150,6 @@ __device__ __forceinline__ void load_chunk(float (&xr)[XR], const void* src, int
   }
 }
 
-// up_even / up_odd of common.cuh (the same sums in the same order) on a
-// register window w[j] = x at the time of position q + j - 5 (even: q + 5 -
-// i, odd: q + 6 - i).
-template <int W>
-__device__ __forceinline__ float up_even_w(const float (&w)[W], int q, const dmel::Taps& tp) {
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) acc += tp.f[2 * i + 1] * w[q + 5 - i];
-  return 2.f * acc;
-}
-
-template <int W>
-__device__ __forceinline__ float up_odd_w(const float (&w)[W], int q, const dmel::Taps& tp) {
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) acc += tp.f[2 * i] * w[q + 6 - i];
-  return 2.f * acc;
-}
-
 template <int N>
 __global__ void __launch_bounds__(TcCfg<N>::kThreads, TcCfg<N>::kBlocksPerSM)
 act_conv_tc_kernel(const void* __restrict__ src, int src_bf16, const __nv_bfloat16* __restrict__ w,
@@ -250,8 +231,8 @@ act_conv_tc_kernel(const void* __restrict__ src, int src_bf16, const __nv_bfloat
           if (ts < 0 || ts >= T) {  // the post-snake edge rules
             dmel::snake_phases(xc, xbase, ts, T, taps, a_c, ib_c, plane_bf16, e, o);
           } else {
-            e = dmel::round_to(dmel::snake(up_even_w(wx, q, taps), a_c, ib_c), plane_bf16);
-            o = dmel::round_to(dmel::snake(up_odd_w(wx, q, taps), a_c, ib_c), plane_bf16);
+            e = dmel::round_to(dmel::snake(dmel::up_even_w(wx, q, taps), a_c, ib_c), plane_bf16);
+            o = dmel::round_to(dmel::snake(dmel::up_odd_w(wx, q, taps), a_c, ib_c), plane_bf16);
           }
           ec[s] = e;
           oc[s] = o;

@@ -21,7 +21,8 @@ VJP differentiates its oracle.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -56,7 +57,41 @@ def anti_alias_activation_reference(
     return activation_chain(x.float(), snake_fn, x.dtype == torch.bfloat16).to(x.dtype)
 
 
-def _launch(x, alpha, beta, logscale: bool) -> torch.Tensor:
+# K1's launch plan (csrc/anti_alias.cu): a warp takes units of UNIT
+# outputs of one row, RUN per lane; a row's units start at its first
+# sample on a 16-byte boundary (`head`), with one unit more before it
+# (`lead`) when rows are not all aligned. `k1_plan` mirrors the kernel's
+# arithmetic for the tests.
+RUN = 8
+UNIT = 32 * RUN
+
+
+def k1_plan(t: int, itemsize: int, x0: int = 0, vec: bool = True) -> Tuple[int, int]:
+    """(units per row, lead) of a launch on rows of `t` samples of
+    `itemsize` bytes, x at element address `x0`; `vec` = False (x and y
+    of another 16-byte phase) goes element by element from sample 0."""
+    lead = int(vec and ((x0 * itemsize) % 16 != 0 or (t * itemsize) % 16 != 0))
+    return -(-t // UNIT) + lead, lead
+
+
+def k1_row_units(t: int, itemsize: int, x0: int, row: int, vec: bool = True) -> List[Tuple[int, List[Tuple[int, bool]]]]:
+    """The units the kernel computes on row `row`: [(first output, [(a
+    lane's first output, whether its 16 samples go as 16-byte vectors)])],
+    units wholly outside [0, t) left out."""
+    n_units, lead = k1_plan(t, itemsize, x0, vec)
+    ve = 16 // itemsize
+    head = (ve - (x0 + row * t) % ve) % ve if vec else 0
+    out = []
+    for k in range(n_units):
+        seg = head + (k - lead) * UNIT
+        if seg + UNIT <= 0 or seg >= t:
+            continue
+        out.append((seg, [(seg + RUN * lane, vec and seg + RUN * lane >= 0 and seg + RUN * lane + RUN <= t)
+                          for lane in range(32)]))
+    return out
+
+
+def _launch(x, alpha, beta, logscale: bool, config=None) -> torch.Tensor:
     lib = library.load()
     library.check_plane(x)
     b, c, t = x.shape
@@ -65,11 +100,32 @@ def _launch(x, alpha, beta, logscale: bool) -> torch.Tensor:
     y = torch.empty_like(x)
     rc = lib.dmel_anti_alias(
         x.data_ptr(), y.data_ptr(), a.data_ptr(), None if bt is None else bt.data_ptr(),
-        int(logscale), param_bf16, b, c, t, int(bf16), library.taps(FILT_BF16 if bf16 else FILT), library.stream(x),
+        int(logscale), param_bf16, b, c, t, int(bf16), library.taps(FILT_BF16 if bf16 else FILT), config,
+        library.stream(x),
     )
     library.check(lib, rc, "dmel_anti_alias")
     anti_alias_activation.launches += 1
     return y
+
+
+def launch_config(x: torch.Tensor, alpha: torch.Tensor, beta: Optional[torch.Tensor] = None) -> dict:
+    """One K1 launch on x, and what it ran as: grid, threads, shared memory
+    per block, units per row, lead, whether it used 16-byte vectors, and
+    units per warp task."""
+    cfg = (ctypes.c_int * 7)()
+    _launch(x, alpha, beta, True, cfg)
+    keys = ("grid", "threads", "smem_bytes", "units_per_row", "lead", "vec", "units_per_task")
+    return dict(zip(keys, list(cfg)))
+
+
+def sin_replica_mismatches(device: str = "cuda") -> int:
+    """The floats below 105615 where the kernel's sinf without conversions
+    (csrc/anti_alias.cu sin_reduced) and sinf differ beyond the sign, all
+    2^32 of them visited on the card; 0 is the kernel's premise."""
+    lib = library.load()
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    library.check(lib, lib.dmel_sin_check(bad.data_ptr(), library.stream(bad)), "dmel_sin_check")
+    return int(bad.item())
 
 
 class _AntiAlias(torch.autograd.Function):

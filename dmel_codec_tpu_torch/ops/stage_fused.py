@@ -17,7 +17,9 @@ plain version `stage_reference_v1`): the JAX `fused_amp_stage`
 (`use_v2=False`) at stages wider than K2-v1 takes.
 `amp_stage_v1` is the same function as one launch per stage (kernel K2-v1,
 csrc/stage_fused_v1.cu; the JAX `fused_amp_stage`, `use_v2=False`), for
-C <= V1_MAX_CHANNELS; its plain version is `stage_reference_v1`.
+C <= V1_MAX_CHANNELS: a bf16 stage on the tensor cores in clusters of
+V1_CLUSTER CTAs (`v1_tc_plan`), a float32 one on the CUDA cores
+(`v1_tile`); its plain version is `stage_reference_v1`.
 
 bf16 contracts. K2 (the JAX v2 kernel's, stage_fused.py:398-403, 500-519):
 the activation's input, its 12 taps, the snake's output v (before the down
@@ -398,7 +400,7 @@ def act_conv(
 
 # ---- K2-v1: the whole stage in one launch -----------------------------------
 
-V1_MAX_CHANNELS = 48  # widest stage whose three float32 planes and halo fit a block
+V1_MAX_CHANNELS = 48  # widest stage whose planes and halo fit a block (float32: three planes; bf16: N <= 48)
 
 
 def v1_tile(c: int, spec: StageSpec, scratch_floats: int, smem_bytes: int) -> int:
@@ -412,35 +414,94 @@ def v1_tile(c: int, spec: StageSpec, scratch_floats: int, smem_bytes: int) -> in
     return min(w // 4 * 4, 1024)
 
 
+# The bf16 kernel's plan (csrc/stage_fused_v1.cu, stage_v1_tc_kernel): a
+# cluster of V1_CLUSTER CTAs, each owning W columns (a multiple of 256: 64
+# rows for each of 4 warpgroups); halo widths as the kernel's TC_XH, TC_PA,
+# and its activation scratch (16 warps x 2 x 136 floats).
+V1_CLUSTER = 8
+_TC_XH, _TC_PA, _TC_SCR_BYTES = 8, 32, 4 * 16 * 2 * 136
+
+
+def _align128(v: int) -> int:
+    return (v + 127) // 128 * 128
+
+
+def v1_tc_bytes(c: int, kp: int, n: int, w: int, kmax: int) -> int:
+    """Shared memory of a bf16 K2-v1 block (the kernel's v1tc_layout): the
+    float32 xb and t planes of W + 16 columns, the bf16 conv input of W + 64
+    rows x KP channels, one conv's weights, the activation scratch, the
+    mbarrier and the base's alignment."""
+    lw, ra = w + 2 * _TC_XH, w + 2 * _TC_PA
+    return (2 * _align128(4 * c * lw) + _align128(2 * kp * ra) + _align128(2 * kmax * kp * n)
+            + _TC_SCR_BYTES + 16 + 128)
+
+
+def v1_tc_plan(c: int, spec: StageSpec, smem_bytes: int) -> Tuple[int, int, int]:
+    """(N, KP, W) of the bf16 kernel: N and KP as K2's `tc_plan` (C rounded
+    up to a wgmma width, and to 16), W the most columns a multiple of 256
+    (at most 1024) whose block fits `smem_bytes`; 0 if none does."""
+    n, _, kp, _ = tc_plan(c)
+    kmax = max(spec.kernel_sizes)
+    w = max((w for w in (256, 512, 768, 1024) if v1_tc_bytes(c, kp, n, w, kmax) <= smem_bytes), default=0)
+    return n, kp, w
+
+
+def v1_tc_tiles(t: int, w: int, g: int, reach: int) -> list:
+    """The bf16 kernel's tiling of [0, t), as (cluster window start,
+    window length, [(CTA's first stored column, its last + 1)]) per
+    cluster: a cluster stores S = g w - 2 reach columns from its start,
+    computes R more on each side (clipped to [0, t)), CTA r owns window
+    columns [r w, r w + w)."""
+    s = g * w - 2 * reach
+    out = []
+    for t0 in range(0, t, s):
+        wlo = max(t0 - reach, 0)
+        n = min(t0 + s + reach, t) - wlo
+        coff, nc = t0 - wlo, min(s, t - t0)
+        stored = [(wlo + max(r * w, coff), wlo + min(r * w + w, coff + nc)) for r in range(g)]
+        out.append((wlo, n, [(lo, hi) for lo, hi in stored if lo < hi]))
+    return out
+
+
 def _v1_args(x: torch.Tensor, packed: dict, spec: StageSpec, lib) -> dict:
     """What a K2-v1 launch needs besides x, made once per dtype and device
     and kept in `packed` (a snapshot of the weights, like `packed` itself):
-    the weights in the kernel's layout, the float32 columns, the tile plan
-    and the spec as C arrays."""
+    the weights in the kernel's layout (float32: [k][C_in][C_out padded to
+    8]; bf16: `tc_weights`'), the float32 columns, the tile plan and the
+    spec as C arrays."""
     key = ("v1", x.dtype, x.device)
     if key not in packed:
         ws, cols, _ = _kernel_args(packed, spec, x.dtype, x.device)
         c = spec.channels
-        scratch = lib.dmel_stage_v1_scratch_floats()
-        tile = v1_tile(c, spec, scratch, lib.dmel_stage_v1_smem_bytes())
-        cp = -(-c // 8) * 8
-        ci_chunk = min(c, scratch // (max(spec.kernel_sizes) * cp))
         max_d = max(len(d) for d in spec.dilations)
-        if tile < 4 or ci_chunk < 1 or len(spec.kernel_sizes) > 8 or max_d > 8:
-            raise ValueError(f"K2-v1 cannot hold {spec} in one block's shared memory")
+        if len(spec.kernel_sizes) > 8 or max_d > 8:
+            raise ValueError(f"K2-v1 takes at most 8 resblocks of at most 8 dilations, got {spec}")
         ints = ctypes.c_int * len(spec.kernel_sizes)
         dils = [d for row in spec.dilations for d in (*row, *([0] * (max_d - len(row))))]
-        packed[key] = {
+        args = {**cols, "max_d": max_d, "ks": ints(*spec.kernel_sizes), "n_dils": ints(*map(len, spec.dilations)),
+                "dils": (ctypes.c_int * len(dils))(*dils), "taps": library.taps(FILT)}
+        if x.dtype == torch.bfloat16:
+            n, kp, tile = v1_tc_plan(c, spec, lib.dmel_stage_v1_smem_bytes())
+            if tile == 0 or spec.conv_reach > _TC_PA:
+                raise ValueError(f"K2-v1 cannot hold {spec} in one block's shared memory")
+            args.update(w=tc_weights(ws, c)[0], n=n, kp=kp, tile=tile)
+        else:
+            scratch = lib.dmel_stage_v1_scratch_floats()
+            tile = v1_tile(c, spec, scratch, lib.dmel_stage_v1_smem_bytes())
+            cp = -(-c // 8) * 8
+            ci_chunk = min(c, scratch // (max(spec.kernel_sizes) * cp))
+            if tile < 4 or ci_chunk < 1:
+                raise ValueError(f"K2-v1 cannot hold {spec} in one block's shared memory")
             # [k, out, in] -> [k, in, out padded to a multiple of 8], one after another
-            "wt": torch.cat([F.pad(w.transpose(1, 2), (0, cp - c)).reshape(-1) for w in ws]),
-            **cols, "tile": tile, "ci_chunk": ci_chunk, "max_d": max_d,
-            "ks": ints(*spec.kernel_sizes), "n_dils": ints(*map(len, spec.dilations)),
-            "dils": (ctypes.c_int * len(dils))(*dils), "taps": library.taps(FILT),
-        }
+            args.update(w=torch.cat([F.pad(w.transpose(1, 2), (0, cp - c)).reshape(-1) for w in ws]),
+                        tile=tile, ci_chunk=ci_chunk)
+        packed[key] = args
     return packed[key]
 
 
-def _run_kernel_v1(x: torch.Tensor, packed: dict, spec: StageSpec) -> torch.Tensor:
+def _run_kernel_v1(x: torch.Tensor, packed: dict, spec: StageSpec, parts: int = 3, config=None) -> torch.Tensor:
+    """One K2-v1 launch: bf16 on the tensor cores, float32 on the CUDA
+    cores. `parts` < 3 drops parts of it (probes/stage_parts.py)."""
     if x.dim() == 3 and x.shape[1] > V1_MAX_CHANNELS:
         raise ValueError(
             f"K2-v1 holds a whole stage in shared memory and takes at most "
@@ -453,16 +514,31 @@ def _run_kernel_v1(x: torch.Tensor, packed: dict, spec: StageSpec) -> torch.Tens
         raise ValueError(f"batch {bsz} must fit the launch grid (65535)")
     a = _v1_args(x, packed, spec, lib)
     y = torch.empty_like(x)
-    rc = lib.dmel_stage_v1(
-        x.data_ptr(), a["wt"].data_ptr(), a["b"].data_ptr(), a["a"].data_ptr(),
-        a["ib"].data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),
-        bsz, c, t, a["tile"], spec.receptive, spec.conv_reach, a["ci_chunk"],
-        len(spec.kernel_sizes), a["ks"], a["n_dils"], a["dils"], a["max_d"], a["taps"],
-        library.stream(x),
-    )
-    library.check(lib, rc, "dmel_stage_v1")
+    blocks = (len(spec.kernel_sizes), a["ks"], a["n_dils"], a["dils"], a["max_d"], a["taps"], parts)
+    cols = (a["b"].data_ptr(), a["a"].data_ptr(), a["ib"].data_ptr())
+    if x.dtype == torch.bfloat16:
+        acc = torch.empty(x.shape, dtype=torch.float32, device=x.device)  # the running sum
+        rc = lib.dmel_stage_v1_tc(
+            x.data_ptr(), a["w"].data_ptr(), *cols, y.data_ptr(), acc.data_ptr(), a["n"], a["kp"],
+            bsz, c, t, a["tile"], spec.receptive, V1_CLUSTER, *blocks, config, library.stream(x),
+        )
+        library.check(lib, rc, "dmel_stage_v1_tc")
+    else:
+        rc = lib.dmel_stage_v1(
+            x.data_ptr(), a["w"].data_ptr(), *cols, y.data_ptr(), bsz, c, t, a["tile"], spec.receptive,
+            spec.conv_reach, a["ci_chunk"], *blocks, library.stream(x),
+        )
+        library.check(lib, rc, "dmel_stage_v1")
     amp_stage_v1.launches += 1
     return y
+
+
+def v1_launch_config(x: torch.Tensor, packed: dict, spec: StageSpec) -> dict:
+    """One bf16 K2-v1 launch on x, and what it ran as: grid, threads,
+    shared memory per block, cluster size and W."""
+    cfg = (ctypes.c_int * 6)()
+    _run_kernel_v1(x, packed, spec, config=cfg)
+    return {"grid": (cfg[0], cfg[1]), "threads": cfg[2], "smem_bytes": cfg[3], "cluster": cfg[4], "tile": cfg[5]}
 
 
 def amp_stage_v1(x: torch.Tensor, packed: dict, spec: StageSpec) -> torch.Tensor:

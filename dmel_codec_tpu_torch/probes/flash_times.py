@@ -1,8 +1,9 @@
 """Times of the redesigned kernels at their main-path shapes (the
 flash-attention kernels FA, FA-dKV and FA-dQ at the LM's shapes, P4 at the
-probe's 264 planes at C = 96 and 192, K2's bf16 stages s2..s5 of the
-flagship vocoder at a codec request's and a streaming window's shapes), and
-a same-card comparison of two checkouts.
+probe's 264 planes at C = 96 and 192, K2's bf16 stages s2..s5 and K2-v1's
+s4 and s5 of the flagship vocoder, and K1 at its three shapes, each at a
+codec request's and a streaming window's shapes), and a same-card
+comparison of two checkouts.
 
     python3 -m dmel_codec_tpu_torch.probes.flash_times              # this checkout
     python3 -m dmel_codec_tpu_torch.probes.flash_times --ab OTHER   # OTHER, this, this, OTHER
@@ -13,12 +14,16 @@ checkout's kernels from its own `csrc/` (into its `build/`), and times them
 through its `ops/flash_attention.py` (`_launch(q, k, v, with_lse)`,
 `flash_attention_dkv(q, k, v, grad, lse, delta)`, `flash_attention_dq(...)`),
 its `probes/sublane_ops.tap_matmul` (a width that checkout refuses is
-left out) and its `ops/stage_fused.amp_stage(x, packed, spec)`; the runs
+left out), its `ops/stage_fused.amp_stage(x, packed, spec)` and
+`amp_stage_v1(x, packed, spec)` and its
+`ops/anti_alias.anti_alias_activation(x, alpha, beta, logscale)`; the runs
 alternate so that a drift of the card shows as a difference between the
 two runs of one checkout. Each run also records what must not change, or
 must change by a stated amount: hashes of the float32 FA-dQ output at
-[2, 1024] and of the float32 K2 stage at a window's s3 (the same bits in
-every run: the float32 kernels are the same code), and the flagship
+[2, 1024], of the float32 K2 stage at a window's s3 and the float32 K2-v1
+stage at a window's s5 (the same bits in every run: the float32 kernels
+are the same code), and of K1 in float32 and bf16 at s1 and at a ragged
+shape (the same bits: K1's redesign keeps its sums), and the flagship
 vocoder's bf16 waveform on
 seeded random weights with spread snake parameters (written to the
 checkout's `build/ab_vocoder.pt`; the difference between the checkouts is
@@ -47,6 +52,12 @@ P4_WIDTHS, P4_PLANES = (96, 192), 264  # x [264, 2176, C] @ w [C, C], 11 taps of
 K2_CASES = tuple((f"{what} s{i}", b, c, frames * rate) for what, b, frames in (("request", 16, 372), ("window", 1, 560))
                  for i, c, rate in ((2, 192, 32), (3, 96, 64), (4, 48, 128), (5, 24, 256)))
 K2_BITS = ("window s3", 1, 96, 560 * 64)  # the float32 stage whose bits every run must share
+V1_CASES = tuple(case for case in K2_CASES if case[2] <= 48)  # K2-v1: s4 and s5
+V1_BITS = ("window s5", 1, 24, 560 * 256)
+# K1: (case, B, C, T) of act_post, s0 and s1 at a request's and a window's shapes
+K1_CASES = tuple((f"{what} {name}", b, c, frames * rate) for what, b, frames in (("request", 16, 372), ("window", 1, 560))
+                 for name, c, rate in (("act_post", 24, 256), ("s0", 768, 4), ("s1", 384, 16)))
+K1_BITS = (("s1", 2, 384, 5952), ("ragged", 3, 7, 1037))
 
 
 def time_here(root: Path, reps: int = 20) -> dict:
@@ -58,7 +69,8 @@ def time_here(root: Path, reps: int = 20) -> dict:
         raise SystemExit("flash_times: the probe times CUDA kernels and needs a GPU")
     sys.path.insert(0, str(root))
     from dmel_codec_tpu_torch.ops import flash_attention as fa
-    from dmel_codec_tpu_torch.ops.stage_fused import StageSpec, amp_stage
+    from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation
+    from dmel_codec_tpu_torch.ops.stage_fused import StageSpec, amp_stage, amp_stage_v1
     from dmel_codec_tpu_torch.probes import sublane_ops
 
     def cuda_ms(fn, n):  # CUDA events over n launches after one warm-up
@@ -112,6 +124,25 @@ def time_here(root: Path, reps: int = 20) -> dict:
             else:
                 y = amp_stage(x, packed, spec).cpu().numpy()
                 out[f"bits K2 float32 {name} {[b, c, t]}"] = hashlib.sha256(y.tobytes()).hexdigest()
+        for i, (name, b, c, t) in enumerate(V1_CASES + (V1_BITS,)):
+            spec, packed = StageSpec(channels=c), k2_pack(c, cpu)
+            x = torch.randn((b, c, t), generator=cpu).to("cuda")
+            if i < len(V1_CASES):
+                xb = x.bfloat16()
+                out[f"K2-v1 bf16 {name} {[b, c, t]} (1 launch)"] = cuda_ms(lambda: amp_stage_v1(xb, packed, spec), 3)
+            else:
+                y = amp_stage_v1(x, packed, spec).cpu().numpy()
+                out[f"bits K2-v1 float32 {name} {[b, c, t]}"] = hashlib.sha256(y.tobytes()).hexdigest()
+        for name, b, c, t in K1_CASES:
+            x = torch.randn((b, c, t), generator=cpu).to("cuda", torch.bfloat16)
+            alpha = (0.3 * torch.randn(c, generator=cpu)).to("cuda")
+            out[f"K1 bf16 {name} {[b, c, t]}"] = cuda_ms(lambda: anti_alias_activation(x, alpha, alpha, True), reps)
+        for name, b, c, t in K1_BITS:
+            x = torch.randn((b, c, t), generator=cpu).to("cuda")
+            alpha, beta = ((0.3 * torch.randn(c, generator=cpu)).to("cuda") for _ in range(2))
+            for dt in (torch.float32, torch.bfloat16):
+                y = anti_alias_activation(x.to(dt), alpha, beta, True).float().cpu().numpy()
+                out[f"bits K1 {dt} {name} {[b, c, t]}"] = hashlib.sha256(y.tobytes()).hexdigest()
         torch.save(vocoder_bf16(), root / "build" / "ab_vocoder.pt")
     return out
 

@@ -1,12 +1,16 @@
-"""Where K2's bf16 time goes: its tensor-core kernel (csrc/stage_fused_tc.cu)
-with parts removed, 18 launches of a stage at a time, at the flagship
-vocoder's fused stages of one codec request (16 clips x 4 s) and of one
-streaming window (1 x 560 frames).
+"""Where K2's and K2-v1's time goes: K2's bf16 tensor-core kernel
+(csrc/stage_fused_tc.cu) with parts removed, 18 launches of a stage at a
+time, at the flagship vocoder's fused stages of one codec request (16 clips
+x 4 s) and of one streaming window (1 x 560 frames); then K2-v1
+(csrc/stage_fused_v1.cu), one launch a stage, at s4 and s5, its bf16 kernel
+(tensor cores, a cluster of tiles) and its float32 one (CUDA cores, the
+design the bf16 kernel replaced).
 
   full        the launch as the vocoder runs it
   products    the weight stream and the tensor-core products, no activation
   activation  the activation into the staged tile, no weights or products
-  epilogue    neither: the stores (bias, residual, running sum) alone
+  epilogue    neither: the stores (bias, residual, running sum) alone; for
+              K2-v1 the loads, the halo exchanges and barriers and the stores
 
     python -m dmel_codec_tpu_torch.probes.stage_parts
 
@@ -48,6 +52,13 @@ def stage_parts_ms(x: torch.Tensor, packed: dict, spec: StageSpec, reps: int = 3
                 for name, p in PARTS.items()}
 
 
+def v1_parts_ms(x: torch.Tensor, packed: dict, spec: StageSpec, reps: int = 3) -> dict:
+    """ms of one K2-v1 stage (one launch) by what the launch keeps."""
+    with torch.no_grad():
+        return {name: cuda_ms(lambda p=p: stage_fused._run_kernel_v1(x, packed, spec, parts=p), reps)
+                for name, p in PARTS.items()}
+
+
 def main() -> dict:
     require_gpu("stage_parts")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -65,6 +76,17 @@ def main() -> dict:
         print(f"per {what}: " + ", ".join(f"{p} {v:.3f} ms" for p, v in total.items())
               + f"; over the epilogue: activation {total['activation'] - total['epilogue']:.3f}, products "
               f"{total['products'] - total['epilogue']:.3f}")
+    print(f"{'K2-v1 stage [B, C, T]':<40}" + "".join(f"{name:>12}" for name in PARTS) + "   (ms per stage)")
+    for name, b, c, t in SHAPES:
+        if c > stage_fused.V1_MAX_CHANNELS:
+            continue
+        spec = StageSpec(channels=c)
+        packed = random_pack(c, gen, "cuda")
+        x = torch.randn((b, c, t), device="cuda", generator=gen)
+        for dt in (torch.bfloat16, torch.float32):
+            what = f"K2-v1 {'bf16' if dt == torch.bfloat16 else 'float32'} {name}"
+            row = table[(what, b, c, t)] = v1_parts_ms(x.to(dt), packed, spec)
+            print(f"{what + ' ' + str([b, c, t]):<40}" + "".join(f"{row[p]:12.3f}" for p in PARTS))
     return table
 
 
