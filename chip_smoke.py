@@ -16,12 +16,13 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      parameters (the coefficients the kernel rounds itself); its sinf
      without conversions against sinf over every float (no bit may differ
      but the sign); its launch (grid, threads, shared memory per block);
-  4. K2 (fused AMP stage; bf16 on the tensor cores, float32 on the CUDA
-     cores) against its plain version at every fused width, B = 2 and a
-     streaming window's B = 1, and at ragged shapes, float32 and bfloat16;
-     then launch by launch against act_conv_reference: every (k, d) of the
-     widest fused stage and of a ragged C = 40 under both bf16 contracts,
-     alone, onto a residual and as a block's last launch;
+  4. K2 (fused AMP stage on the tensor cores: bf16 operands, or float32
+     ones split into TF32 hi + lo) against its plain version at every fused
+     width, B = 2 and a streaming window's B = 1, and at ragged shapes,
+     float32 and bfloat16; then launch by launch against
+     act_conv_reference: every (k, d) of the widest fused stage and of a
+     ragged C = 40 under both bf16 contracts, alone, onto a residual and as
+     a block's last launch, and in float32;
   5. the main path at the flagship width with seeded random bf16 weights:
      three requests of 16 clips x 4 s through log-mel -> DMelCodec.encode ->
      DMelCodec.decode -> serving BigVGAN, with output checks and kernel
@@ -29,11 +30,16 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      xRT with its per-part split, a one-request torch.profiler breakdown
      (which must name K1's kernel and K2's tensor-core kernel), the vocoder
      stage by stage, each kernel's time beside its plain version at the
-     main-path shapes (K2 also in float32, on the CUDA cores), K2's and
-     K2-v1's bf16 time by part (probes/stage_parts.py), and K1's
-     instruction-issue floor counted from its SASS (probes/k1_floor.py);
-  6. stage-wise kernel-vs-plain error of the vocoder in float32, each stage
-     fed the same input (the float32 K2 launches, on the CUDA cores);
+     main-path shapes (K2 also in float32), K2's and K2-v1's time by part
+     in both dtypes (probes/stage_parts.py), and K1's instruction-issue
+     floor counted from its SASS (probes/k1_floor.py);
+  6. the float32 serving path, which a released (float32) checkpoint
+     takes: stage-wise kernel-vs-plain error of the float32 vocoder, each
+     stage fed the same input (every K2 launch on the split-TF32 kernel);
+     then one codec request of 16 clips x 4 s through a float32 DMelCodec
+     and vocoder, as `cli.stream_codec` builds them: launch counts, output
+     checks, xRT with its per-part split, the vocoder stage by stage, a
+     profile that must name the split-TF32 kernel;
   7. FA (causal GQA flash attention) against its plain version at the slow
      decoder's head layout, main-path and ragged lengths, and at head sizes
      16 to 128, float32 (CUDA cores) and bfloat16 (tensor cores);
@@ -51,29 +57,31 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
  10. FA, its plain version and PyTorch's scaled_dot_product_attention (a
      yardstick only: nothing in the port calls it) at the main-path shape,
      with FA's launch (grid, threads and shared memory per block);
- 11. K2-v1 (the whole AMP stage in one launch; bf16 on the tensor cores
-     in clusters of 8 CTAs, float32 on the CUDA cores) against its plain
+ 11. K2-v1 (the whole AMP stage in one launch on the tensor cores in
+     clusters of 8 CTAs; bf16, or float32 on split-TF32 products) against its plain
      version at the two flagship widths it holds (C = 48 and 24), at a
      codec request's lengths and at a streaming window's (the path that
      launches it), float32 and bfloat16, ragged lengths and widths (C = 5,
      7, 40 in both dtypes), its refusal of a wider stage, its launch (grid,
      threads, shared memory, cluster), and its time beside K2's in v1 mode
      (the same contract, 18 launches) and v2 mode and the plain version's
-     at both; K2 in v1 mode (what `use_v2=False` runs at the
+     at both, in bf16 and in float32; K2 in v1 mode (what `use_v2=False` runs at the
      wider fused stages) against the same plain version at s2 (C = 192)
      and s3 (C = 96), and its time beside K2's v2 mode; K1 and K2 timed at
      the window's shapes too;
- 12. window invariance of K1, K2 and K2-v1 in float32, of K1 and K2-v1 in
-     bf16 and of K2 in bf16 at three widths: a kernel run on a slice of the
-     signal gives the bits
+ 12. window invariance of K1, K2-v1 and K2 (at three widths) in float32,
+     of K1 and K2-v1 in bf16 and of K2 in bf16 at three widths: a kernel run
+     on a slice of the signal gives the bits
      of its run on the whole signal, beyond its receptive field from the
      cuts;
  13. the streaming path at full width (models/streaming.py): chunked
      against one-shot on an 8 s clip in float32 (tokens equal, decode and
      vocoder within tolerance, both `use_v2`), a 10-minute clip through
-     `chunked_vocode` in bfloat16 with both `use_v2` (seconds, xRT, peak
-     device memory, launch counts), 60 s through encode -> decode ->
-     vocode, and `cli.stream_codec.main` on a WAV written here;
+     `chunked_vocode` in bfloat16 and in float32 with both `use_v2`
+     (seconds, xRT, peak device memory, launch counts by kernel; a profile
+     of two float32 windows must name both float32 kernels), 60 s
+     through encode -> decode -> vocode, and `cli.stream_codec.main` on a
+     WAV written here (a float32 vocoder: the split-TF32 kernels);
  14. the K1 ablation probe: each variant against its plain version, and
      the probe's own table of times;
  15. every kernel's bound on this card;
@@ -143,13 +151,13 @@ import numpy as np
 import torch
 
 # the CUDA-event timer and the card's published peaks, shared with the probes' tables
-from dmel_codec_tpu_torch.probes.timing import PEAK_BF16, PEAK_BYTES, PEAK_F32, cuda_ms
+from dmel_codec_tpu_torch.probes.timing import PEAK_BF16, PEAK_BYTES, PEAK_F32, PEAK_TF32, cuda_ms
 
 SECONDS, BATCH, SR, HOP = 4, 16, 24000, 256
 FUSE_MAX_CHANNELS = 192
 DEVICE = "cuda:0"
 K1_SOURCE = "dmel_codec_tpu_torch/csrc/anti_alias.cu"
-K2_SOURCE = "dmel_codec_tpu_torch/csrc/stage_fused.cu"
+K2_TF32_SOURCE = "dmel_codec_tpu_torch/csrc/stage_fused_tf32.cu"
 K2_TC_SOURCE = "dmel_codec_tpu_torch/csrc/stage_fused_tc.cu"
 FA_SOURCE = "dmel_codec_tpu_torch/csrc/flash_attention.cu"
 FA_BWD_SOURCE = "dmel_codec_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -191,7 +199,10 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, rel: float) ->
 #  K1 bf16: both sides compute in float32 and round once; a result next to
 #    a rounding boundary may round the other way: one bf16 ulp, 2^-7.
 #  K2 f32: 36 chained ops, each ~1e-7 relative apart, amplified by the
-#    random weights' gain: 2e-5.
+#    random weights' gain: 2e-5. The split-TF32 products lose the split's
+#    remainders (2^-22 of each operand) and A_lo B_lo: one conv measured
+#    within 6e-6 of a float64 one, beside the float32 conv's 2.3e-6
+#    (probes/tf32_split.py); 2e-5 holds.
 #  K2 bf16: 54 bf16 rounding points on each side; a flip there is one ulp
 #    (<= 2^-7) and flips compound down the chain: 5e-2.
 #  K2 launch bf16 (one act -> conv launch against act_conv_reference): both
@@ -299,19 +310,20 @@ def fa_bound_ms(b: int, s: int, h: int, kh: int, hd: int, itemsize: int):
     return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
 
 
-def stage_bound_ms(stages, batch: int, kernel_sizes, itemsize: int = 2):
+def stage_bound_ms(stages, batch: int, kernel_sizes, itemsize: int = 2, conv_rate: float | None = None):
     """Least time for fused AMP stages [(C, T), ...] in bf16 (itemsize 2)
     or float32 (4): per stage 18 convs of C x C x k (six of each kernel
-    size) at the tensor-core rate of bf16 operands (float32: the CUDA
-    cores'), 18 float32 activations, the plane in and out once and the
-    weights once. Returns {"bytes": ms, "operations": ms}."""
+    size) at `conv_rate` (default: the tensor-core rate of bf16 operands,
+    float32 the CUDA cores'; the split-TF32 kernels' three products:
+    PEAK_TF32 / 3), 18 float32 activations, the plane in and out once and
+    the weights once. Returns {"bytes": ms, "operations": ms}."""
     conv = act = nbytes = 0.0
     for c, t_len in stages:
         n = batch * c * t_len
         conv += 2 * c * n * 6 * sum(kernel_sizes)
         act += 18 * K1_FLOPS_PER_SAMPLE * n
         nbytes += 2 * n * itemsize + 6 * sum(kernel_sizes) * c * c * itemsize
-    conv_peak = PEAK_BF16 if itemsize == 2 else PEAK_F32
+    conv_peak = conv_rate or (PEAK_BF16 if itemsize == 2 else PEAK_F32)
     return {"bytes": nbytes / PEAK_BYTES * 1e3,
             "operations": max(conv / conv_peak, act / PEAK_F32) * 1e3}
 
@@ -673,7 +685,7 @@ def main() -> None:
         return codec.decode(idx, ilen, generator=gen)
 
     anti_alias_activation.launches = amp_stage.launches = 0
-    amp_stage.launches_by_kernel.update(tensor_cores=0, cuda_cores=0)
+    amp_stage.launches_by_kernel.update(act_conv_tc_kernel=0, act_conv_tf32_kernel=0)
     with torch.no_grad():
         outs = []
         for r in range(3):
@@ -685,8 +697,8 @@ def main() -> None:
     k2_by_kernel = dict(amp_stage.launches_by_kernel)
     log(f"  launches over 3 requests: K1 {launches['K1']}, K2 {launches['K2']} "
         f"(expected {3 * want_k1} and {3 * want_k2}); K2 by kernel {k2_by_kernel}")
-    # every bf16 K2 launch runs on the tensor cores, none on the CUDA-core kernel
-    assert k2_by_kernel == {"tensor_cores": 3 * want_k2, "cuda_cores": 0}, k2_by_kernel
+    # every bf16 K2 launch runs on the bf16 tensor-core kernel
+    assert k2_by_kernel == {"act_conv_tc_kernel": 3 * want_k2, "act_conv_tf32_kernel": 0}, k2_by_kernel
     for r, (idx, wav) in enumerate(outs):
         assert idx.shape == (BATCH, ccfg.dmel_groups * ccfg.n_codebooks, frames // 4), idx.shape
         assert 0 <= int(idx.min()) and int(idx.max()) < ccfg.codebook_size, (idx.min(), idx.max())
@@ -714,7 +726,7 @@ def main() -> None:
     tc_names = [name for name in request_kernels if "act_conv_tc_kernel" in name]
     k1_names = [name for name in request_kernels if "anti_alias_kernel" in name]
     if request_kernels:  # the profiler recorded device time: it must name K1's kernel and K2's tensor-core kernel
-        assert tc_names and not any("act_conv_kernel" in name for name in request_kernels), list(request_kernels)
+        assert tc_names and not any("act_conv_tf32_kernel" in name for name in request_kernels), list(request_kernels)
         assert k1_names, list(request_kernels)
         log(f"  profiled K2: {sum(request_kernels[n] for n in tc_names):.2f} ms in {tc_names[0][:60]}")
         log(f"  profiled K1: {sum(request_kernels[n] for n in k1_names):.2f} ms in {k1_names[0][:60]}")
@@ -729,9 +741,10 @@ def main() -> None:
     log("  vocoder by stage: " + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
         + f" (sum {sum(parts.values()):.2f} ms)")
 
-    # kernel vs plain time at the main-path shapes (bf16, B = 16), per request
+    # kernel vs plain time at the main-path shapes (bf16, B = 16, and the
+    # float32 vocoder's), per request
     ms = {"K1": 0.0, "K2": 0.0, "K2 float32": 0.0}
-    plain_ms = {"K1": 0.0, "K2": 0.0}
+    plain_ms = {"K1": 0.0, "K2": 0.0, "K2 float32": 0.0}
     with torch.no_grad():
         for name, shape, count in (("act_post", k1_shapes["act_post"], 1),
                                    ("s0", k1_shapes["s0"], 18), ("s1", k1_shapes["s1"], 18)):
@@ -748,50 +761,108 @@ def main() -> None:
             k = cuda_ms(lambda: amp_stage(x, packed, spec), 3)
             p = cuda_ms(lambda: stage_reference(x, packed, spec), 3)
             x32 = x.float()
-            k32 = cuda_ms(lambda: amp_stage(x32, packed, spec), 1)
-            log(f"  K2 s{i} [{BATCH}, {c}, {t_len}] bf16: kernel {k:.3f} ms (18 launches, tensor cores), plain "
-                f"{p:.3f} ms; float32: kernel {k32:.3f} ms (CUDA cores)")
+            k32 = [cuda_ms(lambda: amp_stage(x32, packed, spec), 3)]
+            p32 = cuda_ms(lambda: stage_reference(x32, packed, spec), 1)
+            k32.append(cuda_ms(lambda: amp_stage(x32, packed, spec), 3))
+            log(f"  K2 s{i} [{BATCH}, {c}, {t_len}] bf16: kernel {k:.3f} ms (18 launches), plain {p:.3f} ms; float32: "
+                f"kernel {k32[0]:.3f} / {k32[1]:.3f} ms (split-TF32), plain {p32:.3f} ms")
             ms["K2"] += k
             plain_ms["K2"] += p
-            ms["K2 float32"] += k32
+            ms["K2 float32"] += sum(k32) / 2
+            plain_ms["K2 float32"] += p32
     log(f"  per request: K1 {ms['K1']:.3f} ms vs plain {plain_ms['K1']:.3f} ms; "
-        f"K2 {ms['K2']:.3f} ms vs plain {plain_ms['K2']:.3f} ms (float32 on the CUDA cores {ms['K2 float32']:.3f} ms)")
-    log("  K2 bf16 by part (the tensor-core kernel with parts removed; ms per stage):")
-    k2_parts, v1_parts = {}, {}
+        f"K2 {ms['K2']:.3f} ms vs plain {plain_ms['K2']:.3f} ms; K2 float32 {ms['K2 float32']:.3f} ms vs plain "
+        f"{plain_ms['K2 float32']:.3f} ms")
+    log("  K2 and K2-v1 by part (the kernels with parts removed; ms per request or window, s2..s5 / s4 + s5):")
+    parts_ms = {}  # {"K2 bf16 request": {part: ms}, ...}
     for (what, *shape), row in stage_parts.main().items():
-        # K2: per request and per window; K2-v1: per dtype and request / window (s4 + s5)
-        key, table = ((what.split()[2] + " " + what.split()[1], v1_parts) if what.startswith("K2-v1")
-                      else (what.split()[0], k2_parts))
+        group = what.rsplit(" ", 1)[0]
         for part, v in row.items():
-            table.setdefault(key, {}).setdefault(part, 0.0)
-            table[key][part] += v
-    log("  K2-v1 by part (ms per s4 + s5): " + "; ".join(
-        f"{k}: " + ", ".join(f"{p} {v:.3f}" for p, v in row.items()) for k, row in v1_parts.items()))
+            parts_ms.setdefault(group, {}).setdefault(part, 0.0)
+            parts_ms[group][part] += v
+    for group, row in parts_ms.items():
+        log(f"    {group}: " + ", ".join(f"{p} {v:.3f}" for p, v in row.items()))
     k1_issue = k1_floor.main()
 
-    # ---- 6. stage-wise kernel vs plain, float32, same input per stage
+    # ---- 6. the float32 serving path: stage-wise kernel vs plain, float32, same input per stage
     log("stage-wise vocoder error, float32, kernel vs plain on the same input:")
     # input: the log-mel of request 0's audio (the random codec's output is
     # near zero, which would make every stage's comparison trivially small)
     fused32 = FusedBigVGAN(voc32, fuse_max_channels=FUSE_MAX_CHANNELS)
     with torch.no_grad():
         x = fused32.pre(mel_tf(audio)[:, :frames])
-    # the float32 path's K2 launches, on the CUDA-core kernel (the kernels line's count for it)
-    amp_stage.launches_by_kernel.update(tensor_cores=0, cuda_cores=0)
+    amp_stage.launches_by_kernel.update(act_conv_tc_kernel=0, act_conv_tf32_kernel=0)
     for i in range(len(fused32.stages)):
         got = fused32.stage(i, x)
         torch.cuda.synchronize()
         with plain_kernels():
             want = fused32.stage(i, x)
         kind = "K2" if fused32.stages[i][0] is not None else "K1"
-        check_close(f"s{i} ({kind}) {list(got.shape)}", got, want, TOL[("K2", torch.float32)])
+        e = check_close(f"s{i} ({kind}) {list(got.shape)}", got, want, TOL[("K2", torch.float32)])
+        if kind == "K2":
+            errs["K2"] = max(errs["K2"], e)
         x = got
-    k2_f32_launches = dict(amp_stage.launches_by_kernel)
-    assert k2_f32_launches == {"tensor_cores": 0, "cuda_cores": want_k2}, k2_f32_launches
+    # every float32 K2 launch on the split-TF32 kernel
+    assert amp_stage.launches_by_kernel == {"act_conv_tc_kernel": 0, "act_conv_tf32_kernel": want_k2}, \
+        amp_stage.launches_by_kernel
     got = fused32.post(x)
     with plain_kernels():
         want = fused32.post(x)
     check_close(f"act_post + conv_post {list(got.shape)}", got, want, TOL[("K2", torch.float32)])
+
+    # one float32 codec request: a float32 DMelCodec and vocoder, as
+    # cli.stream_codec builds them with no checkpoint (a released BigVGAN
+    # generator is float32 too)
+    log(f"float32 codec request: DMelCodec + BigVGAN in float32, {BATCH} x {SECONDS} s, TF32 off")
+    torch.manual_seed(0)
+    codec32 = DMelCodec(DMelCodecConfig()).eval().to(dev)
+
+    def front32(audio_):
+        return codec32.encode(mel_tf(audio_)[:, :frames], lengths)
+
+    def mid32(idx_, ilen_):
+        return codec32.decode(idx_, ilen_, generator=gen)
+
+    anti_alias_activation.launches = amp_stage.launches = 0
+    amp_stage.launches_by_kernel.update(act_conv_tc_kernel=0, act_conv_tf32_kernel=0)
+    with torch.no_grad():
+        idx32, ilen32 = front32(audio)
+        wav32 = fused32(mid32(idx32, ilen32))
+        torch.cuda.synchronize()
+    f32_launches = {"K1": anti_alias_activation.launches, "K2": amp_stage.launches, **amp_stage.launches_by_kernel}
+    log(f"  launches: {f32_launches}; indices {list(idx32.shape)}, wave {list(wav32.shape)} {wav32.dtype} rms "
+        f"{wav32.square().mean().sqrt().item():.4f}")
+    assert f32_launches == {"K1": want_k1, "K2": want_k2, "act_conv_tc_kernel": 0, "act_conv_tf32_kernel": want_k2}, \
+        f32_launches
+    assert idx32.shape == (BATCH, ccfg.dmel_groups * ccfg.n_codebooks, frames // 4)
+    assert wav32.shape == (BATCH, samples) and wav32.dtype == torch.float32
+    assert torch.isfinite(wav32).all() and wav32.abs().max() <= 1.0
+    with torch.no_grad():
+        gen_mel32 = mid32(idx32, ilen32)
+        ms_front32 = cuda_ms(lambda: front32(audio), reps)
+        ms_mid32 = cuda_ms(lambda: mid32(idx32, ilen32), reps)
+        ms_voc32 = cuda_ms(lambda: fused32(gen_mel32), reps)
+        x = fused32.pre(gen_mel32)
+        parts32 = {"conv_pre": cuda_ms(lambda: fused32.pre(gen_mel32), reps)}
+        for i in range(len(fused32.stages)):
+            parts32[f"s{i}"] = cuda_ms(lambda i=i, x=x: fused32.stage(i, x), reps)
+            x = fused32.stage(i, x)
+        parts32["act_post + conv_post"] = cuda_ms(lambda: fused32.post(x), reps)
+        request32_kernels = {}
+        profile_once("one float32 request", lambda: fused32(mid32(*front32(audio))), kernels=request32_kernels)
+    total32 = ms_front32 + ms_mid32 + ms_voc32
+    float32_request = {"xrt": BATCH * SECONDS / (total32 / 1e3), "front_ms": ms_front32, "decode_ms": ms_mid32,
+                       "vocoder_ms": ms_voc32, "vocoder_by_stage_ms": parts32, "launches": f32_launches}
+    log(f"  xRT {float32_request['xrt']:.2f} ({total32:.2f} ms): front end {ms_front32:.2f} ms, decode "
+        f"{ms_mid32:.2f} ms, vocoder {ms_voc32:.2f} ms")
+    log("  float32 vocoder by stage: " + ", ".join(f"{k} {v:.2f} ms" for k, v in parts32.items())
+        + f" (sum {sum(parts32.values()):.2f} ms)")
+    tf32_names = [name for name in request32_kernels if "act_conv_tf32_kernel" in name]
+    if request32_kernels:  # the profiler recorded device time: it must name the split-TF32 kernel, and no bf16 one
+        assert tf32_names and not any("act_conv_tc_kernel" in name for name in request32_kernels), list(request32_kernels)
+        float32_request["profiled_k2_ms"] = sum(request32_kernels[n] for n in tf32_names)
+        log(f"  profiled K2 float32: {float32_request['profiled_k2_ms']:.2f} ms in {tf32_names[0][:70]}")
+    del codec32, idx32, ilen32, wav32, gen_mel32
 
     # ---- 7. FA vs plain
     log("FA causal GQA flash attention vs plain:")
@@ -890,7 +961,7 @@ def main() -> None:
             f"  max_new_tokens: {LM_FRAMES}\n  max_seq_len: 4096\n  cache_dtype: bfloat16\n"
         )
         anti_alias_activation.launches = amp_stage.launches = flash_attention.launches = 0
-        amp_stage.launches_by_kernel.update(tensor_cores=0, cuda_cores=0)
+        amp_stage.launches_by_kernel.update(act_conv_tc_kernel=0, act_conv_tf32_kernel=0)
         t0 = time.perf_counter()
         infer_lm.main(["--config", str(tmp / "infer.yaml"), "--prompt", prompt, "--out", str(tmp / "out.wav"),
                        "--seed", str(seed), "--device", DEVICE])
@@ -1037,7 +1108,7 @@ def main() -> None:
             before = dict(amp_stage.launches_by_kernel)
             got = amp_stage(x, packed, spec, v1=True)
             torch.cuda.synchronize()
-            kernel = "tensor_cores" if dt == torch.bfloat16 else "cuda_cores"
+            kernel = "act_conv_tc_kernel" if dt == torch.bfloat16 else "act_conv_tf32_kernel"
             assert amp_stage.launches_by_kernel[kernel] == before[kernel] + 18, (kernel, amp_stage.launches_by_kernel)
             want = stage_reference_v1(x, packed, spec)
             e = check_close(f"{name} {list(shape)} {dt}", got, want, TOL[("K2-v1", dt)])
@@ -1062,28 +1133,31 @@ def main() -> None:
     # times at a codec request's shapes (B = 16), then at a streaming
     # window's (B = 1), which is what the path that launches K2-v1 gives it;
     # beside K2 in v1 mode (the same contract in 18 launches) and in v2 mode
-    v1_request = {"K2-v1": 0.0, "K2 v1 mode": 0.0, "K2": 0.0, "plain": 0.0}
-    v1_window = {"K2-v1": 0.0, "K2 v1 mode": 0.0, "K2": 0.0, "plain": 0.0}
+    v1_times = {(what, dname): {"K2-v1": 0.0, "K2 v1 mode": 0.0, "K2": 0.0, "plain": 0.0}
+                for what in ("request", "window") for dname in ("bf16", "float32")}
     with torch.no_grad():
-        for what, bsz, shp, total in (("request", BATCH, shapes, v1_request), ("window", 1, win_shapes, v1_window)):
+        for (what, dname), total in v1_times.items():
+            bsz, shp = (BATCH, shapes) if what == "request" else (1, win_shapes)
+            dt = torch.bfloat16 if dname == "bf16" else torch.float32
             for i in (s4, s5):
                 spec, packed = stage_packs[i]
                 c, t_len = shp[i]
-                x = torch.randn((bsz, c, t_len), device=dev, generator=gen).to(torch.bfloat16)
+                x = torch.randn((bsz, c, t_len), device=dev, generator=gen).to(dt)
                 t_v1 = [cuda_ms(lambda: amp_stage_v1(x, packed, spec), 3)]
                 t_k2v1 = cuda_ms(lambda: amp_stage(x, packed, spec, v1=True), 3)
                 t_k2 = cuda_ms(lambda: amp_stage(x, packed, spec), 3)
                 t_v1.append(cuda_ms(lambda: amp_stage_v1(x, packed, spec), 3))
-                t_plain = cuda_ms(lambda: stage_reference_v1(x, packed, spec), 3)
-                log(f"  {what} s{i} [{bsz}, {c}, {t_len}] bf16: K2-v1 {t_v1[0]:.3f} / {t_v1[1]:.3f} ms (1 launch), "
+                t_plain = cuda_ms(lambda: stage_reference_v1(x, packed, spec), 3 if dname == "bf16" or what == "window" else 1)
+                log(f"  {what} s{i} [{bsz}, {c}, {t_len}] {dname}: K2-v1 {t_v1[0]:.3f} / {t_v1[1]:.3f} ms (1 launch), "
                     f"K2 in v1 mode {t_k2v1:.3f} ms and v2 mode {t_k2:.3f} ms (18 launches each), plain {t_plain:.3f} ms")
                 total["K2-v1"] += sum(t_v1) / 2
                 total["K2 v1 mode"] += t_k2v1
                 total["K2"] += t_k2
                 total["plain"] += t_plain
-        for what, total in (("request", v1_request), ("window", v1_window)):
-            log(f"  s{s4} + s{s5} per {what}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in total.items())
+        for (what, dname), total in v1_times.items():
+            log(f"  s{s4} + s{s5} per {what}, {dname}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in total.items())
                 + f"; K2-v1 / K2 in v1 mode {total['K2-v1'] / total['K2 v1 mode']:.3f}")
+        v1_request, v1_window = v1_times[("request", "bf16")], v1_times[("window", "bf16")]
         ms["K2-v1"], plain_ms["K2-v1"] = v1_window["K2-v1"], v1_window["plain"]
 
         # K1 and K2 at the window's shapes, as the streaming path launches them
@@ -1122,6 +1196,9 @@ def main() -> None:
                        lambda v, sp=spec, pk=packed: amp_stage(v, pk, sp)),
                       (f"K2-v1 C = {spec.channels}", spec.channels, spec.receptive,
                        lambda v, sp=spec, pk=packed: amp_stage_v1(v, pk, sp))]
+    # float32: K2's split-TF32 kernel at s2 too (16 warps, two column groups)
+    spec, packed = stage_packs[s2]
+    inv_cases += [(f"K2 C = {spec.channels}", spec.channels, spec.receptive, lambda v, sp=spec, pk=packed: amp_stage(v, pk, sp))]
     # bf16: K2's tensor-core kernel at s5, s4 and s2 (its tiles start at other samples on the slice),
     # K2-v1's cluster kernel at s5 and s4
     for i in (s5, s4, s2):
@@ -1181,41 +1258,59 @@ def main() -> None:
     minutes_frames = LONG_MINUTES * 60 * SR // HOP
     window = VOCODE_CHUNK + 2 * VOCODE_HALO
     n_windows = -(-minutes_frames // VOCODE_CHUNK)
-    log(f"streaming, {LONG_MINUTES} minutes through chunked_vocode, B = 1, bf16: {minutes_frames} mel frames, "
-        f"{n_windows} windows of {VOCODE_CHUNK} + 2 x {VOCODE_HALO}")
+    log(f"streaming, {LONG_MINUTES} minutes through chunked_vocode, B = 1, bf16 and float32: {minutes_frames} mel "
+        f"frames, {n_windows} windows of {VOCODE_CHUNK} + 2 x {VOCODE_HALO}")
     mel_long = (0.5 * rng.standard_normal((1, minutes_frames, vcfg.num_mels))).astype(np.float32)
     stream_stats = {}
     counters = {"K1": anti_alias_activation, "K2": amp_stage, "K2-v1": amp_stage_v1}
-    for use_v2 in (True, False):
-        fused = FusedBigVGAN(voc16, fuse_max_channels=FUSE_MAX_CHANNELS, use_v2=use_v2)
-        streaming.chunked_vocode(fused, mel_long[:, : 2 * window], VOCODE_CHUNK, VOCODE_HALO)  # warm-up
-        torch.cuda.synchronize()
-        for fn in counters.values():
-            fn.launches = 0
-        amp_stage.launches_by_kernel.update(tensor_cores=0, cuda_cores=0)
-        resident = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        wav = streaming.chunked_vocode(fused, mel_long, VOCODE_CHUNK, VOCODE_HALO)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        counts = {name: fn.launches for name, fn in counters.items()}
-        assert wav.shape == (1, minutes_frames * HOP) and np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
-        n_v1 = fused.routes.count("K2-v1")
-        n_k2 = fused.routes.count("K2") + fused.routes.count("K2/v1")
-        assert use_v2 or "K2" not in fused.routes, fused.routes  # use_v2=False runs v1 at every fused stage
-        assert counts == {"K1": n_windows * want_k1, "K2": n_windows * 18 * n_k2, "K2-v1": n_windows * n_v1}, counts
-        assert amp_stage.launches_by_kernel["cuda_cores"] == 0, amp_stage.launches_by_kernel  # bf16: tensor cores only
-        stream_stats[use_v2] = {"seconds": seconds, "xrt": LONG_MINUTES * 60 / seconds, "peak": peak,
-                                "resident": resident, **counts}
-        log(f"  use_v2={use_v2}: {seconds:.3f} s, xRT {LONG_MINUTES * 60 / seconds:.2f} with host staging; peak device "
-            f"memory {peak / 2**20:.1f} MiB ({resident / 2**20:.1f} MiB resident before the run, "
-            f"{(peak - resident) / 2**20:.1f} MiB the run's own); launches K1 {counts['K1']}, K2 {counts['K2']}, "
-            f"K2-v1 {counts['K2-v1']}; rms {float(np.sqrt(np.mean(np.square(wav)))):.4f}")
-        del wav
-    launches["K2-v1"] = stream_stats[False]["K2-v1"]
-    assert launches["K2-v1"] > 0
+    for voc, dname in ((voc16, "bf16"), (voc32, "float32")):
+        k2_kernel, v1_kernel = (("act_conv_tc_kernel", "stage_v1_tc_kernel") if dname == "bf16"
+                                else ("act_conv_tf32_kernel", "stage_v1_tf32_kernel"))
+        for use_v2 in (True, False):
+            fused = FusedBigVGAN(voc, fuse_max_channels=FUSE_MAX_CHANNELS, use_v2=use_v2)
+            streaming.chunked_vocode(fused, mel_long[:, : 2 * window], VOCODE_CHUNK, VOCODE_HALO)  # warm-up
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            amp_stage.launches_by_kernel.update(act_conv_tc_kernel=0, act_conv_tf32_kernel=0)
+            amp_stage_v1.launches_by_kernel.update(stage_v1_tc_kernel=0, stage_v1_tf32_kernel=0)
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            wav = streaming.chunked_vocode(fused, mel_long, VOCODE_CHUNK, VOCODE_HALO)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            counts = {name: fn.launches for name, fn in counters.items()}
+            by_kernel = {**amp_stage.launches_by_kernel, **amp_stage_v1.launches_by_kernel}
+            assert wav.shape == (1, minutes_frames * HOP) and np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+            n_v1 = fused.routes.count("K2-v1")
+            n_k2 = fused.routes.count("K2") + fused.routes.count("K2/v1")
+            assert use_v2 or "K2" not in fused.routes, fused.routes  # use_v2=False runs v1 at every fused stage
+            assert counts == {"K1": n_windows * want_k1, "K2": n_windows * 18 * n_k2, "K2-v1": n_windows * n_v1}, counts
+            # every K2 and K2-v1 launch on the kernel of the vocoder's dtype
+            assert by_kernel[k2_kernel] == counts["K2"] and by_kernel[v1_kernel] == counts["K2-v1"], by_kernel
+            assert sum(by_kernel.values()) == counts["K2"] + counts["K2-v1"], by_kernel
+            stream_stats[(dname, use_v2)] = {"seconds": seconds, "xrt": LONG_MINUTES * 60 / seconds, "peak": peak,
+                                             "resident": resident, **counts}
+            log(f"  {dname} use_v2={use_v2}: {seconds:.3f} s, xRT {LONG_MINUTES * 60 / seconds:.2f} with host staging; "
+                f"peak device memory {peak / 2**20:.1f} MiB ({resident / 2**20:.1f} MiB resident before the run, "
+                f"{(peak - resident) / 2**20:.1f} MiB the run's own); launches K1 {counts['K1']}, K2 {counts['K2']}, "
+                f"K2-v1 {counts['K2-v1']} ({by_kernel}); rms {float(np.sqrt(np.mean(np.square(wav)))):.4f}")
+            del wav
+    # the float32 kernels by name in a profile of two float32 windows with use_v2=False
+    fused = FusedBigVGAN(voc32, fuse_max_channels=FUSE_MAX_CHANNELS, use_v2=False)
+    stream_kernels = {}
+    profile_once("two float32 windows, use_v2=False",
+                 lambda: streaming.chunked_vocode(fused, mel_long[:, : 2 * window], VOCODE_CHUNK, VOCODE_HALO),
+                 kernels=stream_kernels)
+    if stream_kernels:  # the profiler recorded device time: it must name both float32 kernels, and no bf16 one
+        names = list(stream_kernels)
+        assert any("stage_v1_tf32_kernel" in n for n in names) and any("act_conv_tf32_kernel" in n for n in names), names
+        assert not any("stage_v1_tc_kernel" in n or "act_conv_tc_kernel" in n for n in names), names
+    launches["K2-v1"] = stream_stats[("bf16", False)]["K2-v1"]
+    launches["K2-v1 float32"] = stream_stats[("float32", False)]["K2-v1"]
+    assert launches["K2-v1"] > 0 and launches["K2-v1 float32"] > 0
     with torch.no_grad():
         mel_dev = torch.from_numpy(mel_x).to(device=dev, dtype=torch.bfloat16)
         vocoder(mel_dev)
@@ -1255,17 +1350,23 @@ def main() -> None:
         wavfile.write(tmp / "in.wav", SR, tone[: CLI_SECONDS * SR].cpu().numpy())
         for fn in counters.values():
             fn.launches = 0
+        amp_stage.launches_by_kernel.update(act_conv_tc_kernel=0, act_conv_tf32_kernel=0)
+        amp_stage_v1.launches_by_kernel.update(stage_v1_tc_kernel=0, stage_v1_tf32_kernel=0)
         t0 = time.perf_counter()
         stream_codec.main(["--in", str(tmp / "in.wav"), "--tokens-out", str(tmp / "tokens.npy"),
                            "--out", str(tmp / "out.wav"), "--use-v1"])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         cli_counts = {name: fn.launches for name, fn in counters.items()}
+        # the entry point's vocoder is float32 (no --vocoder-dir): the split-TF32 kernels
+        cli_by_kernel = {**amp_stage.launches_by_kernel, **amp_stage_v1.launches_by_kernel}
+        assert cli_by_kernel == {"act_conv_tc_kernel": 0, "act_conv_tf32_kernel": cli_counts["K2"],
+                                 "stage_v1_tc_kernel": 0, "stage_v1_tf32_kernel": cli_counts["K2-v1"]}, cli_by_kernel
         tokens = np.load(tmp / "tokens.npy")
         wav_sr, wav = wavfile.read(tmp / "out.wav")
     frames_cli = (CLI_SECONDS * SR // HOP // 4) * 4
     log(f"  {wall_s:.2f} s wall with building the models; tokens {list(tokens.shape)}, WAV {wav.shape} at {wav_sr} Hz, "
-        f"rms {float(np.sqrt(np.mean(np.square(wav)))):.4f}; launches {cli_counts}")
+        f"rms {float(np.sqrt(np.mean(np.square(wav)))):.4f}; launches {cli_counts} ({cli_by_kernel})")
     assert tokens.shape == (1, ccfg.dmel_groups * ccfg.n_codebooks, frames_cli // 4)
     assert wav_sr == SR and wav.dtype == np.float32 and wav.shape == (frames_cli * HOP,)
     assert np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
@@ -1309,7 +1410,13 @@ def main() -> None:
     k1_bound = {"bytes": k1_bytes / PEAK_BYTES * 1e3, "operations": k1_flops / PEAK_F32 * 1e3}
     ksizes = vcfg.resblock_kernel_sizes
     k2_bound = stage_bound_ms([shapes[i] for i in stage_packs], BATCH, ksizes)
+    # float32: at the CUDA cores' rate, and at the split-TF32 kernels' (three TF32 products)
     k2_f32_bound = stage_bound_ms([shapes[i] for i in stage_packs], BATCH, ksizes, itemsize=4)
+    k2_tf32_bound = stage_bound_ms([shapes[i] for i in stage_packs], BATCH, ksizes, 4, PEAK_TF32 / 3)
+    k2_tf32_win_bound = stage_bound_ms([win_shapes[i] for i in stage_packs], 1, ksizes, 4, PEAK_TF32 / 3)
+    v1_f32_bound = stage_bound_ms([win_shapes[s4], win_shapes[s5]], 1, ksizes, itemsize=4)
+    v1_tf32_bound = stage_bound_ms([win_shapes[s4], win_shapes[s5]], 1, ksizes, 4, PEAK_TF32 / 3)
+    v1_tf32_request_bound = stage_bound_ms([shapes[s4], shapes[s5]], BATCH, ksizes, 4, PEAK_TF32 / 3)
     # K2-v1: the logical work of its two stages (no halo), as K2's, at the
     # streaming window's shapes (its `ms`) and at a codec request's
     v1_bound = stage_bound_ms([win_shapes[s4], win_shapes[s5]], 1, ksizes)
@@ -1321,7 +1428,8 @@ def main() -> None:
     probe_bound = {"bytes": 4 * 2 * n_probe * 2 / PEAK_BYTES * 1e3,
                    "operations": (58 + 50 + 4) * n_probe / PEAK_F32 * 1e3}
     bounds = {}
-    for name, bound in (("K1", k1_bound), ("K2", k2_bound), ("K2-v1", v1_bound), ("probe", probe_bound)):
+    for name, bound in (("K1", k1_bound), ("K2", k2_bound), ("K2-v1", v1_bound), ("probe", probe_bound),
+                        ("K2 float32", k2_tf32_bound), ("K2-v1 float32", v1_tf32_bound)):
         by = max(bound, key=bound.get)
         bounds[name] = (bound[by], by)
         log(f"  {name} bound: {bound['bytes']:.4f} ms by bytes, {bound['operations']:.4f} ms by operations")
@@ -2081,18 +2189,30 @@ def main() -> None:
          "window_ms": win_ms["K2"], "window_plain_ms": win_plain_ms["K2"],
          "kernels": [
              {"name": "act_conv_tc_kernel", "dtype": "bfloat16", "route": "cuda", "source": K2_TC_SOURCE,
-              "launches": k2_by_kernel["tensor_cores"], "launches_in": "the main path's 3 codec requests",
+              "launches": k2_by_kernel["act_conv_tc_kernel"], "launches_in": "the main path's 3 codec requests",
               "ms": ms["K2"], "window_ms": win_ms["K2"], "max_abs_err": errs["K2 bf16"],
-              "launch_max_rel_err": errs["K2 launch"], "parts_ms": k2_parts,
+              "launch_max_rel_err": errs["K2 launch"],
+              "parts_ms": {"request": parts_ms["K2 bf16 request"], "window": parts_ms["K2 bf16 window"]},
               "design": "wgmma m64nNk16 on a bf16 activation tile in the no-swizzle K-major layout (taps as "
                         "descriptor offsets), weights streamed by TMA bulk copies through an mbarrier ring, "
-                        "16 warps: a warp per input channel for the activation, 4 warpgroups for the products"},
-             {"name": "act_conv_kernel", "dtype": "float32", "route": "cuda", "source": K2_SOURCE,
-              "launches": k2_f32_launches["cuda_cores"], "launches_in": "phase 6's float32 vocoder stages",
-              "ms": ms["K2 float32"], "max_abs_err": errs["K2"],
-              "bound_ms": max(k2_f32_bound.values()), "bound_by": max(k2_f32_bound, key=k2_f32_bound.get)}],
+                        "16 warps: a warp per input channel for the activation, 4 warpgroups for the products"}],
          "v1_mode": "route K2/v1 (use_v2=False at C > 48): plane_bf16 = 0, float32 planes, taps and v; "
                     "held against stage_reference_v1 at s2 and s3", "v1_mode_max_abs_err": errs["K2/v1"]},
+        {"name": "amp_stage act->conv float32 (K2, split-TF32)", "route": "cuda", "source": K2_TF32_SOURCE,
+         "replaces": "dmel_codec_tpu/ops/stage_fused.py:806", "kernel": "act_conv_tf32_kernel", "dtype": "float32",
+         "launches": float32_request["launches"]["act_conv_tf32_kernel"], "max_abs_err": errs["K2"],
+         "ms": ms["K2 float32"], "plain_ms": plain_ms["K2 float32"],
+         "bound_ms": bounds["K2 float32"][0], "bound_by": bounds["K2 float32"][1], "library_ms": None,
+         "per": f"float32 codec request ({want_k2} launches); launches: phase 6's float32 codec request",
+         "bound_rate": "three TF32 products at PEAK_TF32", "bound_ms_tf32x3": max(k2_tf32_bound.values()),
+         "bound_ms_cuda_cores": max(k2_f32_bound.values()),
+         "window_ms": parts_ms["K2 float32 window"]["full"], "window_bound_ms_tf32x3": max(k2_tf32_win_bound.values()),
+         "parts_ms": {"request": parts_ms["K2 float32 request"], "window": parts_ms["K2 float32 window"]},
+         "v1_mode_max_abs_err": errs["K2/v1"], "float32_request": float32_request,
+         "design": "act_conv_tc_kernel's block with a float32 activation tile ([KS / 4][rows][4]); the conv as "
+                   "A_hi B_hi + A_hi B_lo + A_lo B_hi on wgmma m64nNk8 .tf32 (A's fragments loaded from shared "
+                   "memory and split in registers, B split by the wrapper and streamed per (tap, K chunk) slot of "
+                   "hi and lo by TMA), each slot's products into a fresh accumulator added to float32 sums"},
         {"name": "flash_attention (FA)", "route": "cuda", "source": FA_SOURCE,
          "replaces": "dmel_codec_tpu/models/transformer.py:197", "launches": launches["FA"],
          "max_abs_err": errs["FA"], "ms": ms["FA"], "plain_ms": plain_ms["FA"],
@@ -2143,14 +2263,34 @@ def main() -> None:
          "k2_same_ms": v1_window["K2"], "k2_v1_mode_same_ms": v1_window["K2 v1 mode"],
          "request_ms": v1_request["K2-v1"], "request_k2_same_ms": v1_request["K2"],
          "request_k2_v1_mode_same_ms": v1_request["K2 v1 mode"], "max_abs_err_bf16": errs["K2-v1 bf16"],
-         "parts_ms": v1_parts, "launch": {k_: {kk: list(vv) if isinstance(vv, tuple) else vv for kk, vv in v_.items()}
-                                          for k_, v_ in v1_launch.items()},
+         "parts_ms": {k_: v_ for k_, v_ in parts_ms.items() if k_.startswith("K2-v1 bf16")},
+         "launch": {k_: {kk: list(vv) if isinstance(vv, tuple) else vv for kk, vv in v_.items()}
+                    for k_, v_ in v1_launch.items()},
          "design": "bf16: a cluster of 8 CTAs of 512 threads owns 8 adjacent tiles (W = 256 columns at C = 48, 512 "
                    "at C <= 32) and pulls its neighbours' edge columns through distributed shared memory after each "
                    "of the 36 operations; convs on wgmma m64nNk16 over a bf16 plane in the no-swizzle K-major "
-                   "layout (taps as descriptor offsets), each conv's weights by one bulk copy; float32: one CTA "
-                   "per tile on the CUDA cores, its receptive field recomputed",
+                   "layout (taps as descriptor offsets), each conv's weights by one bulk copy",
          "request_plain_ms": v1_request["plain"], "request_bound_ms": max(v1_request_bound.values())},
+        {"name": "amp_stage_v1 whole stage float32 (K2-v1, split-TF32)", "route": "cuda", "source": V1_SOURCE,
+         "replaces": "dmel_codec_tpu/ops/stage_fused.py:984", "kernel": "stage_v1_tf32_kernel", "dtype": "float32",
+         "launches": launches["K2-v1 float32"], "max_abs_err": errs["K2-v1"],
+         "ms": v1_times[("window", "float32")]["K2-v1"], "plain_ms": v1_times[("window", "float32")]["plain"],
+         "bound_ms": bounds["K2-v1 float32"][0], "bound_by": bounds["K2-v1 float32"][1], "library_ms": None,
+         "per": f"s{s4} + s{s5} of one streaming window, B = 1 x {VOCODE_CHUNK + 2 * VOCODE_HALO} frames "
+                f"(2 launches); launches: the {LONG_MINUTES}-minute float32 chunked_vocode with use_v2=False",
+         "bound_rate": "three TF32 products at PEAK_TF32", "bound_ms_tf32x3": max(v1_tf32_bound.values()),
+         "bound_ms_cuda_cores": max(v1_f32_bound.values()),
+         "k2_same_ms": v1_times[("window", "float32")]["K2"],
+         "k2_v1_mode_same_ms": v1_times[("window", "float32")]["K2 v1 mode"],
+         "request_ms": v1_times[("request", "float32")]["K2-v1"],
+         "request_plain_ms": v1_times[("request", "float32")]["plain"],
+         "request_bound_ms_tf32x3": max(v1_tf32_request_bound.values()),
+         "parts_ms": {k_: v_ for k_, v_ in parts_ms.items() if k_.startswith("K2-v1 float32")},
+         "streaming_float32": {f"use_v2={k_[1]}": {kk: v_[kk] for kk in ("seconds", "xrt", "peak")}
+                               for k_, v_ in stream_stats.items() if k_[0] == "float32"},
+         "design": "the bf16 kernel's cluster design (8 CTAs, DSMEM halos) with a float32 conv plane and split-TF32 "
+                   "products on wgmma m64nNk8 (A split in registers), the weights' hi and lo streamed tap by tap "
+                   "through 2-4 TMA slots, each tap's products into a fresh accumulator added to float32 sums"},
         {"name": "run_variant (K1 ablation probe)", "route": "cuda", "source": K1_SOURCE,
          "replaces": "scripts/exp_act_variants.py:173", "launches": launches["probe"],
          "max_abs_err": errs["probe"], "ms": sum(probe_table[probe_shape].values()),

@@ -1,6 +1,6 @@
 // Shared device helpers for the anti-aliased snake activation (K1,
-// anti_alias.cu) and the fused AMP stage (K2, stage_fused.cu and
-// stage_fused_tc.cu).
+// anti_alias.cu) and the fused AMP stage (K2, stage_fused_tc.cu and
+// stage_fused_tf32.cu; K2-v1, stage_fused_v1.cu).
 //
 // The activation is the reference chain UpSample1d (replicate 5, 12-tap
 // kaiser-sinc, x2) -> snake -> DownSample1d (replicate 5/6 of the

@@ -1,10 +1,12 @@
 // Hopper building blocks shared by the kernels that feed the tensor cores
 // through shared memory: mbarriers, TMA (tensor-map boxes and 1-D bulk
 // copies), wgmma's shared-memory matrix descriptors and the asynchronous
-// warpgroup product wgmma.mma_async (m64nNk16, bf16 operands, float32 sums)
-// for the widths the kernels use, and cluster barriers and peer reads. Used
-// by P4 (probes.cu), K2's bf16 kernel (stage_fused_tc.cu) and K2-v1's
-// (stage_fused_v1.cu). sm_90a only.
+// warpgroup product wgmma.mma_async (m64nNk16 on bf16 operands, m64nNk8 on
+// TF32 operands with A from registers and the split of a float32 value into
+// two TF32 parts; float32 sums) for the widths the kernels use, and cluster
+// barriers and peer reads. Used by P4 (probes.cu), K2's kernels
+// (stage_fused_tc.cu, stage_fused_tf32.cu) and K2-v1's (stage_fused_v1.cu).
+// sm_90a only.
 #pragma once
 
 #include <cuda.h>
@@ -341,6 +343,79 @@ struct Wgmma<256> {
 template <int N, int TRANS_B>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
   Wgmma<N>::template run<TRANS_B>(d, a, b, scale_d);
+}
+
+// d += A B for a 64 x N tile of the warpgroup with TF32 operands
+// (wgmma m64nNk8): A from registers, the m64nNk8 A fragment of 4 values a
+// thread (warp w of the group, lane = 4 g + t: rows 16 w + g (a[0], a[2])
+// and 16 w + g + 8 (a[1], a[3]), columns t (a[0], a[1]) and t + 4 (a[2],
+// a[3]) of the 8), B K-major in shared memory by descriptor (TF32 takes
+// K-major operands only: core matrices of 8 rows x 4 values); d float32 in
+// the accumulator layout of Wgmma; scale_d = 0 overwrites d. The low 13
+// bits of each operand must be zero (split_tf32).
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<24> {
+  static __device__ __forceinline__ void run(float (&d)[12], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+        "}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<48> {
+  static __device__ __forceinline__ void run(float (&d)[24], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23"
+        "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+          "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  WgmmaTf32<N>::run(d, a, b, scale_d);
+}
+
+// x = hi + lo + r with hi = tf32(x), lo = tf32(x - hi) (cvt.rna: to nearest,
+// ties away from zero; the low 13 bits cleared), |r| <= 2^-22 |x|: the
+// operands of the split-TF32 products.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  hi &= 0xFFFFE000u;
+  const float r = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+  lo &= 0xFFFFE000u;
 }
 
 // Pins an accumulator array in its registers across the asynchronous

@@ -1,10 +1,10 @@
 // K2, bf16: one fused act -> conv step of a BigVGAN AMP resblock stage on
-// the tensor cores (wgmma). The float32 steps keep the CUDA-core kernel of
-// stage_fused.cu; ops/stage_fused.py picks the kernel by dtype, as the JAX
+// the tensor cores (wgmma). The float32 steps run on the split-TF32 kernel
+// of stage_fused_tf32.cu; ops/stage_fused.py picks the kernel by dtype, as the JAX
 // kernel runs its bf16 convs on the matrix unit (`mm_dtype = bfloat16`,
 // dmel_codec_tpu/ops/stage_fused.py:396-397) and float32 at HIGHEST.
 //
-// Replaces, with stage_fused.cu, the Pallas TPU kernel `_kernel_v2` /
+// Replaces, with stage_fused_tf32.cu, the Pallas TPU kernel `_kernel_v2` /
 // `fused_amp_stage_v2` (dmel_codec_tpu/ops/stage_fused.py); one launch
 // computes
 //   out = (round(conv_{k,d}(act(src)) + bias) [+ res] [+ acc_in]) / mean_of

@@ -6,10 +6,11 @@ output = mean of the three xb — on channels-first [B, C, T], from
 `pack_stage`'s arrays (weight norm folded, alpha/beta pre-exp'd):
   * on a CPU tensor `amp_stage` runs the plain version, `stage_reference`;
   * on a CUDA tensor it runs kernel K2: one launch per act -> conv pair, 18
-    per stage (`launch_plan`), with no torch op in between; a bf16 stage's
-    launches run on the tensor cores (csrc/stage_fused_tc.cu), a float32
-    stage's on the CUDA cores (csrc/stage_fused.cu), as the JAX kernel runs
-    bf16 convs on the matrix unit and float32 at HIGHEST.
+    per stage (`launch_plan`), with no torch op in between, on the tensor
+    cores: a bf16 stage's convs on bf16 operands (csrc/stage_fused_tc.cu,
+    `tc_plan`), a float32 stage's as three TF32 products of each operand
+    split into hi + lo (csrc/stage_fused_tf32.cu, `tf32_plan`), as the JAX
+    kernel runs bf16 convs on the matrix unit and float32 at HIGHEST.
 `act_conv` is one launch and `act_conv_reference` its plain version; the
 plain stage is `launch_plan` run through `act_conv_reference`.
 `amp_stage(..., v1=True)` runs the same kernels under the v1 contract (its
@@ -17,9 +18,9 @@ plain version `stage_reference_v1`): the JAX `fused_amp_stage`
 (`use_v2=False`) at stages wider than K2-v1 takes.
 `amp_stage_v1` is the same function as one launch per stage (kernel K2-v1,
 csrc/stage_fused_v1.cu; the JAX `fused_amp_stage`, `use_v2=False`), for
-C <= V1_MAX_CHANNELS: a bf16 stage on the tensor cores in clusters of
-V1_CLUSTER CTAs (`v1_tc_plan`), a float32 one on the CUDA cores
-(`v1_tile`); its plain version is `stage_reference_v1`.
+C <= V1_MAX_CHANNELS, on the tensor cores in clusters of V1_CLUSTER CTAs
+(bf16 `v1_tc_plan`, float32 on split-TF32 products `v1_tf32_plan`); its
+plain version is `stage_reference_v1`.
 
 bf16 contracts. K2 (the JAX v2 kernel's, stage_fused.py:398-403, 500-519):
 the activation's input, its 12 taps, the snake's output v (before the down
@@ -36,7 +37,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import math
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -206,7 +208,7 @@ def stage_reference_v1(x: torch.Tensor, packed: dict, spec: StageSpec) -> torch.
     return _reference(x, packed, spec, v1=True)
 
 
-# ---- the kernels: float32 on the CUDA cores, bf16 on the tensor cores ---------
+# ---- the kernels: bf16 and float32 (split-TF32) on the tensor cores -------
 
 TC_WIDTHS = (24, 32, 48, 64, 96, 128, 160, 192)  # the bf16 kernel's N instantiations
 TC_SLOT_BYTES = 32768  # most bytes of one streamed (tap, K chunk) of weights
@@ -252,13 +254,137 @@ def tc_unpack(flat: torch.Tensor, offsets: Sequence[int], kernel_sizes: Sequence
     return ws
 
 
-def _co_tile(c: int) -> int:
-    """Output-channel tile of a float32 K2 block (kernel instantiations
-    24/48/64; channels past C are masked)."""
-    for tile in (64, 48, 24):
-        if c % tile == 0:
-            return tile
-    return 24
+def _align128(v: int) -> int:
+    return (v + 127) // 128 * 128
+
+
+# The float32 kernel (csrc/stage_fused_tf32.cu): N instantiations, output
+# samples a block owns, input halo, largest conv reach, weight slots, and
+# shared memory a block may use (one block of 16 warps an SM at N = 192, two
+# of 8 warps below).
+TF32_WIDTHS = (24, 48, 96, 192)
+TF32_BM, _TF32_XH, _TF32_MAX_P, _TF32_MAX_SLOTS = 128, 8, 32, 32
+_TF32_SMEM, _TF32_PAIR_SMEM = 227 * 1024, 115712
+TF32_SLOT_BYTES = 6144  # bytes of a weight slot (hi + lo) aimed at; at least 8 channels' worth
+
+
+class Tf32Plan(NamedTuple):
+    """A float32 K2 launch's tiling: N output channels a block, blocks of N,
+    KP (C rounded up to the warps of a block), KS input channels a
+    super-chunk, KC channels a weight slot, BM output samples a block,
+    warps a block, weight slots, shared memory bytes."""
+
+    n: int
+    blocks: int
+    kp: int
+    ks: int
+    kc: int
+    bm: int
+    warps: int
+    slots: int
+    smem_bytes: int
+
+
+def tf32_bytes(ks: int, n: int, warps: int, reach: int, kc: int, slots: int) -> int:
+    """Shared memory of a float32 K2 block (the kernel's f32_layout): the
+    float32 tile A of BM + 2 reach rows x KS, the activation scratch (each
+    warp's input row and two snake phases), or the epilogue's [N][BM + 4]
+    tile where that is larger, the weight slots, their barriers and the
+    base's alignment."""
+    rows = TF32_BM + 2 * reach
+    lx, lv = rows + 2 * _TF32_XH, rows + 6
+    ring = max(_align128(4 * ks * rows) + _align128(4 * warps * (lx + 2 * lv)), 4 * n * (TF32_BM + 4))
+    return ring + slots * kc * n * 8 + 16 * slots + 128
+
+
+def tf32_tiling(c: int) -> Tuple[int, int, int, int, int, int]:
+    """(N, blocks of N, KP, KS, KC, warps) of the float32 kernel at C
+    channels: N the narrowest instantiation that holds C (rounded up to 8),
+    or blocks of 192 beyond; 16 warps at N = 192, else 8; KP C rounded up
+    to the warps (each warp computes one channel of a chunk); KC the widest
+    multiple of 8 up to 24 dividing KP whose hi + lo (KC x N x 8 bytes) fit
+    TF32_SLOT_BYTES, or 8; KS the most input channels of a super-chunk (a
+    multiple of the warps and of KC dividing KP) whose A tile fits beside
+    two weight slots at the largest reach (KP up to C = 208)."""
+    c8 = -(-c // 8) * 8
+    n = next((w for w in TF32_WIDTHS if w >= c8), TF32_WIDTHS[-1])
+    warps = 16 if n >= 128 else 8
+    kp = -(-c // warps) * warps
+    kc = max(m for m in range(8, min(kp, 24) + 1, 8) if kp % m == 0 and (m == 8 or m * n * 8 <= TF32_SLOT_BYTES))
+    budget = _TF32_SMEM if warps == 16 else _TF32_PAIR_SMEM
+    ks = max(m for m in range(warps, kp + 1, warps) if kp % m == 0 and m % kc == 0
+             and (m == math.lcm(warps, kc) or tf32_bytes(m, n, warps, _TF32_MAX_P, kc, 2) <= budget))
+    return n, -(-c // n), kp, ks, kc, warps
+
+
+def tf32_plan(c: int, k: int, d: int) -> Tf32Plan:
+    """The float32 kernel's plan for a conv of size k and dilation d at C
+    channels: `tf32_tiling`, and as many weight slots as fit the block's
+    shared memory (at most 32, and no more than the conv's (tap, K chunk)
+    stages)."""
+    n, blocks, kp, ks, kc, warps = tf32_tiling(c)
+    reach = d * (k - 1) // 2
+    if reach > _TF32_MAX_P:
+        raise ValueError(f"a conv reaching {reach} samples per side is beyond the kernel's {_TF32_MAX_P}")
+    budget = _TF32_SMEM if warps == 16 else _TF32_PAIR_SMEM
+    stages = k * kp // kc
+    fit = [s for s in range(1, min(_TF32_MAX_SLOTS, stages) + 1) if tf32_bytes(ks, n, warps, reach, kc, s) <= budget]
+    if not fit or fit[-1] < min(2, stages):
+        raise ValueError(f"the float32 kernel cannot hold a C = {c}, k = {k}, d = {d} conv in shared memory")
+    slots = fit[-1]
+    return Tf32Plan(n, blocks, kp, ks, kc, TF32_BM, warps, slots, tf32_bytes(ks, n, warps, reach, kc, slots))
+
+
+def tf32_weights(ws: Sequence[torch.Tensor], c: int, per_tap: bool = False) -> Tuple[torch.Tensor, list]:
+    """[k, C_out, C_in] float32 conv weights -> one float32 tensor in the
+    layout the float32 kernels stream, each weight split into hi =
+    tf32(w), lo = tf32(w - hi) (`split_tf32`): [N block][KP / KS][tap][KS /
+    KC][hi, lo][KC / 4][N][4] per conv, zero-padded (N, KP, KS, KC of
+    `tf32_tiling`; K2-v1's `per_tap` layout has KS = KC = KP: a tap a
+    slot), and each conv's offset in it, in elements."""
+    n, blocks, kp, ks, kc, _ = tf32_tiling(c)
+    if per_tap:
+        ks = kc = kp
+    parts, offsets, at = [], [], 0
+    for w in ws:
+        k = w.shape[0]
+        wp = torch.zeros((k, blocks * n, kp), dtype=torch.float32, device=w.device)
+        wp[:, :c, :c] = w
+        t = torch.stack(split_tf32(wp))  # [2, k, blocks * n, kp]
+        t = t.view(2, k, blocks, n, kp // ks, ks // kc, kc // 4, 4).permute(2, 4, 1, 5, 0, 6, 3, 7).reshape(-1)
+        parts.append(t)
+        offsets.append(at)
+        at += t.numel()
+    return torch.cat(parts), offsets
+
+
+def tf32_unpack(flat: torch.Tensor, offsets: Sequence[int], kernel_sizes: Sequence[int], c: int,
+                per_tap: bool = False) -> list:
+    """`tf32_weights`' inverse: (hi, lo) [k, C, C] of each conv."""
+    n, blocks, kp, ks, kc, _ = tf32_tiling(c)
+    if per_tap:
+        ks = kc = kp
+    ws = []
+    for at, k in zip(offsets, kernel_sizes):
+        t = flat[at: at + 2 * blocks * k * kp * n].view(blocks, kp // ks, k, ks // kc, 2, kc // 4, n, 4)
+        t = t.permute(4, 2, 0, 6, 1, 3, 5, 7).reshape(2, k, blocks * n, kp)[:, :, :c, :c]
+        ws.append((t[0], t[1]))
+    return ws
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as `cvt.rna.tf32.f32` (finite inputs)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi): what the float32
+    kernels multiply (A_hi B_hi + A_hi B_lo + A_lo B_hi); x - hi - lo is at
+    most 2^-22 of |x|."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
 
 
 def _check_input(x: torch.Tensor, spec: StageSpec) -> None:
@@ -289,8 +415,9 @@ def _kernel_args(packed: dict, spec: StageSpec, dtype: torch.dtype, device: torc
 def _k2_args(packed: dict, spec: StageSpec, dtype: torch.dtype, device: torch.device) -> dict:
     """What K2's launches need besides the planes, made once per dtype and
     device and kept in `packed` (a snapshot of the weights, like `packed`
-    itself): float32, the weights as they are; bf16, `tc_weights`' layout;
-    the float32 columns and the taps of each contract."""
+    itself): the weights in the layout of the dtype's kernel (bf16
+    `tc_weights`, float32 `tf32_weights`), the float32 columns and the taps
+    of each contract; float32 also its plans by (k, d)."""
     key = ("K2", dtype, device)
     if key not in packed:
         ws, cols, n_convs = _kernel_args(packed, spec, dtype, device)
@@ -300,16 +427,18 @@ def _k2_args(packed: dict, spec: StageSpec, dtype: torch.dtype, device: torch.de
             args["w_tc"], args["offsets"] = tc_weights(ws, spec.channels)
             args["plan"] = tc_plan(spec.channels)
         else:
-            args["w"], args["co_tile"] = ws, _co_tile(spec.channels)
+            args["w_tf32"], args["offsets"] = tf32_weights(ws, spec.channels)
+            args["plans"] = {(k, d): tf32_plan(spec.channels, k, d)
+                             for k, dils in zip(spec.kernel_sizes, spec.dilations) for d in {1, *dils}}
         packed[key] = args
     return packed[key]
 
 
 def _launch(lib, args: dict, spec: StageSpec, n: int, src, out, res, acc_in, mean_of: int, v1: bool,
             parts: int = 3) -> None:
-    """One K2 launch on planes that passed the checks: the tensor-core kernel
-    for a bf16 stage, the CUDA-core kernel for a float32 one. `parts` < 3
-    drops parts of the bf16 kernel (probes/stage_parts.py)."""
+    """One K2 launch on planes that passed the checks: the bf16 kernel for
+    a bf16 stage, the split-TF32 kernel for a float32 one. `parts` < 3
+    drops parts of the kernel (probes/stage_parts.py)."""
     bsz, c, t = src.shape
     k, d = conv_site(spec, n)
     ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
@@ -325,16 +454,16 @@ def _launch(lib, args: dict, spec: StageSpec, n: int, src, out, res, acc_in, mea
             bsz, c, t, k, d, args["taps"][not v1], parts, strm,
         )
         library.check(lib, rc, "dmel_act_conv_tc")
-        amp_stage.launches_by_kernel["tensor_cores"] += 1
+        amp_stage.launches_by_kernel["act_conv_tc_kernel"] += 1
     else:
-        if parts != 3:
-            raise ValueError("only the bf16 kernel has parts to drop")
-        rc = lib.dmel_act_conv(
-            src.data_ptr(), args["w"][n].data_ptr(), *cols, ptr(res), ptr(acc_in), out.data_ptr(),
-            1.0 / mean_of, bsz, c, t, k, d, args["co_tile"], args["taps"][False], strm,
+        plan = args["plans"][(k, d)]
+        rc = lib.dmel_act_conv_tf32(
+            src.data_ptr(), args["w_tf32"].data_ptr() + 4 * args["offsets"][n], plan.n, plan.kp, plan.ks,
+            plan.kc, plan.slots, *cols, ptr(res), ptr(acc_in), out.data_ptr(), float(mean_of), bsz, c, t, k, d,
+            args["taps"][False], parts, strm,
         )
-        library.check(lib, rc, "dmel_act_conv")
-        amp_stage.launches_by_kernel["cuda_cores"] += 1
+        library.check(lib, rc, "dmel_act_conv_tf32")
+        amp_stage.launches_by_kernel["act_conv_tf32_kernel"] += 1
     amp_stage.launches += 1
 
 
@@ -359,7 +488,7 @@ def amp_stage(x: torch.Tensor, packed: dict, spec: StageSpec, v1: bool = False) 
 
 
 amp_stage.launches = 0  # K2 launches (18 per stage call), counted in _launch
-amp_stage.launches_by_kernel = {"tensor_cores": 0, "cuda_cores": 0}  # bf16 / float32 launches
+amp_stage.launches_by_kernel = {"act_conv_tc_kernel": 0, "act_conv_tf32_kernel": 0}  # bf16 / float32 launches
 
 
 def act_conv(
@@ -400,30 +529,17 @@ def act_conv(
 
 # ---- K2-v1: the whole stage in one launch -----------------------------------
 
-V1_MAX_CHANNELS = 48  # widest stage whose planes and halo fit a block (float32: three planes; bf16: N <= 48)
+V1_MAX_CHANNELS = 48  # widest stage whose planes, conv input and weights fit a block beside W = 256 columns
 
-
-def v1_tile(c: int, spec: StageSpec, scratch_floats: int, smem_bytes: int) -> int:
-    """Columns a K2-v1 block stores: the most that fit the block's shared
-    memory (`smem_bytes`, the library's budget) beside the halo (a multiple
-    of 4, at most 1024). Per block: the scratch, three planes of
-    C x (W + 2 R) (one with 2 * conv_reach zero columns more) and the
-    running sum C x W."""
-    fixed = scratch_floats + c * (6 * spec.receptive + 2 * spec.conv_reach)
-    w = (smem_bytes // 4 - fixed) // (4 * c)
-    return min(w // 4 * 4, 1024)
-
-
-# The bf16 kernel's plan (csrc/stage_fused_v1.cu, stage_v1_tc_kernel): a
-# cluster of V1_CLUSTER CTAs, each owning W columns (a multiple of 256: 64
-# rows for each of 4 warpgroups); halo widths as the kernel's TC_XH, TC_PA,
-# and its activation scratch (16 warps x 2 x 136 floats).
+# The kernels' plan (csrc/stage_fused_v1.cu): a cluster of V1_CLUSTER CTAs,
+# each owning W columns (a multiple of 256: 64 rows for each of 4
+# warpgroups); halo widths as the kernel's TC_XH, TC_PA, and its activation
+# scratch (16 warps x 2 x 136 floats).
 V1_CLUSTER = 8
 _TC_XH, _TC_PA, _TC_SCR_BYTES = 8, 32, 4 * 16 * 2 * 136
-
-
-def _align128(v: int) -> int:
-    return (v + 127) // 128 * 128
+# float32: the 64-row tiles a warpgroup holds the sums of (W / 256 at most),
+# by N, and the per-tap weight slots
+_V1_TF32_TILES, V1_TF32_MAX_SLOTS = {24: 4, 32: 2, 48: 1}, 4
 
 
 def v1_tc_bytes(c: int, kp: int, n: int, w: int, kmax: int) -> int:
@@ -436,6 +552,17 @@ def v1_tc_bytes(c: int, kp: int, n: int, w: int, kmax: int) -> int:
             + _TC_SCR_BYTES + 16 + 128)
 
 
+def v1_tf32_bytes(c: int, kp: int, n: int, w: int, slots: int) -> int:
+    """Shared memory of a float32 K2-v1 block (the kernel's v1tc_layout):
+    the float32 xb and t planes, the float32 conv input of W + 64 rows x KP
+    channels, `slots` per-tap slots of hi + lo weights (KP x N x 8 bytes),
+    the activation scratch, a full and an empty mbarrier per slot and the
+    base's alignment."""
+    lw, ra = w + 2 * _TC_XH, w + 2 * _TC_PA
+    return (2 * _align128(4 * c * lw) + _align128(4 * kp * ra) + _align128(8 * slots * kp * n)
+            + _TC_SCR_BYTES + 16 * slots + 128)
+
+
 def v1_tc_plan(c: int, spec: StageSpec, smem_bytes: int) -> Tuple[int, int, int]:
     """(N, KP, W) of the bf16 kernel: N and KP as K2's `tc_plan` (C rounded
     up to a wgmma width, and to 16), W the most columns a multiple of 256
@@ -444,6 +571,23 @@ def v1_tc_plan(c: int, spec: StageSpec, smem_bytes: int) -> Tuple[int, int, int]
     kmax = max(spec.kernel_sizes)
     w = max((w for w in (256, 512, 768, 1024) if v1_tc_bytes(c, kp, n, w, kmax) <= smem_bytes), default=0)
     return n, kp, w
+
+
+def v1_tf32_plan(c: int, spec: StageSpec, smem_bytes: int) -> Tuple[int, int, int, int]:
+    """(N, KP, W, slots) of the float32 kernel: N as the bf16 plan's, KP C
+    rounded up to 8 (a TF32 product takes 8 channels), W the most columns
+    a multiple of 256 whose block fits `smem_bytes` with two weight slots
+    (and whose tiles a warpgroup can hold the sums of: W <= 1024, 512, 256
+    at N = 24, 32, 48), then as many slots as fit, up to
+    V1_TF32_MAX_SLOTS; W = 0 if none does."""
+    n, _, _, _ = tc_plan(c)
+    kp = -(-c // 8) * 8
+    tiles = _V1_TF32_TILES.get(n, 0)
+    w = max((w for w in (256, 512, 768, 1024)
+             if w // 256 <= tiles and v1_tf32_bytes(c, kp, n, w, 2) <= smem_bytes), default=0)
+    slots = max((s for s in range(3, V1_TF32_MAX_SLOTS + 1) if w and v1_tf32_bytes(c, kp, n, w, s) <= smem_bytes),
+                default=2)
+    return n, kp, w, slots
 
 
 def v1_tc_tiles(t: int, w: int, g: int, reach: int) -> list:
@@ -466,9 +610,9 @@ def v1_tc_tiles(t: int, w: int, g: int, reach: int) -> list:
 def _v1_args(x: torch.Tensor, packed: dict, spec: StageSpec, lib) -> dict:
     """What a K2-v1 launch needs besides x, made once per dtype and device
     and kept in `packed` (a snapshot of the weights, like `packed` itself):
-    the weights in the kernel's layout (float32: [k][C_in][C_out padded to
-    8]; bf16: `tc_weights`'), the float32 columns, the tile plan and the
-    spec as C arrays."""
+    the weights in the kernel's layout (bf16: `tc_weights`'; float32:
+    `tf32_weights`' with a tap per slot), the float32 columns, the tile
+    plan and the spec as C arrays."""
     key = ("v1", x.dtype, x.device)
     if key not in packed:
         ws, cols, _ = _kernel_args(packed, spec, x.dtype, x.device)
@@ -480,28 +624,23 @@ def _v1_args(x: torch.Tensor, packed: dict, spec: StageSpec, lib) -> dict:
         dils = [d for row in spec.dilations for d in (*row, *([0] * (max_d - len(row))))]
         args = {**cols, "max_d": max_d, "ks": ints(*spec.kernel_sizes), "n_dils": ints(*map(len, spec.dilations)),
                 "dils": (ctypes.c_int * len(dils))(*dils), "taps": library.taps(FILT)}
+        smem = lib.dmel_stage_v1_smem_bytes()
         if x.dtype == torch.bfloat16:
-            n, kp, tile = v1_tc_plan(c, spec, lib.dmel_stage_v1_smem_bytes())
-            if tile == 0 or spec.conv_reach > _TC_PA:
-                raise ValueError(f"K2-v1 cannot hold {spec} in one block's shared memory")
-            args.update(w=tc_weights(ws, c)[0], n=n, kp=kp, tile=tile)
+            (n, kp, tile), slots = v1_tc_plan(c, spec, smem), 0
+            w = tc_weights(ws, c)[0]
         else:
-            scratch = lib.dmel_stage_v1_scratch_floats()
-            tile = v1_tile(c, spec, scratch, lib.dmel_stage_v1_smem_bytes())
-            cp = -(-c // 8) * 8
-            ci_chunk = min(c, scratch // (max(spec.kernel_sizes) * cp))
-            if tile < 4 or ci_chunk < 1:
-                raise ValueError(f"K2-v1 cannot hold {spec} in one block's shared memory")
-            # [k, out, in] -> [k, in, out padded to a multiple of 8], one after another
-            args.update(w=torch.cat([F.pad(w.transpose(1, 2), (0, cp - c)).reshape(-1) for w in ws]),
-                        tile=tile, ci_chunk=ci_chunk)
+            n, kp, tile, slots = v1_tf32_plan(c, spec, smem)
+            w = tf32_weights(ws, c, per_tap=True)[0]
+        if tile == 0 or spec.conv_reach > _TC_PA:
+            raise ValueError(f"K2-v1 cannot hold {spec} in one block's shared memory")
+        args.update(w=w, n=n, kp=kp, tile=tile, slots=slots)
         packed[key] = args
     return packed[key]
 
 
 def _run_kernel_v1(x: torch.Tensor, packed: dict, spec: StageSpec, parts: int = 3, config=None) -> torch.Tensor:
-    """One K2-v1 launch: bf16 on the tensor cores, float32 on the CUDA
-    cores. `parts` < 3 drops parts of it (probes/stage_parts.py)."""
+    """One K2-v1 launch (bf16, or float32 on split-TF32 products). `parts`
+    < 3 drops parts of it (probes/stage_parts.py)."""
     if x.dim() == 3 and x.shape[1] > V1_MAX_CHANNELS:
         raise ValueError(
             f"K2-v1 holds a whole stage in shared memory and takes at most "
@@ -514,28 +653,22 @@ def _run_kernel_v1(x: torch.Tensor, packed: dict, spec: StageSpec, parts: int = 
         raise ValueError(f"batch {bsz} must fit the launch grid (65535)")
     a = _v1_args(x, packed, spec, lib)
     y = torch.empty_like(x)
-    blocks = (len(spec.kernel_sizes), a["ks"], a["n_dils"], a["dils"], a["max_d"], a["taps"], parts)
-    cols = (a["b"].data_ptr(), a["a"].data_ptr(), a["ib"].data_ptr())
-    if x.dtype == torch.bfloat16:
-        acc = torch.empty(x.shape, dtype=torch.float32, device=x.device)  # the running sum
-        rc = lib.dmel_stage_v1_tc(
-            x.data_ptr(), a["w"].data_ptr(), *cols, y.data_ptr(), acc.data_ptr(), a["n"], a["kp"],
-            bsz, c, t, a["tile"], spec.receptive, V1_CLUSTER, *blocks, config, library.stream(x),
-        )
-        library.check(lib, rc, "dmel_stage_v1_tc")
-    else:
-        rc = lib.dmel_stage_v1(
-            x.data_ptr(), a["w"].data_ptr(), *cols, y.data_ptr(), bsz, c, t, a["tile"], spec.receptive,
-            spec.conv_reach, a["ci_chunk"], *blocks, library.stream(x),
-        )
-        library.check(lib, rc, "dmel_stage_v1")
+    acc = torch.empty(x.shape, dtype=torch.float32, device=x.device)  # the running sum
+    rc = lib.dmel_stage_v1_tc(
+        x.data_ptr(), a["w"].data_ptr(), a["b"].data_ptr(), a["a"].data_ptr(), a["ib"].data_ptr(), y.data_ptr(),
+        acc.data_ptr(), a["n"], a["kp"], bsz, c, t, a["tile"], spec.receptive, V1_CLUSTER, a["slots"],
+        len(spec.kernel_sizes), a["ks"], a["n_dils"], a["dils"], a["max_d"], a["taps"], parts, config,
+        library.stream(x),
+    )
+    library.check(lib, rc, "dmel_stage_v1_tc")
     amp_stage_v1.launches += 1
+    amp_stage_v1.launches_by_kernel["stage_v1_tf32_kernel" if a["slots"] else "stage_v1_tc_kernel"] += 1
     return y
 
 
 def v1_launch_config(x: torch.Tensor, packed: dict, spec: StageSpec) -> dict:
-    """One bf16 K2-v1 launch on x, and what it ran as: grid, threads,
-    shared memory per block, cluster size and W."""
+    """One K2-v1 launch on x, and what it ran as: grid, threads, shared
+    memory per block, cluster size and W."""
     cfg = (ctypes.c_int * 6)()
     _run_kernel_v1(x, packed, spec, config=cfg)
     return {"grid": (cfg[0], cfg[1]), "threads": cfg[2], "smem_bytes": cfg[3], "cluster": cfg[4], "tile": cfg[5]}
@@ -549,3 +682,4 @@ def amp_stage_v1(x: torch.Tensor, packed: dict, spec: StageSpec) -> torch.Tensor
 
 
 amp_stage_v1.launches = 0  # K2-v1 launches (1 per stage call), counted in _run_kernel_v1
+amp_stage_v1.launches_by_kernel = {"stage_v1_tc_kernel": 0, "stage_v1_tf32_kernel": 0}  # bf16 / float32 launches

@@ -1,9 +1,9 @@
 """Times of the redesigned kernels at their main-path shapes (the
 flash-attention kernels FA, FA-dKV and FA-dQ at the LM's shapes, P4 at the
-probe's 264 planes at C = 96 and 192, K2's bf16 stages s2..s5 and K2-v1's
-s4 and s5 of the flagship vocoder, and K1 at its three shapes, each at a
-codec request's and a streaming window's shapes), and a same-card
-comparison of two checkouts.
+probe's 264 planes at C = 96 and 192, K2's stages s2..s5 and K2-v1's s4
+and s5 of the flagship vocoder in bf16 and float32, and K1 at its three
+shapes, each at a codec request's and a streaming window's shapes), and a
+same-card comparison of two checkouts.
 
     python3 -m dmel_codec_tpu_torch.probes.flash_times              # this checkout
     python3 -m dmel_codec_tpu_torch.probes.flash_times --ab OTHER   # OTHER, this, this, OTHER
@@ -18,13 +18,16 @@ left out), its `ops/stage_fused.amp_stage(x, packed, spec)` and
 `amp_stage_v1(x, packed, spec)` and its
 `ops/anti_alias.anti_alias_activation(x, alpha, beta, logscale)`; the runs
 alternate so that a drift of the card shows as a difference between the
-two runs of one checkout. Each run also records what must not change, or
-must change by a stated amount: hashes of the float32 FA-dQ output at
-[2, 1024], of the float32 K2 stage at a window's s3 and the float32 K2-v1
-stage at a window's s5 (the same bits in every run: the float32 kernels
-are the same code), and of K1 in float32 and bf16 at s1 and at a ragged
-shape (the same bits: K1's redesign keeps its sums), and the flagship
-vocoder's bf16 waveform on
+two runs of one checkout. K2 and K2-v1 are timed in bf16 and in float32
+(the float32 kernels run split-TF32 products on the tensor cores since
+their redesign; the parent's ran on the CUDA cores). Each run also records
+what must not change: hashes of the float32 FA-dQ output at [2, 1024], of
+the bf16 K2 stage at a window's s3 and the bf16 K2-v1 stage at a window's
+s5, and of K1 in float32 and bf16 at s1 and at a ragged shape (the same
+bits in all four runs); and of the float32 K2 and K2-v1 stages at the same
+shapes (the same bits in the two runs of one checkout: the float32 kernels
+sum in a fixed order, in another one than before their redesign); and the
+flagship vocoder's bf16 waveform on
 seeded random weights with spread snake parameters (written to the
 checkout's `build/ab_vocoder.pt`; the difference between the checkouts is
 printed). Prints one line per case and run, and as its last line a JSON
@@ -51,7 +54,7 @@ P4_WIDTHS, P4_PLANES = (96, 192), 264  # x [264, 2176, C] @ w [C, C], 11 taps of
 # K2: (case, B, C, T) of the flagship's fused stages, 16 x 4 s (372 mel frames) and one window (560)
 K2_CASES = tuple((f"{what} s{i}", b, c, frames * rate) for what, b, frames in (("request", 16, 372), ("window", 1, 560))
                  for i, c, rate in ((2, 192, 32), (3, 96, 64), (4, 48, 128), (5, 24, 256)))
-K2_BITS = ("window s3", 1, 96, 560 * 64)  # the float32 stage whose bits every run must share
+K2_BITS = ("window s3", 1, 96, 560 * 64)  # the stage whose bits the runs must share
 V1_CASES = tuple(case for case in K2_CASES if case[2] <= 48)  # K2-v1: s4 and s5
 V1_BITS = ("window s5", 1, 24, 560 * 256)
 # K1: (case, B, C, T) of act_post, s0 and s1 at a request's and a window's shapes
@@ -115,24 +118,20 @@ def time_here(root: Path, reps: int = 20) -> dict:
                 continue
             out[f"P4 C = {c} [{P4_PLANES} planes]"] = cuda_ms(lambda: sublane_ops.tap_matmul(xb, w), reps)
         cpu = torch.Generator().manual_seed(2)
-        for i, (name, b, c, t) in enumerate(K2_CASES + (K2_BITS,)):
-            spec, packed = StageSpec(channels=c), k2_pack(c, cpu)
-            x = torch.randn((b, c, t), generator=cpu).to("cuda")
-            if i < len(K2_CASES):
-                xb = x.bfloat16()
-                out[f"K2 bf16 {name} {[b, c, t]} (18 launches)"] = cuda_ms(lambda: amp_stage(xb, packed, spec), 3)
-            else:
-                y = amp_stage(x, packed, spec).cpu().numpy()
-                out[f"bits K2 float32 {name} {[b, c, t]}"] = hashlib.sha256(y.tobytes()).hexdigest()
-        for i, (name, b, c, t) in enumerate(V1_CASES + (V1_BITS,)):
-            spec, packed = StageSpec(channels=c), k2_pack(c, cpu)
-            x = torch.randn((b, c, t), generator=cpu).to("cuda")
-            if i < len(V1_CASES):
-                xb = x.bfloat16()
-                out[f"K2-v1 bf16 {name} {[b, c, t]} (1 launch)"] = cuda_ms(lambda: amp_stage_v1(xb, packed, spec), 3)
-            else:
-                y = amp_stage_v1(x, packed, spec).cpu().numpy()
-                out[f"bits K2-v1 float32 {name} {[b, c, t]}"] = hashlib.sha256(y.tobytes()).hexdigest()
+        for kernel, fn, cases, bits in (("K2", amp_stage, K2_CASES, K2_BITS), ("K2-v1", amp_stage_v1, V1_CASES, V1_BITS)):
+            what = "18 launches" if kernel == "K2" else "1 launch"
+            for i, (name, b, c, t) in enumerate(cases + (bits,)):
+                spec, packed = StageSpec(channels=c), k2_pack(c, cpu)
+                x = torch.randn((b, c, t), generator=cpu).to("cuda")
+                for dt in ("bfloat16", "float32"):
+                    xd = x.to(getattr(torch, dt))
+                    tag = f"{kernel} {'bf16' if dt == 'bfloat16' else dt} {name} {[b, c, t]}"
+                    if i < len(cases):
+                        out[f"{tag} ({what})"] = cuda_ms(lambda: fn(xd, packed, spec), 3)
+                    else:  # bf16: the same bits in every run; float32: in the two runs of a checkout
+                        y = fn(xd, packed, spec).float().cpu().numpy()
+                        key = f"bits {tag}" if dt == "bfloat16" else f"own bits {tag}"
+                        out[key] = hashlib.sha256(y.tobytes()).hexdigest()
         for name, b, c, t in K1_CASES:
             x = torch.randn((b, c, t), generator=cpu).to("cuda", torch.bfloat16)
             alpha = (0.3 * torch.randn(c, generator=cpu)).to("cuda")
@@ -199,16 +198,18 @@ def main(argv=None) -> dict:
             raise RuntimeError(f"timing {root} failed:\n{proc.stderr[-4000:]}")
         times = json.loads(proc.stdout.strip().splitlines()[-1])
         for case, ms in times.items():
-            if case.startswith("bits "):
+            if case.startswith(("bits ", "own bits ")):
                 print(f"run {i + 1} {root}: {case}: sha256 {ms[:16]}")
-                bits.setdefault(case, set()).add(ms)
+                key = case if case.startswith("bits ") else (case, str(root))
+                bits.setdefault(key, set()).add(ms)
                 continue
             print(f"run {i + 1} {root}: {case}: {ms:.4f} ms")
             table.setdefault(str(root), {}).setdefault(case, []).append(ms)
     for case, hashes in bits.items():
         if len(hashes) != 1:
             raise AssertionError(f"{case}: the runs gave different bits ({len(hashes)} hashes)")
-        print(f"{case}: the same bits in all four runs")
+        print(f"{case}: the same bits in all four runs" if isinstance(case, str)
+              else f"{case[0]} in {case[1]}: the same bits in both of its runs")
     means = {root: {case: sum(v) / len(v) for case, v in cases.items()} for root, cases in table.items()}
     other, here = (torch.load(Path(r) / "build" / "ab_vocoder.pt") for r in (args.ab, HERE))
     diff = (here - other).abs()

@@ -1,10 +1,10 @@
-"""Where K2's and K2-v1's time goes: K2's bf16 tensor-core kernel
-(csrc/stage_fused_tc.cu) with parts removed, 18 launches of a stage at a
-time, at the flagship vocoder's fused stages of one codec request (16 clips
-x 4 s) and of one streaming window (1 x 560 frames); then K2-v1
-(csrc/stage_fused_v1.cu), one launch a stage, at s4 and s5, its bf16 kernel
-(tensor cores, a cluster of tiles) and its float32 one (CUDA cores, the
-design the bf16 kernel replaced).
+"""Where K2's and K2-v1's time goes: K2's kernels (bf16
+csrc/stage_fused_tc.cu, float32 split-TF32 csrc/stage_fused_tf32.cu) with
+parts removed, 18 launches of a stage at a time, at the flagship vocoder's
+fused stages of one codec request (16 clips x 4 s) and of one streaming
+window (1 x 560 frames); then K2-v1 (csrc/stage_fused_v1.cu, a cluster of
+tiles), one launch a stage, at s4 and s5; each kernel in bf16 and in
+float32.
 
   full        the launch as the vocoder runs it
   products    the weight stream and the tensor-core products, no activation
@@ -14,9 +14,11 @@ design the bf16 kernel replaced).
 
     python -m dmel_codec_tpu_torch.probes.stage_parts
 
-prints ms per stage of each (CUDA events) and what each part adds to the
-epilogue alone; `main()` returns the table. The dropped parts leave the
-output wrong: only `full` is K2.
+prints ms per stage of each (CUDA events) and, per kernel, dtype and
+request / window, the sums and what each part adds to the epilogue alone;
+`main()` returns the table, keyed by ("K2 bf16 request s2", B, C, T) and
+so on. The dropped parts leave the output wrong: only `full` is the
+kernel.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ def random_pack(c: int, gen: torch.Generator, device) -> dict:
 
 
 def stage_parts_ms(x: torch.Tensor, packed: dict, spec: StageSpec, reps: int = 3) -> dict:
-    """ms of one bf16 stage (18 launches) by what the launches keep."""
+    """ms of one K2 stage (18 launches) by what the launches keep."""
     with torch.no_grad():
         return {name: cuda_ms(lambda p=p: stage_fused._run_kernel(x, packed, spec, parts=p), reps)
                 for name, p in PARTS.items()}
@@ -63,30 +65,23 @@ def main() -> dict:
     require_gpu("stage_parts")
     gen = torch.Generator(device="cuda").manual_seed(0)
     table = {}
-    print(f"{'stage [B, C, T] bf16':<34}" + "".join(f"{name:>12}" for name in PARTS) + "   (ms per stage)")
-    for name, b, c, t in SHAPES:
-        spec = StageSpec(channels=c)
-        packed = random_pack(c, gen, "cuda")
-        x = torch.randn((b, c, t), device="cuda", generator=gen).bfloat16()
-        row = table[(name, b, c, t)] = stage_parts_ms(x, packed, spec)
-        print(f"{name + ' ' + str([b, c, t]):<34}" + "".join(f"{row[p]:12.3f}" for p in PARTS))
-    for what in ("request", "window"):
-        rows = [row for key, row in table.items() if key[0].startswith(what)]
-        total = {p: sum(r[p] for r in rows) for p in PARTS}
-        print(f"per {what}: " + ", ".join(f"{p} {v:.3f} ms" for p, v in total.items())
+    print(f"{'stage [B, C, T]':<40}" + "".join(f"{name:>12}" for name in PARTS) + "   (ms per stage)")
+    for kernel, fn in (("K2", stage_parts_ms), ("K2-v1", v1_parts_ms)):
+        for name, b, c, t in SHAPES:
+            if kernel == "K2-v1" and c > stage_fused.V1_MAX_CHANNELS:
+                continue
+            spec = StageSpec(channels=c)
+            packed = random_pack(c, gen, "cuda")
+            x = torch.randn((b, c, t), device="cuda", generator=gen)
+            for dt in (torch.bfloat16, torch.float32):
+                what = f"{kernel} {'bf16' if dt == torch.bfloat16 else 'float32'} {name}"
+                row = table[(what, b, c, t)] = fn(x.to(dt), packed, spec)
+                print(f"{what + ' ' + str([b, c, t]):<40}" + "".join(f"{row[p]:12.3f}" for p in PARTS))
+    for group in sorted({key[0].rsplit(" ", 1)[0] for key in table}):
+        total = {p: sum(row[p] for key, row in table.items() if key[0].rsplit(" ", 1)[0] == group) for p in PARTS}
+        print(f"{group}: " + ", ".join(f"{p} {v:.3f} ms" for p, v in total.items())
               + f"; over the epilogue: activation {total['activation'] - total['epilogue']:.3f}, products "
               f"{total['products'] - total['epilogue']:.3f}")
-    print(f"{'K2-v1 stage [B, C, T]':<40}" + "".join(f"{name:>12}" for name in PARTS) + "   (ms per stage)")
-    for name, b, c, t in SHAPES:
-        if c > stage_fused.V1_MAX_CHANNELS:
-            continue
-        spec = StageSpec(channels=c)
-        packed = random_pack(c, gen, "cuda")
-        x = torch.randn((b, c, t), device="cuda", generator=gen)
-        for dt in (torch.bfloat16, torch.float32):
-            what = f"K2-v1 {'bf16' if dt == torch.bfloat16 else 'float32'} {name}"
-            row = table[(what, b, c, t)] = v1_parts_ms(x.to(dt), packed, spec)
-            print(f"{what + ' ' + str([b, c, t]):<40}" + "".join(f"{row[p]:12.3f}" for p in PARTS))
     return table
 
 

@@ -5,8 +5,8 @@ from __future__ import annotations
 import torch
 
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data
-# sheet): bf16 tensor cores, float32 outside them, HBM3.
-PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# sheet): bf16 and TF32 tensor cores, float32 outside them, HBM3.
+PEAK_BF16, PEAK_TF32, PEAK_F32, PEAK_BYTES = 989e12, 494.7e12, 67e12, 3.35e12
 
 
 def cuda_ms(fn, reps: int = 20, warm: bool = True) -> float:

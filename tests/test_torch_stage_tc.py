@@ -29,6 +29,7 @@ from dmel_codec_tpu_torch.ops.stage_fused import (
     tc_plan,
     tc_unpack,
     tc_weights,
+    tf32_plan,
 )
 from tests.test_torch_stage_v1 import _packed
 from tests.test_torch_support import strict_f32, to_np  # noqa: F401  (strict_f32 is a fixture)
@@ -151,7 +152,8 @@ def test_stage_arguments_are_made_once(monkeypatch):
     for got, w in zip(ws, packed["w"]):
         torch.testing.assert_close(got, w.bfloat16(), rtol=0, atol=0)
     f32 = stage_fused._k2_args(packed, spec, torch.float32, torch.device("cpu"))
-    assert f32 is not bf and "w_tc" not in f32 and all(a.dtype == torch.float32 for a in f32["w"])
+    assert f32 is not bf and "w_tc" not in f32 and f32["w_tf32"].dtype == torch.float32
+    assert stage_fused._k2_args(packed, spec, torch.float32, torch.device("cpu")) is f32
     assert list(f32["taps"][True]) == list(f32["taps"][False]) == FILT.tolist()
     assert list(bf["taps"][True]) == FILT_BF16.tolist() and list(bf["taps"][False]) == FILT.tolist()
 
@@ -162,12 +164,12 @@ class _Lib:
     def __init__(self):
         self.calls = []
 
-    def dmel_act_conv(self, *args):
-        self.calls.append(("cuda_cores", args))
+    def dmel_act_conv_tf32(self, *args):
+        self.calls.append(("act_conv_tf32_kernel", args))
         return 0
 
     def dmel_act_conv_tc(self, *args):
-        self.calls.append(("tensor_cores", args))
+        self.calls.append(("act_conv_tc_kernel", args))
         return 0
 
 
@@ -178,7 +180,7 @@ def test_launches_go_to_the_kernel_of_their_dtype(monkeypatch, dtype, v1):
     device check and the stream stood in for): a bf16 stage's 18 launches
     all take the tensor-core kernel with its layout's N / KP / KC, plane
     rounding only under v2 and bf16 taps only there; a float32 stage's all
-    take the CUDA-core kernel. Each is counted under its kernel."""
+    take the split-TF32 kernel. Each is counted under its kernel."""
     lib = _Lib()
     monkeypatch.setattr(library, "load", lambda: lib)
     monkeypatch.setattr(library, "check_plane", lambda x, name="x": None)
@@ -189,7 +191,7 @@ def test_launches_go_to_the_kernel_of_their_dtype(monkeypatch, dtype, v1):
     before = amp_stage.launches, dict(amp_stage.launches_by_kernel)
     y = amp_stage(x, packed, spec, v1=v1)
     assert y.shape == x.shape and y.dtype == dtype
-    kernel = "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+    kernel = "act_conv_tc_kernel" if dtype == torch.bfloat16 else "act_conv_tf32_kernel"
     assert [name for name, _ in lib.calls] == [kernel] * 18
     assert amp_stage.launches == before[0] + 18
     assert amp_stage.launches_by_kernel[kernel] == before[1][kernel] + 18
@@ -205,8 +207,10 @@ def test_launches_go_to_the_kernel_of_their_dtype(monkeypatch, dtype, v1):
             assert a[18:23] == (2, 40, 300, k, d)
             assert list(a[23]) == (FILT.tolist() if v1 else FILT_BF16.tolist())
         else:
-            assert a[10] == pytest.approx(1 / 3 if n == 17 else 1.0) and a[11:16] == (2, 40, 300, k, d)
-            assert list(a[17]) == FILT.tolist()
+            plan = tf32_plan(40, k, d)
+            assert a[1] == 4 * args["offsets"][n] and a[2:7] == (plan.n, plan.kp, plan.ks, plan.kc, plan.slots)
+            assert a[15] == pytest.approx(3.0 if n == 17 else 1.0) and a[16:21] == (2, 40, 300, k, d)
+            assert list(a[21]) == FILT.tolist()
 
 
 def test_act_conv_takes_the_stage_dtype(monkeypatch):
@@ -227,9 +231,9 @@ def test_act_conv_takes_the_stage_dtype(monkeypatch):
     meta = lambda dt: torch.empty((1, 8, 64), device="meta", dtype=dt)  # noqa: E731
     out = act_conv(meta(torch.bfloat16), packed, spec, 5, torch.bfloat16, res=meta(torch.float32),
                    acc_in=meta(torch.float32), mean_of=3, out_dtype=torch.bfloat16)
-    assert out.dtype == torch.bfloat16 and lib.calls[-1][0] == "tensor_cores"
+    assert out.dtype == torch.bfloat16 and lib.calls[-1][0] == "act_conv_tc_kernel"
     act_conv(meta(torch.float32), packed, spec, 5, torch.float32, res=meta(torch.float32))
-    assert lib.calls[-1][0] == "cuda_cores"
+    assert lib.calls[-1][0] == "act_conv_tf32_kernel"
     with pytest.raises(TypeError, match="float32"):
         act_conv(meta(torch.bfloat16), packed, spec, 5, torch.float32)
     with pytest.raises(TypeError, match="float32"):

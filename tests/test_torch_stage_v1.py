@@ -116,17 +116,19 @@ def test_stage_spec_reach():
 
 
 def test_v1_tile_fills_shared_memory():
-    """The block's planes at the chosen tile fit 227 KB, and one more
-    group of 4 columns would not."""
+    """The float32 block's planes, conv input and weight slots at the
+    chosen tile fit 227 KB, and one more group of 256 columns would not
+    (or its warpgroups could not hold the tiles' sums); C = 96 does not
+    fit at all."""
     smem = 227 * 1024  # what the library reports on sm_90
-    for c, want in ((48, 124), (24, 404)):
+    for c, want in ((48, (48, 48, 256, 2)), (24, (24, 24, 512, 4)), (5, (24, 8, 1024, 4))):
         spec = StageSpec(channels=c)
-        w = stage_fused.v1_tile(c, spec, 4096, smem)
-        assert w == want
-        floats = lambda w_: 4096 + c * (3 * (w_ + 2 * spec.receptive) + 2 * spec.conv_reach + w_)
-        assert 4 * floats(w) <= smem < 4 * floats(w + 4)
-    assert stage_fused.v1_tile(5, StageSpec(channels=5), 4096, smem) == 1024  # capped
-    assert stage_fused.v1_tile(96, StageSpec(channels=96), 4096, smem) < 4  # does not fit
+        n, kp, w, slots = stage_fused.v1_tf32_plan(c, spec, smem)
+        assert (n, kp, w, slots) == want
+        assert stage_fused.v1_tf32_bytes(c, kp, n, w, slots) <= smem
+        assert w == 1024 or w // 256 == stage_fused._V1_TF32_TILES[n] or \
+            stage_fused.v1_tf32_bytes(c, kp, n, w + 256, 2) > smem
+    assert stage_fused.v1_tf32_plan(96, StageSpec(channels=96), smem)[2] == 0  # does not fit
 
 
 def test_v1_dispatch(monkeypatch, tmp_path):
@@ -273,16 +275,16 @@ def test_k2_v1_mode_dispatch(monkeypatch, dtype, v1):
     mode keeps the planes, the taps and v float32 (plane_bf16 = 0) and t1
     (the output of each pair's first launch, the input of its second)
     float32; v2 rounds the planes, takes bf16 taps and keeps t1 in bf16;
-    float32 takes the CUDA-core kernel, which rounds nothing."""
+    float32 takes the split-TF32 kernel, which rounds nothing."""
     calls = []
 
     class Lib:
-        def dmel_act_conv(self, *args):
-            calls.append(("cuda_cores", args))
+        def dmel_act_conv_tf32(self, *args):
+            calls.append(("act_conv_tf32_kernel", args))
             return 0
 
         def dmel_act_conv_tc(self, *args):
-            calls.append(("tensor_cores", args))
+            calls.append(("act_conv_tc_kernel", args))
             return 0
 
     monkeypatch.setattr(library, "load", lambda: Lib())
@@ -293,13 +295,13 @@ def test_k2_v1_mode_dispatch(monkeypatch, dtype, v1):
     stage_fused._run_kernel(torch.zeros((1, 8, 50), dtype=dtype), tp, StageSpec(channels=8), v1=v1)
     assert stage_fused.amp_stage.launches == n + 18 and len(calls) == 18
     if dtype == torch.float32:
-        assert {kernel for kernel, _ in calls} == {"cuda_cores"}
+        assert {kernel for kernel, _ in calls} == {"act_conv_tf32_kernel"}
         return
     # positions in dmel_act_conv_tc's argument list
     src_bf16, out_bf16, plane_bf16, taps = 1, 15, 17, 23
     t1_bf16 = int(not v1)
     for i, (kernel, args) in enumerate(calls):
-        assert kernel == "tensor_cores" and args[plane_bf16] == (0 if v1 else 1)
+        assert kernel == "act_conv_tc_kernel" and args[plane_bf16] == (0 if v1 else 1)
         assert list(args[taps]) == (FILT if v1 else FILT_BF16).tolist()
         if i % 2 == 0:  # t1 = conv(act(xb))
             assert args[out_bf16] == t1_bf16
