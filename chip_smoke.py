@@ -42,7 +42,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      profile that must name the split-TF32 kernel;
   7. FA (causal GQA flash attention) against its plain version at the slow
      decoder's head layout, main-path and ragged lengths, and at head sizes
-     16 to 128, float32 (CUDA cores) and bfloat16 (tensor cores);
+     16 to 128, float32 (split-TF32 products on the tensor cores) and
+     bfloat16 (tensor cores);
   8. the teacher-forced LM forward at full width (slow 24 x 896, fast
      12 x 480, vocabulary 151936; seeded random bf16 weights) on a batch of
      2 x 2048 grid positions: FA launch count, finite losses, logits with
@@ -81,14 +82,17 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      (seconds, xRT, peak device memory, launch counts by kernel; a profile
      of two float32 windows must name both float32 kernels), 60 s
      through encode -> decode -> vocode, and `cli.stream_codec.main` on a
-     WAV written here (a float32 vocoder: the split-TF32 kernels);
+     WAV written here (a float32 vocoder: the split-TF32 kernels), and once
+     more in a fresh process that turned TF32 on first: its `main` must
+     turn TF32 off for cuBLAS and cuDNN itself (the float32 contract);
  14. the K1 ablation probe: each variant against its plain version, and
      the probe's own table of times;
  15. every kernel's bound on this card;
  16. FA's backward kernels (FA-dKV, FA-dQ) against their plain versions at
      the slow decoder's head layout (B = 2 x S = 2048 and the trainer's
      2 x 1024), ragged lengths, head sizes 16 to 128 and a group of one
-     query head, float32 (CUDA cores) and bfloat16 (tensor cores); two runs
+     query head, float32 (FA-dQ split-TF32 on the tensor cores, FA-dKV on
+     the CUDA cores) and bfloat16 (tensor cores); two runs
      bit-equal; the forward's log-sum-exp against the plain scores';
  17. LM training at full width through the trainer (float32 parameters,
      flash attention on, B = 2 x S = 1024 token-grid batches,
@@ -97,8 +101,9 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      gradients with the kernels on against `flash_attention=False`,
      parameters changing only on update steps, a LoRA step leaving the base
      untouched; then ms per micro-step, peak memory and tokens/s with the
-     kernels (and a torch.profiler breakdown of one accumulation cycle), without
-     them and with `remat`, and at 2 x 2048 with and without `remat`;
+     kernels (and a torch.profiler breakdown of one accumulation cycle, which
+     must name the split-TF32 FA and FA-dQ kernels), without them and with
+     `remat`, and at 2 x 2048 with and without `remat`;
  18. LM training through the entry point: `cli.train_lm.main` on 8 synthetic
      WAVs with a small LM (the flagship codec tokenizes), checkpoints, a
      resumed run, then `cli.infer_lm.main` on the result;
@@ -128,7 +133,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
  23. overfit: one fixed synthetic batch (sums of sines and noise bursts), a
      raised learning rate, up to 250 steps or 60 s: `val_loss` falls below
      a stated fraction of its start.
-The comparison phases run with TF32 off for cuBLAS and cuDNN. The
+The comparison phases run with TF32 off for cuBLAS and cuDNN, as the entry
+points run (each `main` calls `strict_float32`). The
 line before the last is one JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -141,6 +147,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -226,17 +233,20 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, rel: float) ->
 #    asserts on its XLA path (scripts/bench_streaming.py:72; its kernel path
 #    is off by 1.58e-1 there, BENCHMARKS.md:270-282). On an NVIDIA H100 with
 #    torch 2.11 every one of these differences measured 0.
-#  FA f32: both sides float32; exp of scores up to ~5 that were summed in
-#    another order (1e-6 relative each) and ~2000-term sums: 2e-5.
+#  FA f32: the kernel's products are split-TF32 (hi + lo of each operand,
+#    three TF32 products: the split's remainders and A_lo B_lo, 2^-22
+#    relative each, are lost), the plain version's float32; exp of scores
+#    up to ~5 that were summed in another order (1e-6 relative each) and
+#    ~2000-term sums: 2e-5.
 #  FA bf16: both sides compute in float32 from the same bf16 inputs and
 #    round once, where a result next to a rounding boundary may round the
 #    other way: one bf16 ulp, 2^-7. The kernel also rounds P to bf16 before
 #    P V (the tensor cores take bf16; jax's kernel does the same), the plain
 #    version does not: that moves an output by at most 2^-9 sum_t P_t |v_t|
 #    <= 2^-9 max |v| before its rounding. `fa_rel` adds that term, per case.
-#  FA-dKV / FA-dQ f32: both sides float32 and the same recomputation from
-#    the same L and D; sums of up to ~2000 x 7 terms in another order:
-#    2e-5 (of max(1, max |grad|)).
+#  FA-dKV / FA-dQ f32: the same recomputation from the same L and D
+#    (FA-dQ's products split-TF32, as FA's); sums of up to ~2000 x 7 terms
+#    in another order: 2e-5 (of max(1, max |grad|)).
 #  FA-dKV / FA-dQ bf16: both sides compute in float32 from the same bf16
 #    inputs and round once; a gradient is a sum over up to 14,000 products,
 #    so a result may land two roundings away: two bf16 ulps, 2^-6. FA-dKV
@@ -292,6 +302,19 @@ TOL_P4 = 1e-4
 TOL_RERUN, OVERFIT_FRACTION = 1e-4, 0.3
 
 
+# Run in a fresh process from the checkout's root: turn TF32 on (PyTorch
+# lets cuDNN convs use it by default), run an entry point's main, print what
+# the process allows afterwards (utils/precision.tf32_flags).
+CLI_TF32_PROBE = """
+import importlib, json, sys
+import torch
+torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+importlib.import_module("dmel_codec_tpu_torch.cli." + sys.argv[1]).main(sys.argv[2:])
+from dmel_codec_tpu_torch.utils.precision import tf32_flags
+print(json.dumps(tf32_flags()))
+"""
+
+
 def stage_shapes(vcfg, frames: int):
     t = frames
     for i, u in enumerate(vcfg.upsample_rates):
@@ -299,13 +322,14 @@ def stage_shapes(vcfg, frames: int):
         yield i, vcfg.stage_channels(i), t
 
 
-def fa_bound_ms(b: int, s: int, h: int, kh: int, hd: int, itemsize: int):
+def fa_bound_ms(b: int, s: int, h: int, kh: int, hd: int, itemsize: int, rate: float | None = None):
     """Least time for causal attention on this card: q and the output once,
-    k and v once, against 4 * hd flops per visible (query, key) pair at the
-    tensor-core rate of the inputs' type (float32 inputs: the CUDA cores)."""
+    k and v once, against 4 * hd flops per visible (query, key) pair at
+    `rate` (default: the tensor-core rate of bf16 inputs, float32 the CUDA
+    cores'; the split-TF32 kernels' three products: PEAK_TF32 / 3)."""
     nbytes = (2 * b * s * h * hd + 2 * b * s * kh * hd) * itemsize
     flops = 4 * hd * b * h * s * (s + 1) // 2
-    by_ops = flops / (PEAK_BF16 if itemsize == 2 else PEAK_F32) * 1e3
+    by_ops = flops / (rate or (PEAK_BF16 if itemsize == 2 else PEAK_F32)) * 1e3
     by_bytes = nbytes / PEAK_BYTES * 1e3
     return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
 
@@ -1373,6 +1397,21 @@ def main() -> None:
     assert all(n > 0 for n in cli_counts.values()), cli_counts
     cli_counts_stream = dict(cli_counts)  # phase 22 serves a trained checkpoint the same way
 
+    # the entry point pins float32 itself: a fresh process turns TF32 on,
+    # runs stream_codec's main (encode only) and reports what it allows after
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        wavfile.write(tmp / "in.wav", SR, tone[: 4 * SR].cpu().numpy())
+        proc = subprocess.run([sys.executable, "-c", CLI_TF32_PROBE, "stream_codec", "--in", str(tmp / "in.wav"),
+                               "--tokens-out", str(tmp / "tokens.npy")],
+                              cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"stream_codec.main in a fresh process failed:\n{proc.stderr[-4000:]}")
+        flags = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"  stream_codec.main in a fresh process that turned TF32 on: afterwards {flags}")
+    assert flags["cuda.matmul.allow_tf32"] is False and flags["cudnn.allow_tf32"] is False, flags
+    assert flags.get("cudnn.conv.fp32_precision") != "tf32", flags
+
     # ---- 14. the K1 ablation probe
     log("K1 ablation probe vs plain:")
     errs["probe"] = 0.0
@@ -1622,8 +1661,19 @@ def main() -> None:
 
     train_stats = {}
     train_stats["kernels"] = time_micro_steps(train_batches, f"{LM_BATCH} x {TRAIN_SEQ}, kernels on", n_layers)
+    cycle_kernels = {}
     profile_once(f"one accumulation cycle ({TRAIN_ACCUMULATE} micro-steps, 1 update), kernels on",
-                 lambda: [trainer.train_step(state, b_) for b_ in train_batches])
+                 lambda: [trainer.train_step(state, b_) for b_ in train_batches], kernels=cycle_kernels)
+    # the float32 FA and FA-dQ launches run the split-TF32 kernels; the
+    # CUDA-core kernels they replaced are gone
+    assert cycle_kernels, "the profiler recorded no device time for the train step"
+    fa_names = {kernel: [n_ for n_ in cycle_kernels if re.search(rf"(?<![A-Za-z_]){kernel}[<I]", n_)]
+                for kernel in ("flash_attention_tf32_kernel", "dq_tf32_kernel", "dkv_f32_kernel",
+                               "flash_attention_kernel", "flash_attention_dq_kernel")}
+    assert fa_names["flash_attention_tf32_kernel"] and fa_names["dq_tf32_kernel"], list(cycle_kernels)
+    assert not fa_names["flash_attention_kernel"] and not fa_names["flash_attention_dq_kernel"], fa_names
+    log("  the profile names " + ", ".join(f"{k_} ({sum(cycle_kernels[n_] for n_ in v_):.2f} ms)"
+                                           for k_, v_ in fa_names.items() if v_))
     decoder_options(flash_attention=False)
     train_stats["off"] = time_micro_steps(train_batches, f"{LM_BATCH} x {TRAIN_SEQ}, flash_attention=False", 0)
     decoder_options(flash_attention=True, remat=True)
@@ -1703,13 +1753,14 @@ def main() -> None:
     assert wav_sr == SR and wav.dtype == np.float32 and wav.size > 0 and np.isfinite(wav).all()
 
     # ---- 19. FA-dKV, FA-dQ, their plain versions and the library's backward; bounds
-    def bwd_bound_ms(b, s, h, kh, d, itemsize, products, outputs):
+    def bwd_bound_ms(b, s, h, kh, d, itemsize, products, outputs, rate=None):
         """Least time for one backward kernel: q, k, v, dO, L and D read once
-        and its outputs written once, against `products` 64-wide products
-        per visible (query, key) pair at the rate of the inputs' type."""
+        and its outputs written once, against `products` hd-deep products
+        per visible (query, key) pair at `rate` (default: the rate of the
+        inputs' type, float32 the CUDA cores'; split-TF32: PEAK_TF32 / 3)."""
         nbytes = (2 * b * s * h * d + 2 * b * s * kh * d + outputs) * itemsize + 2 * b * h * s * 4
         flops = products * 2 * d * b * h * s * (s + 1) // 2
-        by_ops = flops / (PEAK_BF16 if itemsize == 2 else PEAK_F32) * 1e3
+        by_ops = flops / (rate or (PEAK_BF16 if itemsize == 2 else PEAK_F32)) * 1e3
         by_bytes = nbytes / PEAK_BYTES * 1e3
         return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
 
@@ -1742,28 +1793,45 @@ def main() -> None:
             check_close(f"library backward vs kernels, {name} {list(shape)} {dt}", w_.transpose(1, 2), a_,
                         5e-3 if dt == torch.float32 else 2.0**-4)
         bound_dkv = bwd_bound_ms(b, sq, h, kh, d, q.element_size(), 4, 2 * b * sq * kh * d)
-        bound_dq = bwd_bound_ms(b, sq, h, kh, d, q.element_size(), 3, b * sq * h * d)
         pair_bound = bwd_bound_ms(b, sq, h, kh, d, q.element_size(), 5, b * sq * h * d + 2 * b * sq * kh * d)
+        # FA-dQ and FA: float32 at the split-TF32 kernels' rate (three TF32
+        # products), and at the CUDA cores' for comparison
+        tf32x3 = PEAK_TF32 / 3 if dt == torch.float32 else None
+        bound_dq = bwd_bound_ms(b, sq, h, kh, d, q.element_size(), 3, b * sq * h * d, tf32x3)
+        bound_dq_cc = bwd_bound_ms(b, sq, h, kh, d, q.element_size(), 3, b * sq * h * d)
+        bound_fwd = fa_bound_ms(b, sq, h, kh, d, q.element_size(), tf32x3)
+        bound_fwd_cc = fa_bound_ms(b, sq, h, kh, d, q.element_size())
         cfg_dkv, cfg_dq = fa_ops.launch_config("FA-dKV", q), fa_ops.launch_config("FA-dQ", q)
+        cfg_fwd = fa_ops.launch_config("FA", q)
+        if dt == torch.float32:  # the split-TF32 kernels' launches, as ops/flash_attention.py states them
+            for name, cfg in (("FA", cfg_fwd), ("FA-dQ", cfg_dq)):
+                assert (cfg["threads"], cfg["smem_bytes"]) == (fa_ops.TF32_THREADS, fa_ops.tf32_smem_bytes(name, d)), cfg
         bwd_ms[(shape, dt)] = {"dkv": sum(t_dkv) / 2, "dq": sum(t_dq) / 2, "plain_dkv": t_plain_dkv,
                                "plain_dq": t_plain_dq, "library": t_lib, "bound_dkv": bound_dkv, "bound_dq": bound_dq,
-                               "fwd": t_fwd[0], "library_fwd": t_lib_fwd, "launch_dkv": cfg_dkv, "launch_dq": cfg_dq}
-        for name, cfg in (("FA-dKV", cfg_dkv), ("FA-dQ", cfg_dq)):
+                               "bound_dq_cuda_cores": bound_dq_cc, "bound_fwd": bound_fwd,
+                               "bound_fwd_cuda_cores": bound_fwd_cc, "fwd": t_fwd[0], "library_fwd": t_lib_fwd,
+                               "launch_dkv": cfg_dkv, "launch_dq": cfg_dq, "launch_fwd": cfg_fwd}
+        for name, cfg in (("FA-dKV", cfg_dkv), ("FA-dQ", cfg_dq), ("FA", cfg_fwd)):
             log(f"  {[b, sq, h, d]} {dt}, {name} launch: grid {cfg['grid']} = {math.prod(cfg['grid'])} blocks, "
                 f"{cfg['threads']} threads and {cfg['smem_bytes']} bytes of shared memory per block")
         log(f"  {[b, sq, h, d]} {dt}, per launch: FA-dKV {t_dkv[0]:.4f} / {t_dkv[1]:.4f} ms (plain {t_plain_dkv:.3f}, "
             f"bound {bound_dkv[0]:.4f} by {bound_dkv[1]}), FA-dQ {t_dq[0]:.4f} / {t_dq[1]:.4f} ms (plain "
-            f"{t_plain_dq:.3f}, bound {bound_dq[0]:.4f} by {bound_dq[1]}), D = rowsum(dO * O) {t_delta:.3f} ms, FA forward "
-            f"{t_fwd[0]:.4f} ms storing L ({t_fwd[1]:.4f} without; scaled_dot_product_attention forward "
-            f"{t_lib_fwd:.4f}); "
+            f"{t_plain_dq:.3f}, bound {bound_dq[0]:.4f} by {bound_dq[1]}"
+            + (f", {bound_dq_cc[0]:.4f} at the CUDA cores' rate" if tf32x3 else "")
+            + f"), D = rowsum(dO * O) {t_delta:.3f} ms, FA forward "
+            f"{t_fwd[0]:.4f} ms storing L ({t_fwd[1]:.4f} without; bound {bound_fwd[0]:.4f} by {bound_fwd[1]}"
+            + (f", {bound_fwd_cc[0]:.4f} at the CUDA cores' rate" if tf32x3 else "")
+            + f"; scaled_dot_product_attention forward {t_lib_fwd:.4f}); "
             f"scaled_dot_product_attention backward (dq, dk, dv in one call) {t_lib:.4f} ms; bound of the pair "
             f"with the minimal 5 products {pair_bound[0]:.4f} ms")
         del q, k, v, g, out, lse, delta, qt, kt, vt, out_lib, gt, lib, ours
     main_bwd = bwd_ms[(trainer_shape, torch.float32)]
     n_bwd = launches["FA-dKV"] // TRAIN_MICRO_STEPS
     log(f"  per micro-step ({n_bwd} launches each at {list(trainer_shape[:3])} float32): FA-dKV "
-        f"{n_bwd * main_bwd['dkv']:.2f} ms, FA-dQ {n_bwd * main_bwd['dq']:.2f} ms, FA forward "
-        f"{n_bwd * main_bwd['fwd']:.2f} ms of the step's "
+        f"{n_bwd * main_bwd['dkv']:.2f} ms, FA-dQ {n_bwd * main_bwd['dq']:.2f} ms (bound "
+        f"{n_bwd * main_bwd['bound_dq'][0]:.3f} at three TF32 products, {n_bwd * main_bwd['bound_dq_cuda_cores'][0]:.3f} "
+        f"at the CUDA cores' rate), FA forward {n_bwd * main_bwd['fwd']:.2f} ms (bound "
+        f"{n_bwd * main_bwd['bound_fwd'][0]:.3f} / {n_bwd * main_bwd['bound_fwd_cuda_cores'][0]:.3f}) of the step's "
         f"{train_stats['kernels'][0]:.2f} ms")
 
     # ---- 20. the probe kernels P1..P4
@@ -2219,9 +2287,17 @@ def main() -> None:
          "bound_ms": n_fa * fa_bound, "bound_by": fa_by, "library_ms": library_fa,
          "per": f"LM forward ({n_fa} launches)", "train_launches": launches["FA train"],
          "train_ms": n_bwd * main_bwd["fwd"], "train_library_ms": n_bwd * main_bwd["library_fwd"],
+         "train_kernel": "flash_attention_tf32_kernel",
+         "train_bound_ms": {"tf32x3": n_bwd * main_bwd["bound_fwd"][0],
+                            "cuda_cores": n_bwd * main_bwd["bound_fwd_cuda_cores"][0]},
+         "train_per": f"LM train micro-step, {list(trainer_shape)} float32, storing L ({n_bwd} launches)",
          "design": "bf16: mma.sync.m16n8k16 (float32 sums), a warp per 16 query rows with Q fragments in registers, "
                    "K/V tiles of 64 keys double-buffered by cp.async, online softmax in registers, P rounded to bf16 "
-                   "before P V (as jax's kernel); float32: CUDA-core FMA, float32 products",
+                   "before P V (as jax's kernel); float32 (flash_attention_tf32_kernel): the same layout with both "
+                   "products split-TF32 on mma.sync.m16n8k8 .tf32 (A_lo B_hi + A_hi B_lo + A_hi B_hi), Q float32 "
+                   "in shared memory split per k-step, each K / V tile split once into hi and lo tiles, P float32 "
+                   "(split, not rounded) taken from the score fragments with each 8 keys in the order "
+                   "0,2,4,6,1,3,5,7, each key tile's P V in a fresh accumulator added to O in float32",
          "launch": {k_: list(v_) if isinstance(v_, tuple) else v_ for k_, v_ in fa_launch.items()}},
         {"name": "flash_attention_dkv (FA-dKV)", "route": "cuda", "source": FA_BWD_SOURCE,
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 (_flash_attention_bwd_dkv), reached "
@@ -2242,15 +2318,23 @@ def main() -> None:
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 (_flash_attention_bwd_dq), reached "
                      "under jax.grad from dmel_codec_tpu/models/transformer.py:197",
          "launches": launches["FA-dQ"], "max_abs_err": errs["FA-dQ"], "ms": n_bwd * main_bwd["dq"],
+         "kernel": "dq_tf32_kernel (float32), dq_mma_kernel (bf16)",
          "design": "bf16: S, dP and dQ += dS K on mma.sync.m16n8k16, a warp per 16 query rows, Q and dO staged once, "
                    "K/V double-buffered by cp.async, scale dS rounded to bf16 before dS K (as jax's kernel), K as "
-                   "ldmatrix.trans B operand; float32: CUDA-core FMA (unchanged)",
+                   "ldmatrix.trans B operand; float32 (dq_tf32_kernel): the same layout with the three products "
+                   "split-TF32 on mma.sync.m16n8k8 .tf32, Q and dO float32 in shared memory split per k-step, each "
+                   "K / V tile split once into hi and lo tiles, P and dS float32, dS's score fragments as dS K's A "
+                   "operand with each 8 keys in the order 0,2,4,6,1,3,5,7, each key tile's dS K in a fresh "
+                   "accumulator added to dQ in float32",
          "launch": {k_: list(v_) if isinstance(v_, tuple) else v_ for k_, v_ in main_bwd["launch_dq"].items()},
          "bf16_2048_ms": bwd_ms[((LM_BATCH, LM_SEQ, heads, kv_heads, hd), torch.bfloat16)]["dq"],
          "bf16_2048_bound_ms": bwd_ms[((LM_BATCH, LM_SEQ, heads, kv_heads, hd), torch.bfloat16)]["bound_dq"][0],
          "bf16_2048_library_ms": bwd_ms[((LM_BATCH, LM_SEQ, heads, kv_heads, hd), torch.bfloat16)]["library"],
          "plain_ms": n_bwd * main_bwd["plain_dq"], "bound_ms": n_bwd * main_bwd["bound_dq"][0],
          "bound_by": main_bwd["bound_dq"][1], "library_ms": n_bwd * main_bwd["library"],
+         "bound_rate": "three TF32 products at PEAK_TF32",
+         "train_bound_ms": {"tf32x3": n_bwd * main_bwd["bound_dq"][0],
+                            "cuda_cores": n_bwd * main_bwd["bound_dq_cuda_cores"][0]},
          "library_is": "scaled_dot_product_attention backward: dq, dk and dv in one call",
          "per": f"LM train micro-step, {list(trainer_shape)} float32 ({n_bwd} launches); launches: "
                 f"{TRAIN_MICRO_STEPS} micro-steps"},

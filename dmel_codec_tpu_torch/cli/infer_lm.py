@@ -38,6 +38,7 @@ from dmel_codec_tpu_torch.models.codec import DMelCodecConfig
 from dmel_codec_tpu_torch.models.lm import ChatMusicLM
 from dmel_codec_tpu_torch.utils.config import dataclass_from_dict, load_yaml
 from dmel_codec_tpu_torch.utils.logging import RankedLogger
+from dmel_codec_tpu_torch.utils.precision import strict_float32
 
 log = RankedLogger(__name__)
 
@@ -56,6 +57,7 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
     args = parser.parse_args(argv)
+    strict_float32()  # no TF32: the JAX package's float32 contract (utils/precision.py)
     device = torch.device(args.device)
 
     cfg = load_yaml(args.config)

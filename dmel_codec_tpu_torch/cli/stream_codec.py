@@ -35,6 +35,7 @@ from dmel_codec_tpu_torch.models.streaming import (
 )
 from dmel_codec_tpu_torch.utils.config import dataclass_from_dict, load_yaml
 from dmel_codec_tpu_torch.utils.logging import RankedLogger
+from dmel_codec_tpu_torch.utils.precision import strict_float32
 
 log = RankedLogger(__name__)
 
@@ -54,6 +55,7 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
     args = parser.parse_args(argv)
+    strict_float32()  # no TF32: the JAX package's float32 contract (utils/precision.py)
     if (args.wav_in is None) == (args.tokens_in is None):
         parser.error("give exactly one of --in and --tokens-in")
     if args.out is None and args.tokens_out is None:

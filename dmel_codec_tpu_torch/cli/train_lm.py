@@ -33,6 +33,7 @@ from dmel_codec_tpu_torch.train.loop import FitConfig
 from dmel_codec_tpu_torch.train.lora import LoRAConfig, lora_param_count
 from dmel_codec_tpu_torch.utils.config import dataclass_from_dict, load_yaml, print_config_tree
 from dmel_codec_tpu_torch.utils.logging import RankedLogger
+from dmel_codec_tpu_torch.utils.precision import strict_float32
 
 log = RankedLogger(__name__)
 
@@ -47,6 +48,7 @@ def main(argv=None):
     )
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
     args = parser.parse_args(argv)
+    strict_float32()  # no TF32: the JAX package's float32 contract (utils/precision.py)
     device = torch.device(args.device)
 
     cfg = load_yaml(args.config)

@@ -31,19 +31,25 @@
 // group (7 blocks share a KV head); the 512 KB of one batch's KV head stay
 // in the 50 MB L2.
 //
-// float32 (flash_attention_kernel): float32 inputs keep float32 products,
-// as the JAX float32 path does (TF32 would keep ~3 digits), so both
-// products run on the float32 CUDA cores (67 TFLOP/s peak). One block of 128
-// threads per (batch, head, tile of 64 queries) walks the key tiles
-// 0 .. diagonal, staging K and V (64 keys each) through shared memory as
-// float32. The threads form a 16 x 8 grid: a thread owns 4 query rows
-// (ty + 16 i) and, of the 64 x 64 score tile, 8 columns (tx + 8 j); the 8
-// lanes that share a row reduce its max and sum with shuffles. Online
-// softmax: running max m and sum l per row in registers, P through shared
-// memory (each row is written and read by one warp), the output tile (4 rows
-// x hd / 8 columns per thread) rescaled in registers. Shared rows are padded
-// so that the float4 reads of Q, K and P and the float2 reads of V are free
-// of bank conflicts.
+// float32 (flash_attention_tf32_kernel): float32 inputs keep float32-grade
+// products, as the JAX float32 path does (one TF32 product would keep ~3
+// digits), on the tensor cores: both products split-TF32 (each operand
+// x = hi + lo, three mma.sync.m16n8k8 .tf32 products per tile, the layout
+// and fragments in flash_common.cuh), about a third of the tensor cores'
+// TF32 rate against the CUDA cores' 67 TFLOP/s. The bf16 kernel's layout: a
+// block of 4 warps per (batch, head, tile of 64 queries), longest rows
+// first, a warp per 16 query rows, the online softmax on the score tile in
+// registers, masking on the diagonal tile only. Q stays float32 in shared
+// memory and is split per k-step (one split feeds 8 key tiles of 8); each
+// K and V tile is loaded by 16-byte loads and split once into hi and lo
+// tiles, which every warp reads (87 KB of shared memory at hd 64: two
+// blocks an SM, one's loads beside the other's products). P stays float32
+// and is split like any operand (the bf16 path rounds it as jax does); its
+// C fragments are the A fragments of P V with each 8 keys in the order
+// {0, 2, 4, 6, 1, 3, 5, 7}. O += P V takes each key tile's products into a
+// fresh accumulator added to O in float32 rounded to nearest: the tensor
+// cores truncate their sums, and one accumulator over a whole row of keys
+// would drift.
 //
 // Both: scores, softmax and accumulation are float32; the output is rounded
 // once to the input dtype. For training the kernel also stores L = m +
@@ -58,150 +64,141 @@ namespace {
 
 using namespace dmel_flash;
 
-constexpr size_t smem_bytes(int HD) {
-  return sizeof(float) * (BM * (HD + 4) + BN * (HD + 4) + BN * HD + BM * PS);
+// ---- float32: split-TF32 on the tensor cores -------------------------------
+
+constexpr size_t tf32_smem_bytes(int HD) {  // Q, and the hi and lo tiles of K and V
+  return sizeof(float) * 5 * 64 * (HD + 4);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out,
-                       float* __restrict__ lse, int S, int H, int KH, float scale) {
-  constexpr int QS = HD + 4;   // row stride of the Q and K tiles
-  constexpr int OP = HD / 16;  // output column pairs per thread, c = 16 jp + 2 tx + {0, 1}
+__global__ void __launch_bounds__(TF32_THREADS)
+flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ out,
+                            float* __restrict__ lse, int S, int H, int KH, float scale) {
+  constexpr int TS = HD + 4;  // float32 row stride of a shared tile
+  constexpr int KS = HD / 8;  // k-steps over the head dimension
+  constexpr int DT = HD / 8;  // 8-wide output column tiles
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + BM * QS;
-  float* Vs = Ks + BN * QS;
-  float* Ps = Vs + BN * HD;
+  float* Kh = Qs + 64 * TS;
+  float* Kl = Kh + 64 * TS;
+  float* Vh = Kl + 64 * TS;
+  float* Vl = Vh + 64 * TS;
 
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // longest rows first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;  // longest rows first
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const int kh = h / (H / KH);
+  const int n_tiles = q0 / 64 + 1;  // key tiles 0 .. diagonal
+  const float sl2 = scale * LOG2E;  // exp(x * scale) = exp2(x * sl2)
 
-  load_tile<HD>(Qs, QS, q, b, S, H, h, q0, 0);
+  stage_tiles_f32<HD, 1, false>(Qs, nullptr, q, nullptr, nullptr, nullptr, b, S, H, h, q0);
 
-  float m[RI], l[RI], o[RI][OP][2];
+  float o[DT][4];
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jp = 0; jp < OP; ++jp) o[i][jp][0] = o[i][jp][1] = 0.f;
-  }
+  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8 (l: this lane's part)
+  const int row_lo = q0 + warp * 16 + lane / 4;
 
-  for (int n0 = 0; n0 <= q0; n0 += BN) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<HD>(Ks, QS, k, b, S, KH, kh, n0, 0);
-    load_tile<HD>(Vs, HD, v, b, S, KH, kh, n0, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int n0 = j * 64;
+    __syncthreads();  // every warp is done with tile j - 1 (and Q has landed)
+    stage_tiles_f32<HD, 2, true>(Kh, Kl, k, Vh, Vl, v, b, S, KH, kh, n0);
     __syncthreads();
 
-    // scores: acc[i][j] = q[row i] . k[col j]
-    float acc[RI][CJ];
+    // S = Q K^T: 16 rows x 64 keys per warp, 8 C tiles
+    float sc[8][4];
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+    for (int jn = 0; jn < 8; ++jn) sc[jn][0] = sc[jn][1] = sc[jn][2] = sc[jn][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[RI];
+    for (int ks = 0; ks < KS; ++ks) {
+      unsigned qh[4], ql[4];
+      lds_a_split(qh, ql, Qs, TS, warp * 16, 8 * ks);
 #pragma unroll
-      for (int i = 0; i < RI; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty + TY * i) * QS + d]);
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const float4 kv = *reinterpret_cast<const float4*>(&Ks[(tx + TX * j) * QS + d]);
-#pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          acc[i][j] = fmaf(qv[i].x, kv.x, acc[i][j]);
-          acc[i][j] = fmaf(qv[i].y, kv.y, acc[i][j]);
-          acc[i][j] = fmaf(qv[i].z, kv.z, acc[i][j]);
-          acc[i][j] = fmaf(qv[i].w, kv.w, acc[i][j]);
-        }
+      for (int jn = 0; jn < 8; ++jn) {
+        unsigned bh[2], bl[2];
+        lds_bt(bh, Kh, TS, 8 * jn, 8 * ks);
+        lds_bt(bl, Kl, TS, 8 * jn, 8 * ks);
+        mma_split(sc[jn], qh, ql, bh, bl);
       }
     }
 
-    // causal mask and online softmax; P goes to shared memory
+    // causal mask (the diagonal tile only), online softmax in the exp2 domain
+    const bool diag = j == n_tiles - 1;
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int row = q0 + ty + TY * i;
-      float mx = -INFINITY;
+    for (int jn = 0; jn < 8; ++jn) {
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int col = n0 + tx + TX * j;
-        const float s = col <= row ? acc[i][j] * scale : -INFINITY;
-        acc[i][j] = s;
-        mx = fmaxf(mx, s);
-      }
-#pragma unroll
-      for (int w = 1; w < TX; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      // column n0 <= q0 <= row is visible, so mn is finite
-      const float mn = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - mn);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const float p = expf(acc[i][j] - mn);  // exactly 0 where masked
-        sum += p;
-        Ps[(ty + TY * i) * PS + tx + TX * j] = p;
-      }
-#pragma unroll
-      for (int w = 1; w < TX; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
-      l[i] = l[i] * corr + sum;
-      m[i] = mn;
-#pragma unroll
-      for (int jp = 0; jp < OP; ++jp) {
-        o[i][jp][0] *= corr;
-        o[i][jp][1] *= corr;
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[jn][e] * sl2;
+        if (diag && n0 + 8 * jn + 2 * t + (e & 1) > row_lo + 8 * (e >> 1)) x = -INFINITY;
+        sc[jn][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
-    __syncwarp();  // a row of P is written and read by the same warp
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r]);  // key n0 <= row is visible: finite
+      corr[r] = exp2f(m[r] - mn);
+      m[r] = mn;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[jn][e] - m[e >> 1]);  // exactly 0 where masked
+        sc[jn][e] = p;
+        l[e >> 1] += p;
+      }
+    }
 
-    // o += P . V
-#pragma unroll 2
-    for (int n = 0; n < BN; n += 4) {
-      float p[RI][4];
+    // O = corr O + P V: this tile's products into a fresh accumulator (the
+    // tensor cores truncate their sums), added to O rounded to nearest; P
+    // stays float32, split into hi and lo like any operand
+    float of[DT][4];
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float4 pv = *reinterpret_cast<const float4*>(&Ps[(ty + TY * i) * PS + n]);
-        p[i][0] = pv.x;
-        p[i][1] = pv.y;
-        p[i][2] = pv.z;
-        p[i][3] = pv.w;
+    for (int dt = 0; dt < DT; ++dt) of[dt][0] = of[dt][1] = of[dt][2] = of[dt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      unsigned ph[4], pl[4];
+      c_to_a_split(ph, pl, sc[kk]);
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        unsigned bh[2], bl[2];
+        lds_b_perm(bh, Vh, TS, 8 * kk, 8 * dt);
+        lds_b_perm(bl, Vl, TS, 8 * kk, 8 * dt);
+        mma_split(of[dt], ph, pl, bh, bl);
       }
+    }
 #pragma unroll
-      for (int nn = 0; nn < 4; ++nn) {
-#pragma unroll
-        for (int jp = 0; jp < OP; ++jp) {
-          const float2 vv =
-              *reinterpret_cast<const float2*>(&Vs[(n + nn) * HD + 16 * jp + 2 * tx]);
-#pragma unroll
-          for (int i = 0; i < RI; ++i) {
-            o[i][jp][0] = fmaf(p[i][nn], vv.x, o[i][jp][0]);
-            o[i][jp][1] = fmaf(p[i][nn], vv.y, o[i][jp][1]);
-          }
-        }
-      }
+    for (int dt = 0; dt < DT; ++dt) {
+      o[dt][0] = __fadd_rn(__fmul_rn(o[dt][0], corr[0]), of[dt][0]);
+      o[dt][1] = __fadd_rn(__fmul_rn(o[dt][1], corr[0]), of[dt][1]);
+      o[dt][2] = __fadd_rn(__fmul_rn(o[dt][2], corr[1]), of[dt][2]);
+      o[dt][3] = __fadd_rn(__fmul_rn(o[dt][3], corr[1]), of[dt][3]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = q0 + ty + TY * i;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row_lo + 8 * r;
     if (row >= S) continue;
-    const float inv = 1.f / l[i];
-    const long long base = ((b * S + row) * H + h) * HD;
+    const float inv = 1.f / l[r];
+    float* dst = out + ((b * S + row) * H + h) * HD + 2 * t;
 #pragma unroll
-    for (int jp = 0; jp < OP; ++jp) {
-      out[base + 16 * jp + 2 * tx] = o[i][jp][0] * inv;
-      out[base + 16 * jp + 2 * tx + 1] = o[i][jp][1] * inv;
-    }
-    if (lse != nullptr && tx == 0) lse[(b * H + h) * S + row] = m[i] + logf(l[i]);
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<float2*>(dst + 8 * dt) = make_float2(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
+    if (lse != nullptr && t == 0) lse[(b * H + h) * S + row] = (m[r] + log2f(l[r])) * LN2;
   }
 }
-
 
 // ---- bf16: tensor cores ----------------------------------------------------
 
@@ -353,7 +350,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
            int H, int KH, int bf16, float scale, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((S + BM - 1) / BM), static_cast<unsigned>(H),
+  const dim3 grid(static_cast<unsigned>((S + 63) / 64), static_cast<unsigned>(H),
                   static_cast<unsigned>(B));
   if (bf16) {
     constexpr size_t smem = mma_smem_bytes(HD);
@@ -366,12 +363,12 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, S, H, KH,
         scale);
   } else {
-    constexpr size_t smem = smem_bytes(HD);
+    constexpr size_t smem = tf32_smem_bytes(HD);
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_attention_tf32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    flash_attention_kernel<HD><<<grid, THREADS, smem, stream>>>(
+    flash_attention_tf32_kernel<HD><<<grid, TF32_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), lse, S, H, KH, scale);
   }
@@ -411,10 +408,10 @@ extern "C" int dmel_flash_attention(const void* q, const void* k, const void* v,
 // bytes. Returns cudaErrorInvalidValue for a head size it was not built for.
 extern "C" int dmel_flash_attention_config(int B, int S, int H, int HD, int bf16, int* cfg) {
   if (HD % 16 != 0 || HD < 16 || HD > 128) return static_cast<int>(cudaErrorInvalidValue);
-  cfg[0] = (S + BM - 1) / BM;
+  cfg[0] = (S + 63) / 64;
   cfg[1] = H;
   cfg[2] = B;
-  cfg[3] = bf16 ? MMA_THREADS : THREADS;
-  cfg[4] = static_cast<int>(bf16 ? mma_smem_bytes(HD) : smem_bytes(HD));
+  cfg[3] = bf16 ? MMA_THREADS : TF32_THREADS;
+  cfg[4] = static_cast<int>(bf16 ? mma_smem_bytes(HD) : tf32_smem_bytes(HD));
   return 0;
 }

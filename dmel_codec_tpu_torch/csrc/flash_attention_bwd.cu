@@ -24,18 +24,28 @@
 // TPU grid walked in order.
 //
 // Bound on the H100: operations (five 64 x 64 x hd products per visible tile
-// pair against a few bytes per row). float32 inputs keep float32 products
-// on the CUDA cores (TF32 would keep ~3 digits), as the JAX float32 path
-// does; bf16 inputs run every product of both kernels on the tensor cores.
-// Each kernel recomputes the score tile (seven products in all).
+// pair against a few bytes per row). float32 inputs keep float32-grade
+// products (one TF32 product would keep ~3 digits), as the JAX float32 path
+// does: FA-dQ's on the tensor cores as split-TF32 products
+// (flash_common.cuh), FA-dKV's on the CUDA cores; bf16 inputs run every
+// product of both kernels on the tensor cores. Each kernel recomputes the
+// score tile (seven products in all).
 //
 // FA-dQ: one block per (batch, head, tile of 64 queries), longest rows
 // first. Q and dO stay in shared memory; the block walks the key tiles
 // 0 .. diagonal.
-//   float32 (flash_attention_dq_kernel): K and V staged per tile, P and
-// dP = dO V^T in registers, dS through shared memory (each row is written
-// and read by one warp), dQ += dS K on the CUDA cores, scaled once at the
-// end.
+//   float32 (dq_tf32_kernel): the bf16 kernel's layout with the three
+// products split-TF32 on mma.sync.m16n8k8 .tf32. Q and dO stay float32 in
+// shared memory and are split per k-step; each K and V tile is loaded by
+// 16-byte loads and split once into hi and lo tiles that every warp reads
+// (102 KB of shared memory at hd 64: two blocks an SM). P and dS stay
+// float32 in registers (no rounding), dS's C fragments are the A fragments
+// of dS K with each 8 keys in the order {0, 2, 4, 6, 1, 3, 5, 7}, and K is
+// read as dS K's B operand from the same hi and lo tiles as Q K^T's. Each
+// key tile's dS K goes into a fresh accumulator added to the float32 dQ
+// sums rounded to nearest (the tensor cores truncate their sums); dQ is
+// scaled once and stored once, in float32. The sums run in one fixed
+// order: the same bits in every run.
 //   bf16 (dq_mma_kernel): S = Q K^T, dP = dO V^T and dQ += dS K on
 // mma.sync.m16n8k16, a warp per 16 query rows; K and V double-buffered with
 // cp.async (55 KB of shared memory at hd 64, 104 KB at hd 128); only the
@@ -106,108 +116,124 @@ __device__ __forceinline__ void tile_product(float (&acc)[RI][CJ], const float* 
   }
 }
 
-constexpr size_t dq_smem_bytes(int HD) {
-  return sizeof(float) * (4 * BM * (HD + 4) + BM * PS);
+constexpr size_t dq_tf32_smem_bytes(int HD) {  // Q, dO, and the hi and lo tiles of K and V
+  return sizeof(float) * 6 * 64 * (HD + 4);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_dq_kernel(const void* __restrict__ q, const void* __restrict__ k,
-                          const void* __restrict__ v, const void* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          void* __restrict__ dq, int S, int H, int KH, int bf16,
-                          float scale) {
-  constexpr int QS = HD + 4;   // row stride of the operand tiles
-  constexpr int OP = HD / 16;  // dQ column pairs per thread, c = 16 jp + 2 tx + {0, 1}
+__global__ void __launch_bounds__(TF32_THREADS)
+dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dq, int S, int H, int KH, float scale) {
+  constexpr int TS = HD + 4;
+  constexpr int KS = HD / 8;  // k-steps over the head dimension
+  constexpr int DT = HD / 8;  // 8-wide dQ column tiles
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + BM * QS;
-  float* Ks = dOs + BM * QS;
-  float* Vs = Ks + BN * QS;
-  float* dSs = Vs + BN * QS;
+  float* dOs = Qs + 64 * TS;
+  float* Kh = dOs + 64 * TS;
+  float* Kl = Kh + 64 * TS;
+  float* Vh = Kl + 64 * TS;
+  float* Vl = Vh + 64 * TS;
 
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // longest rows first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;  // longest rows first
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const int kh = h / (H / KH);
+  const int n_tiles = q0 / 64 + 1;  // key tiles 0 .. diagonal
+  const float sl2 = scale * LOG2E;
 
-  load_tile<HD>(Qs, QS, q, b, S, H, h, q0, bf16);
-  load_tile<HD>(dOs, QS, dout, b, S, H, h, q0, bf16);
+  stage_tiles_f32<HD, 2, false>(Qs, nullptr, q, dOs, nullptr, dout, b, S, H, h, q0);
 
-  float L[RI], D[RI], acc_dq[RI][OP][2];
+  // this lane's rows row_lo and row_lo + 8: L (log2 domain) and D. Rows at
+  // or beyond S have zero Q and dO and L = D = 0, so their dS is 0.
+  const int row_lo = q0 + warp * 16 + lane / 4;
+  float L2[2], Dr[2];
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = q0 + ty + TY * i;
-    L[i] = row < S ? lse[(b * H + h) * S + row] : 0.f;
-    D[i] = row < S ? delta[(b * H + h) * S + row] : 0.f;
-#pragma unroll
-    for (int jp = 0; jp < OP; ++jp) acc_dq[i][jp][0] = acc_dq[i][jp][1] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    L2[r] = row < S ? lse[(b * H + h) * S + row] * LOG2E : 0.f;
+    Dr[r] = row < S ? delta[(b * H + h) * S + row] : 0.f;
   }
+  float acc[DT][4];  // dQ / scale, float32 sums rounded to nearest
+#pragma unroll
+  for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
 
-  for (int n0 = 0; n0 <= q0; n0 += BN) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<HD>(Ks, QS, k, b, S, KH, kh, n0, bf16);
-    load_tile<HD>(Vs, QS, v, b, S, KH, kh, n0, bf16);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int n0 = j * 64;
+    __syncthreads();  // every warp is done with tile j - 1 (and Q, dO have landed)
+    stage_tiles_f32<HD, 2, true>(Kh, Kl, k, Vh, Vl, v, b, S, KH, kh, n0);
     __syncthreads();
 
-    float p[RI][CJ], dp[RI][CJ];
-    tile_product<HD>(p, Qs, Ks, ty, tx);
+    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys per warp
+    float sc[8][4], dp[8][4];
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int row = q0 + ty + TY * i;
+    for (int jn = 0; jn < 8; ++jn)
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int col = n0 + tx + TX * j;
-        p[i][j] = (col <= row && row < S) ? expf(p[i][j] * scale - L[i]) : 0.f;
+      for (int e = 0; e < 4; ++e) sc[jn][e] = dp[jn][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      unsigned qh[4], ql[4], oh[4], ol[4];
+      lds_a_split(qh, ql, Qs, TS, warp * 16, 8 * ks);
+      lds_a_split(oh, ol, dOs, TS, warp * 16, 8 * ks);
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        unsigned kh2[2], kl2[2], vh2[2], vl2[2];
+        lds_bt(kh2, Kh, TS, 8 * jn, 8 * ks);
+        lds_bt(kl2, Kl, TS, 8 * jn, 8 * ks);
+        lds_bt(vh2, Vh, TS, 8 * jn, 8 * ks);
+        lds_bt(vl2, Vl, TS, 8 * jn, 8 * ks);
+        mma_split(sc[jn], qh, ql, kh2, kl2);
+        mma_split(dp[jn], oh, ol, vh2, vl2);
       }
     }
-    tile_product<HD>(dp, dOs, Vs, ty, tx);
+    // P = exp(scale s - L), exactly 0 above the diagonal; dS = P (dP - D),
+    // float32
+    const bool diag = j == n_tiles - 1;
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+    for (int jn = 0; jn < 8; ++jn) {
 #pragma unroll
-      for (int j = 0; j < CJ; ++j)
-        dSs[(ty + TY * i) * PS + tx + TX * j] = p[i][j] * (dp[i][j] - D[i]);
-    __syncwarp();  // a row of dS is written and read by the same warp
-
-    // dq += dS . K
-#pragma unroll 2
-    for (int n = 0; n < BN; n += 4) {
-      float ds[RI][4];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float4 t = *reinterpret_cast<const float4*>(&dSs[(ty + TY * i) * PS + n]);
-        ds[i][0] = t.x;
-        ds[i][1] = t.y;
-        ds[i][2] = t.z;
-        ds[i][3] = t.w;
-      }
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn) {
-#pragma unroll
-        for (int jp = 0; jp < OP; ++jp) {
-          const float2 kv =
-              *reinterpret_cast<const float2*>(&Ks[(n + nn) * QS + 16 * jp + 2 * tx]);
-#pragma unroll
-          for (int i = 0; i < RI; ++i) {
-            acc_dq[i][jp][0] = fmaf(ds[i][nn], kv.x, acc_dq[i][jp][0]);
-            acc_dq[i][jp][1] = fmaf(ds[i][nn], kv.y, acc_dq[i][jp][1]);
-          }
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const bool masked = diag && n0 + 8 * jn + 2 * t + (e & 1) > row_lo + 8 * r;
+        const float p = masked ? 0.f : exp2f(sc[jn][e] * sl2 - L2[r]);
+        sc[jn][e] = p * (dp[jn][e] - Dr[r]);
       }
     }
+    // dQ += dS K: this tile's products into a fresh accumulator (the tensor
+    // cores truncate their sums), added to dQ rounded to nearest
+    float af[DT][4];
+#pragma unroll
+    for (int d = 0; d < DT; ++d) af[d][0] = af[d][1] = af[d][2] = af[d][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      unsigned sh[4], sl[4];
+      c_to_a_split(sh, sl, sc[kk]);
+#pragma unroll
+      for (int dd = 0; dd < DT; ++dd) {
+        unsigned bh[2], bl[2];
+        lds_b_perm(bh, Kh, TS, 8 * kk, 8 * dd);
+        lds_b_perm(bl, Kl, TS, 8 * kk, 8 * dd);
+        mma_split(af[dd], sh, sl, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d][e] = __fadd_rn(acc[d][e], af[d][e]);
   }
 
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = q0 + ty + TY * i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
     if (row >= S) continue;
-    const long long base = ((b * S + row) * H + h) * HD;
+    float* dst = dq + ((b * S + row) * H + h) * HD + 2 * t;
 #pragma unroll
-    for (int jp = 0; jp < OP; ++jp) {
-      dmel::store_f(dq, base + 16 * jp + 2 * tx, acc_dq[i][jp][0] * scale, bf16);
-      dmel::store_f(dq, base + 16 * jp + 2 * tx + 1, acc_dq[i][jp][1] * scale, bf16);
-    }
+    for (int d = 0; d < DT; ++d)
+      *reinterpret_cast<float2*>(dst + 8 * d) = make_float2(acc[d][2 * r] * scale, acc[d][2 * r + 1] * scale);
   }
 }
 
@@ -414,8 +440,8 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long b = blockIdx.z;
   const int kh = h / (H / KH);
 
-  load_tile<HD>(Ks, QS, k, b, S, KH, kh, n0, 0);
-  load_tile<HD>(Vs, QS, v, b, S, KH, kh, n0, 0);
+  load_tile<HD>(Ks, QS, k, b, S, KH, kh, n0);
+  load_tile<HD>(Vs, QS, v, b, S, KH, kh, n0);
 
   float acc_dk[RI][OP][2], acc_dv[RI][OP][2];
 #pragma unroll
@@ -426,8 +452,8 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int m0 = n0; m0 < S; m0 += BM) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<HD>(Qs, QS, q, b, S, H, h, m0, 0);
-    load_tile<HD>(dOs, QS, dout, b, S, H, h, m0, 0);
+    load_tile<HD>(Qs, QS, q, b, S, H, h, m0);
+    load_tile<HD>(dOs, QS, dout, b, S, H, h, m0);
     if (threadIdx.x < BM) {
       const int m = m0 + threadIdx.x;
       Ls[threadIdx.x] = m < S ? lse[(b * H + h) * S + m] : 0.f;
@@ -661,7 +687,7 @@ template <int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* delta, void* dq, int B, int S, int H, int KH, int bf16,
               float scale, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((S + BM - 1) / BM), static_cast<unsigned>(H),
+  const dim3 grid(static_cast<unsigned>((S + 63) / 64), static_cast<unsigned>(H),
                   static_cast<unsigned>(B));
   if (bf16) {
     constexpr size_t smem = dq_mma_smem_bytes(HD);
@@ -673,13 +699,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
         static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
         static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dq), S, H, KH, scale);
   } else {
-    constexpr size_t smem = dq_smem_bytes(HD);
+    constexpr size_t smem = dq_tf32_smem_bytes(HD);
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        dq_tf32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    flash_attention_dq_kernel<HD><<<grid, THREADS, smem, stream>>>(
-        q, k, v, dout, lse, delta, dq, S, H, KH, bf16, scale);
+    dq_tf32_kernel<HD><<<grid, TF32_THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), S, H, KH, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -778,8 +804,8 @@ extern "C" int dmel_flash_attention_bwd_config(int which, int B, int S, int H, i
   cfg[0] = (S + 63) / 64;
   cfg[1] = H;
   cfg[2] = B;
-  cfg[3] = !bf16 ? THREADS : which == 0 ? DKV_THREADS : DQ_THREADS;
-  cfg[4] = static_cast<int>(which == 1 ? (bf16 ? dq_mma_smem_bytes(HD) : dq_smem_bytes(HD))
+  cfg[3] = which == 1 ? (bf16 ? DQ_THREADS : TF32_THREADS) : bf16 ? DKV_THREADS : THREADS;
+  cfg[4] = static_cast<int>(which == 1 ? (bf16 ? dq_mma_smem_bytes(HD) : dq_tf32_smem_bytes(HD))
                             : bf16     ? dkv_mma_smem_bytes(HD)
                                        : dkv_f32_smem_bytes(HD));
   return 0;

@@ -19,7 +19,9 @@ In bf16 the kernels run their products on the tensor cores and round the
 probabilities P (before P V and P^T dO), dS (before dS^T Q) and scale * dS
 (before dS K) to bf16, as jax's Pallas kernels do; the plain versions keep
 them float32 (the exact float32-product functions the kernels are held
-against).
+against). In float32, FA and FA-dQ run their products on the tensor cores
+as split-TF32 products (each operand split into hi = tf32(x) and lo =
+tf32(x - hi), three products, P and dS float32), FA-dKV on the CUDA cores.
 The kernels never form the [S, S] score matrix in device memory, index the
 KV head themselves (no repeat of K/V) and mask a ragged last tile (no
 padding of S). Under autograd the forward also stores each row's
@@ -178,6 +180,18 @@ def flash_attention_dq(q, k, v, grad, lse, delta) -> torch.Tensor:
     library.check(lib, rc, "dmel_flash_attention_bwd_dq")
     flash_attention_dq.launches += 1
     return dq
+
+
+# The float32 launches of FA and FA-dQ (csrc/flash_attention.cu
+# `tf32_smem_bytes`, csrc/flash_attention_bwd.cu `dq_tf32_smem_bytes`):
+# 4 warps, and 64-row float32 tiles of hd + 4 in shared memory: FA holds Q
+# and the hi and lo tiles of K and V, FA-dQ also dO.
+TF32_THREADS = 128
+
+
+def tf32_smem_bytes(kernel: str, hd: int) -> int:
+    """Shared bytes per block of the float32 launch of "FA" or "FA-dQ"."""
+    return 4 * 64 * (hd + 4) * {"FA": 5, "FA-dQ": 6}[kernel]
 
 
 def launch_config(kernel: str, q: torch.Tensor) -> dict:

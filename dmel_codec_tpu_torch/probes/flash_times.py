@@ -21,12 +21,15 @@ alternate so that a drift of the card shows as a difference between the
 two runs of one checkout. K2 and K2-v1 are timed in bf16 and in float32
 (the float32 kernels run split-TF32 products on the tensor cores since
 their redesign; the parent's ran on the CUDA cores). Each run also records
-what must not change: hashes of the float32 FA-dQ output at [2, 1024], of
-the bf16 K2 stage at a window's s3 and the bf16 K2-v1 stage at a window's
-s5, and of K1 in float32 and bf16 at s1 and at a ragged shape (the same
-bits in all four runs); and of the float32 K2 and K2-v1 stages at the same
-shapes (the same bits in the two runs of one checkout: the float32 kernels
-sum in a fixed order, in another one than before their redesign); and the
+what must not change: hashes of the bf16 FA output and L at [2, 2048], of
+the bf16 FA-dKV and FA-dQ outputs at [2, 2048] and the float32 FA-dKV
+outputs at [2, 1024] (both fed the plain forward's output and L), of the bf16 K2 stage at a window's s3 and the bf16
+K2-v1 stage at a window's s5, and of K1 in float32 and bf16 at s1 and at a
+ragged shape (the same bits in all four runs); and of the float32 FA
+output and L and FA-dQ output at [2, 1024] and the float32 K2 and K2-v1
+stages (the same bits in the two runs of one checkout: these float32
+kernels sum in a fixed order, in another one than before their split-TF32
+redesign); and the
 flagship vocoder's bf16 waveform on
 seeded random weights with spread snake parameters (written to the
 checkout's `build/ab_vocoder.pt`; the difference between the checkouts is
@@ -63,9 +66,17 @@ K1_CASES = tuple((f"{what} {name}", b, c, frames * rate) for what, b, frames in 
 K1_BITS = (("s1", 2, 384, 5952), ("ragged", 3, 7, 1037))
 
 
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def time_here(root: Path, reps: int = 20) -> dict:
     """ms per launch of the checkout at `root`, keyed "FA bfloat16 [2, 2048]" etc., and the
-    float32 FA-dQ hash ("bits ..."); writes the vocoder's waveform to `root`/build."""
+    hashes of the outputs ("bits ...", "own bits ..."); writes the vocoder's waveform to
+    `root`/build."""
     import torch
 
     if not torch.cuda.is_available():
@@ -97,18 +108,28 @@ def time_here(root: Path, reps: int = 20) -> dict:
             q, k, v, g = (torch.randn((b, s, n, hd), device="cuda", generator=gen).to(dtype)
                           for n in (h, kh, kh, h))
             tag = f"{dt} [{b}, {s}]"
+            # bf16 and float32 FA-dKV: the same bits in all four runs; the
+            # float32 FA and FA-dQ (split-TF32 since their redesign): in the two
+            # runs of one checkout
+            bits = "bits" if dt == "bfloat16" else "own bits"
             if name == "fwd":
                 out[f"FA {tag}"] = cuda_ms(lambda: fa._launch(q, k, v), reps)
+                out[f"{bits} FA and L {tag}"] = digest(*fa._launch(q, k, v, with_lse=True))
             elif name == "fwd+L":
                 out[f"FA storing L {tag}"] = cuda_ms(lambda: fa._launch(q, k, v, with_lse=True), reps)
+                out[f"{bits} FA and L {tag}"] = digest(*fa._launch(q, k, v, with_lse=True))
             else:
                 o, lse = fa._launch(q, k, v, with_lse=True)
                 delta = (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
                 out[f"FA-dKV {tag}"] = cuda_ms(lambda: fa.flash_attention_dkv(q, k, v, g, lse, delta), reps)
                 out[f"FA-dQ {tag}"] = cuda_ms(lambda: fa.flash_attention_dq(q, k, v, g, lse, delta), reps)
-                if (s, dt) == (1024, "float32"):
-                    dq = fa.flash_attention_dq(q, k, v, g, lse, delta).cpu().numpy()
-                    out[f"bits FA-dQ {tag}"] = hashlib.sha256(dq.tobytes()).hexdigest()
+                if s == 2048 and dt == "float32":
+                    continue
+                # fed the plain forward's output and L, which no redesign moves
+                o, lse = fa.flash_attention_forward_reference(q, k, v)
+                delta = (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+                out[f"bits FA-dKV {tag}"] = digest(*fa.flash_attention_dkv(q, k, v, g, lse, delta))
+                out[f"{bits} FA-dQ {tag}"] = digest(fa.flash_attention_dq(q, k, v, g, lse, delta))
         for c in P4_WIDTHS:
             xb = torch.randn((P4_PLANES, sublane_ops.MM_ROWS, c), device="cuda", generator=gen).to(torch.bfloat16)
             w = torch.randn((c, c), device="cuda", generator=gen).to(torch.bfloat16)

@@ -159,19 +159,31 @@ def test_cpu_tensors_route_forward_and_backward_through_the_plain_versions(monke
     assert counts == (fa.flash_attention.launches, fa.flash_attention_dkv.launches, fa.flash_attention_dq.launches)
 
 
-@pytest.mark.parametrize("kernel,dtype", [("FA-dQ", torch.float32), ("FA-dQ", torch.bfloat16),
-                                          ("FA-dKV", torch.bfloat16), ("FA", torch.bfloat16)])
+# (kernel, dtype) -> (threads, shared bytes) of the launch at hd 64: the
+# float32 FA and FA-dQ on the split-TF32 kernels (`fa.tf32_smem_bytes`), the
+# bf16 ones on the mma.sync kernels (Q, dO and two buffers each of K and V
+# as bf16 rows of hd + 8; FA-dKV also L and D)
+LAUNCHES = {("FA-dQ", torch.float32): (fa.TF32_THREADS, fa.tf32_smem_bytes("FA-dQ", 64)),
+            ("FA-dQ", torch.bfloat16): (128, 2 * 6 * 64 * 72), ("FA-dKV", torch.bfloat16): (128, 2 * 6 * 64 * 72 + 1024),
+            ("FA", torch.bfloat16): (128, 2 * 5 * 64 * 72),
+            ("FA", torch.float32): (fa.TF32_THREADS, fa.tf32_smem_bytes("FA", 64))}
+
+
+@pytest.mark.parametrize("kernel,dtype", list(LAUNCHES))
 def test_launch_config_reports_the_library(monkeypatch, kernel, dtype):
     """`launch_config` asks the library for the launch this kernel makes at
     q's shape and dtype (FA-dQ: which = 1, the bf16 flag picking the
-    tensor-core kernel) and returns its grid, threads and shared bytes; the
-    library itself answers only on the card (chip_smoke.py phase 19)."""
+    tensor-core kernel of that dtype) and returns its grid, threads and
+    shared bytes; the library itself answers only on the card
+    (chip_smoke.py phase 19 holds its float32 answers to
+    `fa.tf32_smem_bytes`)."""
     seen = []
+    threads, smem = LAUNCHES[kernel, dtype]
 
     class Lib:
         def _answer(self, *args):
             seen.append(args[:-1])
-            args[-1][:] = [7, 14, 2, 128, 55296]
+            args[-1][:] = [7, 14, 2, threads, smem]
             return 0
 
         dmel_flash_attention_config = dmel_flash_attention_bwd_config = _answer
@@ -179,10 +191,21 @@ def test_launch_config_reports_the_library(monkeypatch, kernel, dtype):
     monkeypatch.setattr(library, "load", lambda: Lib())
     q = torch.zeros((2, 448, 14, 64), dtype=dtype)
     cfg = fa.launch_config(kernel, q)
-    assert cfg == {"grid": (7, 14, 2), "threads": 128, "smem_bytes": 55296}
+    assert cfg == {"grid": (7, 14, 2), "threads": threads, "smem_bytes": smem}
     bf = int(dtype == torch.bfloat16)
     want = (2, 448, 14, 64, bf) if kernel == "FA" else ({"FA-dKV": 0, "FA-dQ": 1}[kernel], 2, 448, 14, 64, bf)
     assert seen == [want]
+
+
+@pytest.mark.parametrize("kernel", ["FA", "FA-dQ"])
+def test_float32_launches_fit_shared_memory(kernel):
+    """The split-TF32 kernels' shared memory fits a block's 227 KB at every
+    head size the wrapper admits, and leaves two blocks an SM (228 KB, 1 KB
+    of it reserved per block) at the trainer's hd 64."""
+    for hd in range(16, 129, 16):
+        assert fa.tf32_smem_bytes(kernel, hd) <= 232448, hd
+    assert 2 * (fa.tf32_smem_bytes(kernel, 64) + 1024) <= 233472
+    assert fa.tf32_smem_bytes(kernel, 64) == {"FA": 87040, "FA-dQ": 104448}[kernel]
 
 
 def test_non_cpu_tensors_never_reach_the_plain_versions(monkeypatch, tmp_path):
