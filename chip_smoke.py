@@ -2,7 +2,7 @@
 """Drive the PyTorch port's serving and training paths once on one CUDA card:
 the codec (log-mel -> dMel tokens -> BigVGAN), the slow-fast LM in front of
 it, the codec on long audio, window by window, LM training, codec GAN
-training, and the kernel probes.
+training, the kernel probes, and codec evaluation with the codec zoo.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
 
@@ -132,7 +132,21 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      run to 6, then `cli.stream_codec.main` serving the `gen_params` it wrote;
  23. overfit: one fixed synthetic batch (sums of sines and noise bursts), a
      raised learning rate, up to 250 steps or 60 s: `val_loss` falls below
-     a stated fraction of its start.
+     a stated fraction of its start;
+ 24. evaluation: `cli.evaluate.main` (default device) on 8 synthetic 24 kHz
+     clips of 2.5 to 6 s, a flagship float32 DMelCodec checkpoint and
+     BigVGAN state_dict with seeded random weights, `compute_pesq`: finite
+     means, K1 / K2 launch counts (every K2 launch on the split-TF32
+     kernel), seconds of audio per second split into the codec's device time
+     (CUDA events) and the host metrics; the same batches through
+     `Evaluation.step` with the kernels and with their plain versions (the
+     entropy equal, the other columns within stated tolerances); ECAPA-TDNN
+     at speechbrain's voxceleb width from an `embedding_model.ckpt` (a
+     finite spk_sim; the card against the CPU); SpeechTokenizer, EnCodec
+     24 kHz and Firefly at their published widths through `Evaluation.run`
+     on the clips resampled to their rates (codes inside their codebooks,
+     one clip on the card against the CPU); `make_codec("dac" / "mimi")`
+     raising its ImportError without transformers.
 The comparison phases run with TF32 off for cuBLAS and cuDNN, as the entry
 points run (each `main` calls `strict_float32`). The
 line before the last is one JSON object describing the kernels; the last
@@ -474,6 +488,285 @@ def plain_kernels():
         yield
     finally:
         bigvgan.anti_alias_activation, bigvgan.amp_stage, bigvgan.amp_stage_v1 = saved
+
+
+# Phase 24, evaluation. Tolerances, absolute in each column's unit:
+#  kernel path vs plain path (the same checkpoint, batches and decoder
+#    noise): the float32 vocoder's kernels sit within 2e-6 of their plain
+#    versions per stage (phase 6), so the waveforms differ by ~1e-5 of their
+#    peak; the harness's columns move by far less than these bounds, which
+#    still tell a wrong kernel apart (any column off by a percent):
+#    si_snr 1e-3 dB, mel_l1 1e-4, stoi 1e-4, f0_corr 1e-3, pesq 1e-3. The
+#    encoder runs no kernel: codebook_entropy_mean must be equal.
+#  ECAPA on the card vs the same module on the CPU: float32 convs (TF32
+#    off) in another summation order through ~12 layers: 1e-4 of max |CPU|.
+#  zoo, card vs CPU: a code may flip where two codes (RVQ) or two levels
+#    (FSQ) are within the float32 rounding of a tie, and an RVQ flip moves
+#    the later layers' residuals: at most 1 % of the codes may differ;
+#    audio decoded from the same codes, float32 convs and LSTMs in another
+#    order: 1e-4 of max(1, max |CPU|).
+TOL_EVAL_PLAIN = {"si_snr": 1e-3, "mel_l1": 1e-4, "stoi": 1e-4, "f0_corr": 1e-3, "pesq": 1e-3}
+TOL_ECAPA, TOL_ZOO_CODES, TOL_ZOO_AUDIO = 1e-4, 1e-2, 1e-4
+EVAL_CLIPS, EVAL_MAX_DURATION = 8, 30.0
+
+
+def eval_clips(seed: int):
+    """8 clips at 24 kHz, 2.5 to 6 s: sums of four sines with a vibrato and
+    two 0.1 s noise bursts each, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    clips = []
+    for i in range(EVAL_CLIPS):
+        t = np.arange(int((2.5 + 0.5 * i) * SR)) / SR
+        x = np.zeros(t.size)
+        for amp, freq in zip(rng.uniform(0.05, 0.3, 4), rng.uniform(100.0, 3000.0, 4)):
+            x += amp * np.sin(2 * math.pi * freq * (t + 0.002 * np.sin(2 * math.pi * 5.0 * t)))
+        for start in rng.integers(0, t.size - SR // 10, 2):
+            x[start : start + SR // 10] += 0.2 * rng.standard_normal(SR // 10)
+        clips.append(x.astype(np.float32))
+    return clips
+
+
+class CodecTimer:
+    """Wraps an adapter's (or an adapter class's) encode and decode: CUDA
+    events around each call (its device work, copies included), summed."""
+
+    def __init__(self, target):
+        self.target, self.ms, self.saved = target, 0.0, {}
+
+    def __enter__(self):
+        for name in ("encode", "decode"):
+            fn = self.saved[name] = getattr(self.target, name)
+
+            def timed(*args, _fn=fn, **kwargs):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                result = _fn(*args, **kwargs)
+                end.record()
+                end.synchronize()
+                self.ms += start.elapsed_time(end)
+                return result
+
+            setattr(self.target, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            if isinstance(self.target, type):
+                setattr(self.target, name, fn)
+            else:
+                delattr(self.target, name)
+
+
+def evaluation_phase(dev) -> dict:
+    """Phase 24: the evaluation entry point and harness on the card (see the
+    module docstring). Returns the numbers for the JSON line."""
+    import io
+
+    from scipy.io import wavfile
+
+    from dmel_codec_tpu_torch.cli import evaluate
+    from dmel_codec_tpu_torch.cli.common import load_codec_adapter
+    from dmel_codec_tpu_torch.data.audio import resample_audio
+    from dmel_codec_tpu_torch.data.loader import BucketBatcher, DataLoader
+    from dmel_codec_tpu_torch.data.manifest import load_manifest
+    from dmel_codec_tpu_torch.eval import ecapa
+    from dmel_codec_tpu_torch.eval.codecs import DMelCodecAdapter, make_codec
+    from dmel_codec_tpu_torch.eval.evaluation import Evaluation
+    from dmel_codec_tpu_torch.eval.metrics import detect_f0
+    from dmel_codec_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
+    from dmel_codec_tpu_torch.models.codec import DMelCodec, DMelCodecConfig
+    from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation
+    from dmel_codec_tpu_torch.ops.stage_fused import amp_stage
+    from dmel_codec_tpu_torch.train.checkpoint import CheckpointManager
+
+    out: dict = {}
+    clips = eval_clips(24)
+    audio_s = sum(c.size for c in clips) / SR
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with open(tmp / "test.jsonl", "w") as f:
+            for i, clip in enumerate(clips):
+                wavfile.write(tmp / f"clip{i}.wav", SR, clip)
+                f.write(json.dumps({"id": f"e{i}", "audio_path": str(tmp / f"clip{i}.wav"),
+                                    "duration": clip.size / SR, "text": ""}) + "\n")
+        torch.manual_seed(24)
+        CheckpointManager(str(tmp / "codec")).save(0, {"gen_params": DMelCodec(DMelCodecConfig()).state_dict()})
+        torch.save(jitter_snake(BigVGAN(BigVGANConfig())).state_dict(), tmp / "bigvgan_generator.pt")
+        (tmp / "eval.yaml").write_text(
+            f"codec_ckpt_dir: {tmp / 'codec'}\nvocoder_ckpt: {tmp / 'bigvgan_generator.pt'}\n"
+            f"test_manifest: {tmp / 'test.jsonl'}\nmax_duration: {EVAL_MAX_DURATION}\nwhisper_path: null\n"
+            "compute_pesq: true\ncompute_spk_sim: false\n")
+        cuts = load_manifest(str(tmp / "test.jsonl"))
+        n_batches = len(BucketBatcher(cuts, EVAL_MAX_DURATION, shuffle=False).batches())
+
+        # (a) the entry point on the card: flagship float32 codec + vocoder
+        log(f"evaluation: cli.evaluate.main on {EVAL_CLIPS} synthetic clips ({audio_s:.1f} s of 24 kHz audio, "
+            f"{n_batches} batches), flagship float32 DMelCodec + BigVGAN with seeded random weights, compute_pesq")
+        run_s = []
+        real_run = Evaluation.run
+
+        def timed_run(self, batches_):
+            t0_ = time.perf_counter()
+            result_ = real_run(self, batches_)
+            run_s.append(time.perf_counter() - t0_)
+            return result_
+
+        anti_alias_activation.launches = amp_stage.launches = 0
+        amp_stage.launches_by_kernel.update(act_conv_tc_kernel=0, act_conv_tf32_kernel=0)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with CodecTimer(DMelCodecAdapter) as timer, contextlib.redirect_stdout(buf):
+            Evaluation.run = timed_run
+            try:
+                evaluate.main(["--config", str(tmp / "eval.yaml")])  # the default device: the card
+            finally:
+                Evaluation.run = real_run
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {"K1": anti_alias_activation.launches, "K2": amp_stage.launches, **amp_stage.launches_by_kernel}
+        means = json.loads(buf.getvalue())
+        log("  means: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(means.items())))
+        # the adapter's FusedBigVGAN fuses the stages of at most 192 channels
+        vcfg = BigVGANConfig()
+        n_fused = sum(vcfg.stage_channels(i) <= FUSE_MAX_CHANNELS for i in range(len(vcfg.upsample_rates)))
+        want_k1, want_k2 = (len(vcfg.upsample_rates) - n_fused) * 18 + 1, n_fused * 18
+        host_s = run_s[0] - timer.ms / 1e3
+        log(f"  launches {launches} (expected K1 {n_batches} x {want_k1}, K2 {n_batches} x {want_k2}, all on "
+            f"act_conv_tf32_kernel); wall {wall_s:.2f} s with loading, Evaluation.run {run_s[0]:.2f} s = codec "
+            f"{timer.ms / 1e3:.2f} s (CUDA events around encode + decode) + host metrics {host_s:.2f} s; "
+            f"{audio_s / run_s[0]:.2f} s of audio per s ({audio_s / (timer.ms / 1e3):.2f} through the codec alone)")
+        # f0_corr (Pearson's r of the two pitch tracks over frames voiced in
+        # both) is left out by the harness, as by the JAX one, where it is
+        # undefined: checked in (c) when it is missing here
+        required = {"si_snr", "mel_l1", "stoi", "codebook_entropy_mean", "pesq"}
+        assert required <= set(means) <= required | {"f0_corr"}, means
+        assert all(math.isfinite(v) for v in means.values()), means
+        assert launches == {"K1": n_batches * want_k1, "K2": n_batches * want_k2, "act_conv_tc_kernel": 0,
+                            "act_conv_tf32_kernel": n_batches * want_k2}, launches
+        out["cli"] = {"means": means, "launches": launches, "batches": n_batches, "audio_s": audio_s,
+                      "wall_s": wall_s, "run_s": run_s[0], "codec_s": timer.ms / 1e3, "host_s": host_s,
+                      "audio_s_per_s": audio_s / run_s[0], "codec_audio_s_per_s": audio_s / (timer.ms / 1e3)}
+
+        # (b) the same batches through Evaluation.step, kernels against plain
+        batches = list(DataLoader(cuts, max_duration=EVAL_MAX_DURATION, shuffle=False))
+        runs = []
+        for plain in (False, True):
+            adapter = load_codec_adapter(str(tmp / "codec"), vocoder_ckpt=str(tmp / "bigvgan_generator.pt"))
+            with plain_kernels() if plain else contextlib.nullcontext():
+                runs.append([Evaluation(adapter, compute_pesq=True, device=dev).step(b) for b in batches])
+            del adapter
+        assert all(g.keys() == w.keys() for g, w in zip(*runs)), runs
+        diffs = {k: max(abs(g[k] - w[k]) for g, w in zip(*runs)) for k in runs[0][0]}
+        log("  kernel path vs plain path, largest difference per column over the batches: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in sorted(diffs.items()))
+            + f" (tolerances {TOL_EVAL_PLAIN}; entropy must be equal)")
+        assert diffs["codebook_entropy_mean"] == 0.0, diffs
+        assert all(v <= TOL_EVAL_PLAIN[k] for k, v in diffs.items() if k != "codebook_entropy_mean"), diffs
+        out["kernel_vs_plain"] = diffs
+
+        # the pitch tracks of the reconstructions: a random vocoder's output is
+        # smooth, so the tracker may find one lag in every voiced frame, and a
+        # constant track leaves Pearson's r undefined
+        adapter = load_codec_adapter(str(tmp / "codec"), vocoder_ckpt=str(tmp / "bigvgan_generator.pt"))
+        pitches = set()
+        distinct = []
+        for b in batches:
+            rec = adapter.rec_audio_from_audio(b["audios"], b["audio_lengths"])
+            for i, n in enumerate(b["audio_lengths"]):
+                f0 = detect_f0(rec[i, : min(n, rec.shape[1])], SR)
+                distinct.append(len(np.unique(f0[f0 > 0])))
+                pitches |= set(np.unique(f0[f0 > 0]).round(2).tolist())
+        log(f"  the reconstructions' pitch tracks: {distinct} distinct F0 values over the voiced frames of each clip "
+            f"({sorted(pitches)[:6]} Hz); f0_corr {'in the means' if 'f0_corr' in means else 'undefined, so left out'}")
+        if "f0_corr" not in means:
+            assert max(distinct) <= 1, distinct
+        out["cli"]["rec_f0_distinct"] = distinct
+
+        # (c) ECAPA at speechbrain's voxceleb width, seeded random weights
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(25)
+            torch.save(ecapa.ECAPA_TDNN().state_dict(), tmp / "embedding_model.ckpt")
+        spk = Evaluation(adapter, compute_pesq=False, spk_weights_path=str(tmp / "embedding_model.ckpt"),
+                         device=dev)
+        spk_sim = spk.run(batches[:1]).means["spk_sim"]
+        model = spk.spk_params
+        clip16 = torch.from_numpy(resample_audio(clips[0], SR, 16000)).to(dev)
+        ecapa_ms = cuda_ms(lambda: ecapa.embed(model, ecapa.ecapa_fbank(clip16)), reps=10)
+        fb = ecapa.ecapa_fbank(clip16)
+        got = ecapa.embed(model, fb)
+        want = ecapa.embed(copy.deepcopy(model).cpu(), fb.cpu())
+        ecapa_err = max_err(got.cpu(), want) / want.abs().max().item()
+        log(f"  ECAPA-TDNN C = 1024, embedding 192, scale 8 ({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M): "
+            f"spk_sim {spk_sim:.4f} over batch 0, {ecapa_ms:.2f} ms per {clips[0].size / SR:.1f} s clip (fbank + "
+            f"embed), card vs CPU {ecapa_err:.3e} of max |CPU| (tol {TOL_ECAPA:g})")
+        assert math.isfinite(spk_sim) and -1.0 <= spk_sim <= 1.0, spk_sim
+        assert ecapa_err <= TOL_ECAPA, ecapa_err
+        out["ecapa"] = {"spk_sim": spk_sim, "ms_per_clip": ecapa_ms, "clip_s": clips[0].size / SR,
+                        "card_vs_cpu": ecapa_err}
+        del adapter, spk, model
+
+    # (d) the zoo at its published widths, seeded random weights
+    out["zoo"] = {}
+    for name in ("speechtokenizer", "encodec", "fishspeech"):
+        codec = make_codec(name, seed=0)  # the default device: the card
+        sr = codec.sample_rate
+        zoo_batches = []
+        for b in batches:
+            parts = [resample_audio(b["audios"][i, : b["audio_lengths"][i]], SR, sr) for i in range(len(b["texts"]))]
+            audios = np.zeros((len(parts), max(p.size for p in parts)), np.float32)
+            for i, p in enumerate(parts):
+                audios[i, : p.size] = p
+            zoo_batches.append({"audios": audios, "audio_lengths": np.array([p.size for p in parts]),
+                                "texts": b["texts"]})
+        codes, _ = codec.encode(zoo_batches[0]["audios"], zoo_batches[0]["audio_lengths"])
+        with CodecTimer(codec) as timer:
+            t0 = time.perf_counter()
+            means = Evaluation(codec, compute_pesq=True, device=dev).run(zoo_batches).means
+            run = time.perf_counter() - t0
+        clip = zoo_batches[0]["audios"][:1, :sr]
+        cpu_codec = make_codec(name, copy.deepcopy(codec.model).cpu(), device="cpu")
+        got_codes, _ = codec.encode(clip)
+        want_codes, _ = cpu_codec.encode(clip)
+        flipped = float(np.mean(got_codes != want_codes))
+        want_audio = torch.from_numpy(cpu_codec.decode(want_codes)[0])
+        audio_err = max_err(torch.from_numpy(codec.decode(want_codes)[0]), want_audio)
+        scale = max(1.0, want_audio.abs().max().item())
+        n_params = sum(p.numel() for p in codec.model.parameters()) / 1e6
+        log(f"  {name} ({n_params:.1f} M, {sr} Hz, codes {list(codes.shape)} of {codec.config.codebook_size}): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(means.items()))
+            + f"; Evaluation.run {run:.2f} s = {audio_s / run:.2f} s of audio per s (codec {timer.ms / 1e3:.2f} s: "
+            f"{audio_s / (timer.ms / 1e3):.2f}); 1 s on the card vs the CPU: {flipped:.4%} of {got_codes.size} codes "
+            f"differ (tol {TOL_ZOO_CODES:.0%}), audio from the same codes {audio_err:.3e} (tol {TOL_ZOO_AUDIO * scale:.1e})")
+        assert 0 <= codes.min() and codes.max() < codec.config.codebook_size, (codes.min(), codes.max())
+        assert {"si_snr", "mel_l1", "codebook_entropy_mean", "pesq"} <= set(means), means
+        assert all(math.isfinite(v) for v in means.values()), means
+        assert flipped <= TOL_ZOO_CODES and audio_err <= TOL_ZOO_AUDIO * scale, (flipped, audio_err)
+        out["zoo"][name] = {"params_m": n_params, "sample_rate": sr, "means": means, "run_s": run,
+                            "audio_s_per_s": audio_s / run, "codec_s": timer.ms / 1e3,
+                            "codes_flipped": flipped, "audio_err": audio_err}
+        del codec, cpu_codec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (e) the adapters that wrap HF transformers raise their guarded error
+    # where it cannot be imported (blocked here, whether or not it is installed)
+    saved = sys.modules.get("transformers")
+    sys.modules["transformers"] = None
+    try:
+        for name in ("dac", "mimi"):
+            try:
+                make_codec(name)
+            except ImportError as e:
+                log(f"  make_codec({name!r}) without transformers raises ImportError: {e}")
+                assert f"codec '{name}' needs transformers" in str(e), e
+            else:
+                raise AssertionError(f"make_codec({name!r}) built without transformers")
+    finally:
+        if saved is None:
+            del sys.modules["transformers"]
+        else:
+            sys.modules["transformers"] = saved
+    return out
 
 
 def main() -> None:
@@ -2234,13 +2527,18 @@ def main() -> None:
     assert overfit_steps >= 100, overfit_steps
     assert best < OVERFIT_FRACTION * curve[0] and curve[overfit_steps] < curve[0], curve
     del otrainer, ostate
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 24. evaluation
+    evaluation = evaluation_phase(dev)
 
     kernels = [
         {"name": "anti_alias_activation (K1)", "route": "cuda", "source": K1_SOURCE,
          "replaces": "dmel_codec_tpu/ops/anti_alias.py:521", "launches": launches["K1"],
          "max_abs_err": errs["K1"], "ms": ms["K1"], "plain_ms": plain_ms["K1"],
          "bound_ms": bounds["K1"][0], "bound_by": bounds["K1"][1], "library_ms": None,
-         "per": f"codec request ({want_k1} launches)",
+         "per": f"codec request ({want_k1} launches)", "eval_launches": evaluation["cli"]["launches"]["K1"],
          "window_ms": win_ms["K1"], "window_plain_ms": win_plain_ms["K1"],
          "issue_floor_ms": k1_issue["request_ms"], "issue_floor_window_ms": k1_issue["window_ms"],
          "issue_per_output": k1_issue["per_output"], "sin_replica_mismatches": k1_sin_bad,
@@ -2269,6 +2567,7 @@ def main() -> None:
         {"name": "amp_stage act->conv float32 (K2, split-TF32)", "route": "cuda", "source": K2_TF32_SOURCE,
          "replaces": "dmel_codec_tpu/ops/stage_fused.py:806", "kernel": "act_conv_tf32_kernel", "dtype": "float32",
          "launches": float32_request["launches"]["act_conv_tf32_kernel"], "max_abs_err": errs["K2"],
+         "eval_launches": evaluation["cli"]["launches"]["act_conv_tf32_kernel"],
          "ms": ms["K2 float32"], "plain_ms": plain_ms["K2 float32"],
          "bound_ms": bounds["K2 float32"][0], "bound_by": bounds["K2 float32"][1], "library_ms": None,
          "per": f"float32 codec request ({want_k2} launches); launches: phase 6's float32 codec request",
@@ -2425,7 +2724,8 @@ def main() -> None:
     codec_train_step["parts_ms"] = parts
     codec_train_step["state_gib"] = state_gib
     codec_train_step["overfit"] = {"steps": overfit_steps, "seconds": overfit_s, "val_loss": curve}
-    print(json.dumps({"kernels": kernels, "train_step": train_step, "codec_train_step": codec_train_step}))
+    print(json.dumps({"kernels": kernels, "train_step": train_step, "codec_train_step": codec_train_step,
+                      "evaluation": evaluation}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 

@@ -9,12 +9,15 @@ NVIDIA Hopper. Same layer map as the JAX package:
   quantize/  FSQ + grouped/residual wrappers + the downsample sandwich
   models/    DMelCodec, the BigVGAN vocoder (module and serving forms), the
              Qwen2-style decoder and the slow-fast LM, chunked (streaming)
-             codec inference
+             codec inference, the zoo (SEANet / SpeechTokenizer / EnCodec,
+             fish-speech Firefly) and the reference encoder
   lm/        token grids, tokenizer, sampling, generation, audio -> grid batches
   train/     the LM trainer (full and LoRA) and the codec GAN trainer, their fit
              loops, losses, the optimizer, schedules, checkpoints
-  eval/      the numpy-in/numpy-out codec adapter
-  cli/       entry points (infer_lm, stream_codec, train_lm, train_codec)
+  eval/      codec evaluation: metrics, native PESQ, ECAPA speaker similarity,
+             the `Evaluation` harness and the codec zoo's adapters
+  cli/       entry points (infer_lm, stream_codec, train_lm, train_codec,
+             evaluate)
   probes/    development probes of the kernels (K1 ablations, K1's tiling,
              row-shifted reads, the tap-matmul form of a conv)
   data/      WAV loading, cut manifests, the bucketed batch loader

@@ -17,6 +17,10 @@ the discriminator's `conv_{i}` -> `blocks.{2i}`; quantizer up stage idx -> Seque
 DenseGeneral kernel [C, H, H_out] -> Linear [H_out, C * H], the order in
 which the port flattens the codebook embeddings. A LoRA adapter tree keeps
 its `a` [in, r] and `b` [r, out]; only the names change.
+
+`reference_encoder_state_dict_from_jax` is the one bridge with no torch
+original behind it: the port's `models/reference_encoder.ReferenceEncoder`
+keeps the flax module's names (flax LayerNorm `scale` -> `weight`).
 """
 
 from __future__ import annotations
@@ -216,3 +220,15 @@ def lora_from_jax(lora: dict) -> Dict[str, Dict[str, torch.Tensor]]:
         parts = [p.replace("layers_", "layers.") for p in parts[:-1]] + ["weight"]
         out[".".join(parts)] = {"a": _t(ab["a"]), "b": _t(ab["b"])}
     return out
+
+
+def reference_encoder_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """ReferenceEncoder flax params ->
+    `dmel_codec_tpu_torch.models.reference_encoder.ReferenceEncoder` state_dict."""
+    sd: Dict[str, torch.Tensor] = {"latent": _t(params["latent"])}
+    _wavenet(sd, "wavenet", params["wavenet"])
+    for name in ("q", "kv", "proj", "mlp_0", "mlp_1", "output_projection_attn"):
+        _put(sd, name, _linear(params[name]))
+    for name in ("q_norm", "k_norm", "norm"):
+        _put(sd, name, {"weight": _t(params[name]["scale"]), "bias": _t(params[name]["bias"])})
+    return sd

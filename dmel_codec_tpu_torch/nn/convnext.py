@@ -1,4 +1,4 @@
-"""ConvNeXt-1D block (port of `dmel_codec_tpu/nn/convnext.py`).
+"""ConvNeXt-1D block and channel LayerNorm (port of `dmel_codec_tpu/nn/convnext.py`).
 
 Depthwise k=7 conv -> LayerNorm (eps 1e-6) -> Linear x4 -> exact GELU ->
 Linear -> layer-scale gamma -> residual, on channels-first [B, C, T], with
@@ -31,3 +31,20 @@ class ConvNeXtBlock(nn.Module):
         y = self.dwconv(x).transpose(1, 2)  # [B, T, C]
         y = self.pwconv2(F.gelu(self.pwconv1(self.norm(y))))
         return x + (self.gamma * y).transpose(1, 2)
+
+
+class ChannelLayerNorm(nn.Module):
+    """LayerNorm over the channel axis of [B, C, T], eps 1e-6 (fish-speech's
+    `LayerNorm(data_format="channels_first")`; `dmel_codec_tpu/nn/convnext.py`)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=1, keepdim=True)
+        var = (x - mean).square().mean(dim=1, keepdim=True)
+        x = (x - mean) / torch.sqrt(var + self.eps)
+        return self.weight[:, None] * x + self.bias[:, None]

@@ -50,14 +50,16 @@ class WNConv1d(_WeightNormed):
         dilation: int = 1,
         padding: int = 0,
         bias: bool = True,
+        stride: int = 1,
     ):
         super().__init__((out_ch, in_ch, kernel_size), in_ch * kernel_size, out_ch, bias)
         self.dilation = dilation
         self.padding = padding
+        self.stride = stride
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv1d(
-            x, self.weight(), self.bias, padding=self.padding, dilation=self.dilation
+            x, self.weight(), self.bias, stride=self.stride, padding=self.padding, dilation=self.dilation
         )
 
 

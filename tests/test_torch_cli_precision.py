@@ -106,7 +106,25 @@ def _infer_lm(tmp_path: Path) -> list:
             "--device", "cpu"]
 
 
-CLIS = {"infer_lm": _infer_lm, "stream_codec": _stream_codec, "train_codec": _train_codec, "train_lm": _train_lm}
+def _evaluate(tmp_path: Path) -> list:
+    from tests.test_torch_eval import VOCODER_KW as EVAL_VOCODER_KW, _speechlike
+
+    wavfile.write(tmp_path / "clip.wav", 24000, _speechlike(0.5, 150.0, 0))
+    (tmp_path / "test.jsonl").write_text(json.dumps({"id": "c", "audio_path": str(tmp_path / "clip.wav"),
+                                                     "duration": 0.5, "text": ""}) + "\n")
+    torch.manual_seed(0)
+    CheckpointManager(str(tmp_path / "codec")).save(0, {"gen_params": DMelCodec(DMelCodecConfig(**CODEC_KW)).state_dict()})
+    torch.save(BigVGAN(BigVGANConfig(**EVAL_VOCODER_KW)).state_dict(), tmp_path / "vocoder.pt")
+    (tmp_path / "eval.yaml").write_text(yaml.safe_dump({
+        "codec_ckpt_dir": str(tmp_path / "codec"), "vocoder_ckpt": str(tmp_path / "vocoder.pt"),
+        "test_manifest": str(tmp_path / "test.jsonl"), "compute_pesq": False, "model": CODEC_KW,
+        "vocoder": {k: list(v) if isinstance(v, tuple) else v for k, v in EVAL_VOCODER_KW.items()},
+    }))
+    return ["--config", str(tmp_path / "eval.yaml"), "--device", "cpu"]
+
+
+CLIS = {"evaluate": _evaluate, "infer_lm": _infer_lm, "stream_codec": _stream_codec, "train_codec": _train_codec,
+        "train_lm": _train_lm}
 
 
 @pytest.mark.parametrize("cli", sorted(CLIS))

@@ -21,7 +21,10 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from dmel_codec_tpu_torch.cli import common, infer_lm, stream_codec, train_codec, train_lm
+from dmel_codec_tpu_torch.cli import common, evaluate, infer_lm, stream_codec, train_codec, train_lm
+from dmel_codec_tpu_torch.eval import codecs
+from dmel_codec_tpu_torch.eval.evaluation import Evaluation
+from dmel_codec_tpu_torch.eval.external import WhisperASR, speaker_similarity
 from dmel_codec_tpu_torch.ops import flash_attention as fa_ops
 from dmel_codec_tpu_torch.ops import library
 from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation, anti_alias_activation_reference
@@ -308,7 +311,8 @@ def test_port_file_imports_no_jax(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path.name}:{node.lineno} imports {name}"
 
 
-@pytest.mark.parametrize("module", [infer_lm, stream_codec, train_lm, train_codec], ids=lambda m: m.__name__.split(".")[-1])
+@pytest.mark.parametrize("module", [evaluate, infer_lm, stream_codec, train_lm, train_codec],
+                         ids=lambda m: m.__name__.split(".")[-1])
 def test_entry_point_defaults_to_the_gpu(module, monkeypatch):
     """Each CLI parses `--device` with the default "cuda"."""
     seen = {}
@@ -320,14 +324,18 @@ def test_entry_point_defaults_to_the_gpu(module, monkeypatch):
         raise SystemExit(0)
 
     monkeypatch.setattr(module.argparse.ArgumentParser, "parse_args", parse)
-    required = {"infer_lm": ["--config", "c"], "stream_codec": ["--in", "x.wav"],
+    required = {"evaluate": ["--config", "c"], "infer_lm": ["--config", "c"], "stream_codec": ["--in", "x.wav"],
                 "train_lm": ["--config", "c"], "train_codec": ["--config", "c"]}[module.__name__.split(".")[-1]]
     with pytest.raises(SystemExit):
         module.main(required)
     assert seen["device"] == "cuda"
 
 
-@pytest.mark.parametrize("fn", [CodecTrainer.__init__, LMTrainer.__init__, LMFitLoop.__init__, common.load_codec_adapter],
+@pytest.mark.parametrize("fn", [CodecTrainer.__init__, LMTrainer.__init__, LMFitLoop.__init__, common.load_codec_adapter,
+                                Evaluation.__init__, codecs.FishSpeechAdapter.__init__,
+                                codecs.SpeechTokenizerAdapter.__init__, codecs.EncodecAdapter.__init__,
+                                codecs.DacCodecAdapter.__init__, codecs.MimiCodecAdapter.__init__,
+                                WhisperASR.__init__, speaker_similarity],
                          ids=lambda f: f.__qualname__)
 def test_library_entry_defaults_to_the_gpu(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
