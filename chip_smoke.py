@@ -146,7 +146,22 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      24 kHz and Firefly at their published widths through `Evaluation.run`
      on the clips resampled to their rates (codes inside their codebooks,
      one clip on the card against the CPU); `make_codec("dac" / "mimi")`
-     raising its ImportError without transformers.
+     raising its ImportError without transformers;
+ 25. the host path: `cli.preprocess` on 20 seeded WAVs (int16 / int32 /
+     float32, mono and stereo, 16 / 24 / 44.1 kHz), the loader with the
+     native C++ decode and with scipy (within 2e-5; the native build's
+     seconds and each backend's seconds of audio decoded per second);
+     `cli.convert vqgan` and `bigvgan` on made-up reference files at the
+     flagship widths, then `cli.stream_codec` on what they wrote (codes
+     equal and audio within 2e-5 of the modules built from the same
+     state_dicts; K1 37 and K2 72 split-TF32 launches); `cli.train_lm
+     --distributed` in a process group of one rank on NCCL at full width
+     (float32, flash attention, 2 x 1024, accumulate_grad = 2, 2 updates;
+     FA, FA-dKV and FA-dQ 24 launches each a micro-step) against the same
+     run without (losses within 1e-6 relative, ms per micro-step of both);
+     `cli.train_codec --distributed` on the preprocessed manifest through
+     the native decode (ms per step, the loader's share of the loop's wall
+     time). NCCL across two or more ranks needs a second card.
 The comparison phases run with TF32 off for cuBLAS and cuDNN, as the entry
 points run (each `main` calls `strict_float32`). The
 line before the last is one JSON object describing the kernels; the last
@@ -161,7 +176,9 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -766,6 +783,311 @@ def evaluation_phase(dev) -> dict:
             del sys.modules["transformers"]
         else:
             sys.modules["transformers"] = saved
+    return out
+
+
+# Phase 25, the host data path, the converter and data-parallel training.
+# Tolerances:
+#  native vs python decode: the same samples through two Kaiser polyphase
+#    FIRs that sum in another order: 2e-5 (tests/test_native_audio.py).
+#  convert -> stream_codec against the modules built from the same
+#    state_dicts: the same weights through the same code on one card: the
+#    codes equal, the audio within 2e-5 (phase 13's chunked tolerance).
+#  train_lm --distributed at world size 1 against the run without: every
+#    all-reduce of one rank returns its input, so only the backward's own
+#    nondeterminism can move the losses after the first update: 1e-6
+#    relative.
+HOST_WAVS, HOST_RATES, LM_CLIP_SECONDS, LM_DIST_RTOL = 20, (16000, 24000, 44100), 42.0, 1e-6
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        return s_.getsockname()[1]
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name: str, record: list, before=None):
+    """Time every call of `owner.name` (synchronised CUDA, ms) into `record`;
+    `before(*args)` sees the arguments first."""
+    real = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        if before is not None:
+            before(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        record.append((time.perf_counter() - t0) * 1e3)
+        return result
+
+    setattr(owner, name, timed)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+@contextlib.contextmanager
+def torchrun_env(world: int = 1):
+    """The variables torchrun sets, for one process of a `world`-rank group."""
+    env = {"RANK": "0", "WORLD_SIZE": str(world), "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def host_path_phase(dev, card: str) -> dict:
+    """(a) cli.preprocess on seeded WAVs, then the loader with the native and
+    the scipy backend; (b) cli.convert vqgan / bigvgan on made-up reference
+    files at the flagship widths, then cli.stream_codec on what they wrote
+    against the modules built from the same state_dicts; (c) cli.train_lm
+    --distributed in a process group of one rank on NCCL at full width
+    against the same run without; (d) cli.train_codec --distributed on (a)'s
+    manifest. Every number is printed beside the card."""
+    import torch.distributed as dist
+    from scipy.io import wavfile
+
+    from dmel_codec_tpu_torch.cli import convert, preprocess, stream_codec, train_codec, train_lm
+    from dmel_codec_tpu_torch.data import audio as audio_mod
+    from dmel_codec_tpu_torch.data.loader import DataLoader
+    from dmel_codec_tpu_torch.data.manifest import load_manifest
+    from dmel_codec_tpu_torch.dsp.spectrogram import LogMelSpectrogram
+    from dmel_codec_tpu_torch.models import streaming
+    from dmel_codec_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig, FusedBigVGAN
+    from dmel_codec_tpu_torch.models.codec import DMelCodec, DMelCodecConfig
+    from dmel_codec_tpu_torch.models.discriminator import MelDiscriminator
+    from dmel_codec_tpu_torch.native import build as native_build
+    from dmel_codec_tpu_torch.ops import flash_attention as fa_ops
+    from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation
+    from dmel_codec_tpu_torch.ops.stage_fused import amp_stage
+    from dmel_codec_tpu_torch.train.checkpoint import CheckpointManager
+    from dmel_codec_tpu_torch.train.codec_trainer import CodecTrainer
+    from dmel_codec_tpu_torch.train.lm_trainer import LMTrainer
+
+    def say(msg: str) -> None:
+        log(f"  [{card}] {msg}")
+
+    out = {"card": card}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # ---- (a) preprocess, then the loader with both decode backends
+        log("host path (a): cli.preprocess on seeded WAVs, the loader with the native and the scipy backend")
+        wav_dir = tmp / "wavs"
+        wav_dir.mkdir()
+        rng = np.random.default_rng(25)
+        formats = [(np.int16, 1), (np.int32, 2), (np.float32, 1), (np.int16, 2), (np.float32, 2), (np.int32, 1)]
+        for i in range(HOST_WAVS):
+            dtype, channels = formats[i % len(formats)]
+            sr = HOST_RATES[i % len(HOST_RATES)]
+            t_ = np.arange(int(sr * (2.0 + 0.1 * i))) / sr
+            x = 0.3 * np.sin(2 * math.pi * (150 + 40 * i) * t_) + 0.05 * rng.standard_normal(len(t_))
+            x = np.stack([x, 0.8 * x], axis=1) if channels == 2 else x
+            scale = {np.int16: 32767, np.int32: 2**31 - 1, np.float32: 1.0}[dtype]
+            wavfile.write(wav_dir / f"clip{i:02d}.wav", sr, (x * scale).astype(dtype))
+        manifest = tmp / "train.jsonl"
+        preprocess.main(["--wav-dir", str(wav_dir), "--out", str(manifest), "--seed", "0"])
+        cuts = load_manifest(str(manifest))
+        audio_s = sum(c.duration for c in cuts)
+        assert len(cuts) == HOST_WAVS, len(cuts)
+        real_dir = native_build.BUILD_DIR
+        native_build.BUILD_DIR = tmp / "native_build"
+        try:
+            t0 = time.perf_counter()
+            native_build.build()
+            build_s = time.perf_counter() - t0
+        finally:
+            native_build.BUILD_DIR = real_dir
+        decoded, rate = {}, {}
+        for backend in ("native", "python"):
+            decoded[backend] = [audio_mod.load_audio(c.audio_path, SR, backend=backend) for c in cuts]  # warm
+            t0 = time.perf_counter()
+            for _ in range(3):
+                [audio_mod.load_audio(c.audio_path, SR, backend=backend) for c in cuts]
+            rate[backend] = 3 * audio_s / (time.perf_counter() - t0)
+        assert all(a.shape == b.shape for a, b in zip(decoded["native"], decoded["python"]))
+        clip_err = max(float(np.abs(a - b).max()) for a, b in zip(decoded["native"], decoded["python"]))
+        batches = {b: list(DataLoader(cuts, sample_rate=SR, max_duration=16.0, shuffle=False, audio_backend=b))
+                   for b in ("native", "python")}
+        assert len(batches["native"]) == len(batches["python"]) > 1
+        loader_err = 0.0
+        for a, b in zip(batches["native"], batches["python"]):
+            assert np.array_equal(a["audio_lengths"], b["audio_lengths"]) and a["audios"].shape == b["audios"].shape
+            loader_err = max(loader_err, float(np.abs(a["audios"] - b["audios"]).max()))
+        say(f"preprocess: {len(cuts)} cuts, {audio_s:.2f} s of audio (int16 / int32 / float32, mono and stereo, "
+            f"{', '.join(str(r) for r in HOST_RATES)} Hz); native build {build_s:.2f} s; decode and resample to 24 kHz, "
+            f"one thread: native {rate['native']:.1f} s of audio per s, python {rate['python']:.1f}; native vs python "
+            f"max |diff| {clip_err:.3e} per clip, {loader_err:.3e} over {len(batches['native'])} loader batches "
+            f"(tol 2e-5)")
+        assert clip_err <= 2e-5 and loader_err <= 2e-5
+        out["preprocess"] = {"cuts": len(cuts), "audio_s": audio_s, "native_build_s": build_s,
+                             "native_audio_s_per_s": rate["native"], "python_audio_s_per_s": rate["python"],
+                             "max_abs_diff": max(clip_err, loader_err)}
+
+        # ---- (b) convert, then serve what it wrote
+        log("host path (b): cli.convert vqgan + bigvgan on made-up flagship files, then cli.stream_codec on them")
+        ccfg, vcfg = DMelCodecConfig(), BigVGANConfig()
+        torch.manual_seed(26)
+        gen_sd, disc_sd = DMelCodec(ccfg).state_dict(), MelDiscriminator().state_dict()
+        vocoder = BigVGAN(vcfg)
+        with torch.no_grad():
+            jitter_snake(vocoder)
+        torch.save({"state_dict": {**gen_sd, **{f"discriminator.{k}": v for k, v in disc_sd.items()},
+                                   "gt_mel_transform.window": torch.ones(1024)}, "epoch": 0}, tmp / "vqgan.ckpt")
+        (tmp / "release").mkdir()
+        (tmp / "release" / "config.json").write_text(json.dumps(
+            {k: list(v) if isinstance(v, tuple) else v for k, v in dataclasses.asdict(vcfg).items()}))
+        torch.save({"generator": vocoder.state_dict()}, tmp / "release" / "bigvgan_generator.pt")
+        t0 = time.perf_counter()
+        convert.main(["vqgan", "--ckpt", str(tmp / "vqgan.ckpt"), "--out", str(tmp / "codec")])  # the card
+        convert.main(["bigvgan", "--dir", str(tmp / "release"), "--out", str(tmp / "vocoder")])
+        convert_s = time.perf_counter() - t0
+        clip = 0.4 * np.sin(2 * math.pi * 220.0 * np.arange(SECONDS * SR) / SR).astype(np.float32)
+        wavfile.write(tmp / "in.wav", SR, clip)
+        anti_alias_activation.launches = amp_stage.launches = 0
+        amp_stage.launches_by_kernel.update(act_conv_tc_kernel=0, act_conv_tf32_kernel=0)
+        stream_codec.main(["--in", str(tmp / "in.wav"), "--tokens-out", str(tmp / "tokens.npy"), "--out",
+                           str(tmp / "out.wav"), "--codec-ckpt", str(tmp / "codec"), "--vocoder-dir", str(tmp / "vocoder")])
+        torch.cuda.synchronize()
+        served = {"K1": anti_alias_activation.launches, "K2": amp_stage.launches,
+                  "act_conv_tf32_kernel": amp_stage.launches_by_kernel["act_conv_tf32_kernel"]}
+        tokens = np.load(tmp / "tokens.npy")
+        _, wav = wavfile.read(tmp / "out.wav")
+        # the same modules, built here from the same state_dicts, through stream_codec's steps
+        codec = DMelCodec(ccfg)
+        codec.load_state_dict(gen_sd)
+        codec = codec.to(dev).eval()
+        audio = audio_mod.load_audio(str(tmp / "in.wav"), target_sr=SR)
+        mels = LogMelSpectrogram(sample_rate=SR, hop_length=ccfg.hop_length, n_mels=ccfg.n_mels)(
+            torch.from_numpy(audio)[None]).numpy()
+        down = ccfg.downsample_total
+        want_tokens = streaming.chunked_encode(codec, mels, 1024, streaming.DEFAULT_HALO_FRAMES, device=dev)
+        mel = streaming.chunked_decode(codec, want_tokens, chunk_tokens=1024 // down,
+                                       halo_tokens=streaming.DEFAULT_HALO_FRAMES // down, seed=0, device=dev)
+        want_wav = streaming.chunked_vocode(FusedBigVGAN(vocoder.to(dev).eval()), mel, device=dev)[0]
+        wav_err = float(np.abs(wav - want_wav).max())
+        say(f"convert vqgan + bigvgan {convert_s:.2f} s; stream_codec on a {SECONDS} s clip: tokens {list(tokens.shape)} "
+            f"equal {bool(np.array_equal(tokens, want_tokens))}, audio max |diff| {wav_err:.3e} (tol 2e-5) against the "
+            f"modules built from the same state_dicts; launches {served}")
+        assert np.array_equal(tokens, want_tokens) and wav.shape == want_wav.shape and wav_err <= 2e-5
+        assert served == {"K1": 37, "K2": 72, "act_conv_tf32_kernel": 72}, served
+        out["convert"] = {"seconds": convert_s, "launches": served, "audio_max_abs_diff": wav_err}
+        del codec, vocoder, gen_sd, disc_sd
+
+        # ---- (c) LM training, data-parallel in a group of one rank, at full width
+        log("host path (c): cli.train_lm --distributed (NCCL, world size 1) against the same run without, full width")
+        rng = np.random.default_rng(27)
+        with open(tmp / "lm.jsonl", "w") as f:
+            for i in range(2):
+                t_ = np.arange(int(SR * LM_CLIP_SECONDS)) / SR
+                x = 0.3 * np.sin(2 * math.pi * (180 + 50 * i) * t_) + 0.05 * rng.standard_normal(len(t_))
+                wavfile.write(tmp / f"lm{i}.wav", SR, x.astype(np.float32))
+                f.write(json.dumps({"id": f"lm{i}", "audio_path": str(tmp / f"lm{i}.wav"), "duration": LM_CLIP_SECONDS,
+                                    "text": f"tone number {i}"}) + "\n")
+        counters_fa = {"FA": fa_ops.flash_attention, "FA-dKV": fa_ops.flash_attention_dkv,
+                       "FA-dQ": fa_ops.flash_attention_dq}
+        # the full-width state and its moments take 11 GB a checkpoint: on the roomier of the two scratch disks
+        roomier = max((str(tmp), "/dev/shm"), key=lambda d: shutil.disk_usage(d).free if Path(d).is_dir() else 0)
+        ckpt_root = Path(tempfile.mkdtemp(dir=roomier))
+        say(f"LM checkpoints under {roomier} ({shutil.disk_usage(roomier).free / 2**30:.1f} GiB free)")
+        runs = {}
+        try:
+            for name in ("distributed", "single"):
+                (tmp / f"lm_{name}.yaml").write_text(
+                    f"codec_ckpt_dir: {tmp / 'codec'}\ntext_tokenizer_path: null\n"
+                    "slow_lm: {flash_attention: true}\n"
+                    "train: {accumulate_grad: 2, num_warmup_steps: 0}\n"
+                    f"fit: {{max_steps: 4, val_interval: 1000, log_every: 1, ckpt_dir: {ckpt_root / ('lm_ckpt_' + name)}, "
+                    f"log_dir: {tmp / ('lm_logs_' + name)}, seed: 1, keep_checkpoints: 1}}\n"
+                    f"data: {{train_manifest: {tmp / 'lm.jsonl'}, max_duration: 90.0, audio_backend: native}}\n")
+                for fn in counters_fa.values():
+                    fn.launches = 0
+                step_ms, shapes = [], []
+                argv = ["--config", str(tmp / f"lm_{name}.yaml")] + (["--distributed"] if name == "distributed" else [])
+                env = torchrun_env() if name == "distributed" else contextlib.nullcontext()
+                with env, timed_calls(LMTrainer, "train_step", step_ms,
+                                      before=lambda _self, _state, batch: shapes.append(tuple(batch["valid"].shape))):
+                    train_lm.main(argv)  # the default device: the card
+                torch.cuda.synchronize()
+                assert not dist.is_initialized()  # the entry point destroyed the group it made
+                losses = [json.loads(line)["train/loss"] for line in open(tmp / f"lm_logs_{name}" / "metrics.jsonl")]
+                runs[name] = {"micro_step_ms": float(np.mean(step_ms[1:])), "losses": losses, "shapes": shapes,
+                              "launches": {k: fn.launches for k, fn in counters_fa.items()}}
+                assert CheckpointManager(str(ckpt_root / f"lm_ckpt_{name}")).all_steps() == [4]
+                shutil.rmtree(ckpt_root / f"lm_ckpt_{name}")
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(ckpt_root, ignore_errors=True)
+        d_, s_ = runs["distributed"], runs["single"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(d_["losses"], s_["losses"]))
+        say(f"train_lm 4 micro-steps of {d_['shapes'][0]} (accumulate 2, 2 updates): --distributed "
+            f"{d_['micro_step_ms']:.2f} ms per micro-step, without {s_['micro_step_ms']:.2f}; losses {d_['losses']} "
+            f"vs {s_['losses']}: max rel diff {rel:.3e} (tol {LM_DIST_RTOL:g}); launches {d_['launches']} / "
+            f"{s_['launches']}")
+        assert d_["shapes"] == s_["shapes"] == [(2, TRAIN_SEQ)] * 4, (d_["shapes"], s_["shapes"])
+        assert len(d_["losses"]) == len(s_["losses"]) == 4 and rel <= LM_DIST_RTOL
+        assert d_["launches"] == s_["launches"] == {k: 24 * 4 for k in counters_fa}, (d_["launches"], s_["launches"])
+        out["train_lm"] = {k: {kk: v[kk] for kk in ("micro_step_ms", "losses", "launches")} for k, v in runs.items()}
+        out["train_lm"]["max_rel_loss_diff"] = rel
+
+        # ---- (d) codec training, data-parallel in a group of one rank, on (a)'s manifest
+        log("host path (d): cli.train_codec --distributed (NCCL, world size 1) on (a)'s manifest, native decode")
+        (tmp / "codec_dist.yaml").write_text(
+            "train: {learning_rate: 1.0e-4, num_warmup_steps: 1}\n"
+            f"fit: {{max_steps: 2, val_interval: 1000, log_every: 1, ckpt_dir: {tmp / 'codec_ckpt'}, "
+            f"log_dir: {tmp / 'codec_logs'}, seed: 1, keep_checkpoints: 1}}\n"
+            f"data: {{train_manifest: {manifest}, max_duration: 16.0, audio_backend: native}}\n")
+        step_ms, waits, marks = [], [], {}
+        real_epoch = DataLoader.epoch
+
+        def timed_epoch(self, epoch=0):
+            it = real_epoch(self, epoch)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    marks.setdefault("first", t0)
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    waits.append(time.perf_counter() - t0)
+                    yield batch
+            finally:
+                it.close()
+
+        DataLoader.epoch = timed_epoch
+        try:
+            with torchrun_env(), timed_calls(CodecTrainer, "train_step", step_ms,
+                                             before=lambda *_: marks.__setitem__("last", time.perf_counter())):
+                train_codec.main(["--config", str(tmp / "codec_dist.yaml"), "--distributed"])
+        finally:
+            DataLoader.epoch = real_epoch
+        torch.cuda.synchronize()
+        assert not dist.is_initialized()
+        loop_s = marks["last"] - marks["first"] + step_ms[-1] / 1e3
+        share = sum(waits) / loop_s
+        records = [json.loads(line) for line in open(tmp / "codec_logs" / "metrics.jsonl")]
+        say(f"train_codec 2 steps: {step_ms[0]:.2f} / {step_ms[1]:.2f} ms; the loader's share of the loop's wall "
+            f"time {share:.3f} ({sum(waits) * 1e3:.1f} of {loop_s * 1e3:.1f} ms waiting for {len(waits)} batches); "
+            f"generator loss {[round(r['train/generator/loss'], 5) for r in records]}")
+        assert [r["step"] for r in records] == [1, 2]
+        assert all(math.isfinite(v) for r in records for v in r.values())
+        out["train_codec"] = {"step_ms": step_ms, "loader_wall_share": share, "loop_s": loop_s}
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"phase 25 in {out['seconds']:.1f} s")
     return out
 
 
@@ -2224,11 +2546,25 @@ def main() -> None:
         a = torch.exp(0.1 * torch.randn(p1_shape[1], device=dev, generator=gen))
         p1_plain = cuda_ms(lambda: cf_act.cf_act_reference(x, a, a), 3)
         del x
-        rows_plain, mm_plain, mm_library = {}, {}, {}
+        rows_plain, rows_library, mm_plain, mm_library = {}, {}, {}, {}
         for planes in (1, fill):
             x = torch.randn((planes, sublane_ops.ROWS, sublane_ops.LANES), device=dev, generator=gen)
             rows_plain[planes] = {"slice": cuda_ms(lambda: sublane_ops.slice_reference(x), 10),
                                   "roll": cuda_ms(lambda: sublane_ops.roll_reference(x), 10)}
+            # P2's library call: one depthwise float32 conv whose taps are 1 at the offsets, 0 elsewhere,
+            # over the rows P2 reads (P3's rotate has none)
+            span = sublane_ops.OUT_ROWS + sublane_ops.OFFSETS[-1]
+            x_rows = x[:, :span].transpose(1, 2).contiguous()
+            taps = torch.zeros(sublane_ops.LANES, 1, sublane_ops.OFFSETS[-1] + 1, device=dev)
+            taps[:, 0, list(sublane_ops.OFFSETS)] = 1.0
+
+            def rows_conv():
+                return torch.nn.functional.conv1d(x_rows, taps, groups=sublane_ops.LANES)
+
+            rows_library[planes] = cuda_ms(rows_conv, 10)
+            check_close(f"library conv1d vs P2, P = {planes}", rows_conv().transpose(1, 2),
+                        sublane_ops.slice_rows(x), 1e-6)  # six float32 additions in another order
+            del x_rows, taps
             for c in sublane_ops.WIDTHS:
                 xb = torch.randn((planes, sublane_ops.MM_ROWS, c), device=dev, generator=gen).to(torch.bfloat16)
                 w_ = torch.randn((c, c), device=dev, generator=gen).to(torch.bfloat16)
@@ -2251,7 +2587,8 @@ def main() -> None:
     log(f"  P1 {list(p1_shape)} bf16 w = {p1_window}: kernel {cf_table[p1_shape][p1_window]:.4f} ms, K1 "
         f"{cf_table[p1_shape]['K1']:.4f} ms, plain {p1_plain:.3f} ms, bound {p1_bound:.4f} ms by bytes")
     for planes in (1, fill):
-        log(f"  P = {planes}: P2 {rows_table[planes]['slice']:.4f} ms (plain {rows_plain[planes]['slice']:.4f}), P3 "
+        log(f"  P = {planes}: P2 {rows_table[planes]['slice']:.4f} ms (plain {rows_plain[planes]['slice']:.4f}, depthwise "
+            f"F.conv1d {rows_library[planes]:.4f}), P3 "
             f"{rows_table[planes]['roll']:.4f} ms (plain {rows_plain[planes]['roll']:.4f}), bound "
             f"{sublane_ops.rows_bound_ms(planes):.5f} ms by bytes")
         for c in sublane_ops.WIDTHS:
@@ -2533,6 +2870,9 @@ def main() -> None:
     # ---- 24. evaluation
     evaluation = evaluation_phase(dev)
 
+    # ---- 25. the host path: preprocess, the native decode, convert, data-parallel training
+    host_path = host_path_phase(dev, smi)
+
     kernels = [
         {"name": "anti_alias_activation (K1)", "route": "cuda", "source": K1_SOURCE,
          "replaces": "dmel_codec_tpu/ops/anti_alias.py:521", "launches": launches["K1"],
@@ -2690,7 +3030,9 @@ def main() -> None:
         {"name": "slice_rows (P2)", "route": "cuda", "source": PROBES_SOURCE,
          "replaces": "scripts/exp_sublane_ops.py:63 (k_slice)", "launches": launches["P2"], "max_abs_err": errs["P2"],
          "ms": rows_table[1]["slice"], "plain_ms": rows_plain[1]["slice"], "bound_ms": sublane_ops.rows_bound_ms(1),
-         "bound_by": "bytes", "library_ms": None,
+         "bound_by": "bytes", "library_ms": rows_library[1],
+         "library_is": "F.conv1d, float32, depthwise over the 96 columns, taps 1 at offsets 0, 1, 3, 5, 7, 9 and 0 "
+                       "elsewhere, on the 121 rows P2 reads", "fill_library_ms": rows_library[fill],
          "per": f"one launch on one [{sublane_ops.ROWS}, {sublane_ops.LANES}] float32 plane; launches: one run of the probe",
          "fill_planes": fill, "fill_ms": rows_table[fill]["slice"], "fill_plain_ms": rows_plain[fill]["slice"],
          "fill_bound_ms": sublane_ops.rows_bound_ms(fill)},
@@ -2725,7 +3067,7 @@ def main() -> None:
     codec_train_step["state_gib"] = state_gib
     codec_train_step["overfit"] = {"steps": overfit_steps, "seconds": overfit_s, "val_loss": curve}
     print(json.dumps({"kernels": kernels, "train_step": train_step, "codec_train_step": codec_train_step,
-                      "evaluation": evaluation}))
+                      "evaluation": evaluation, "host_path": host_path}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 

@@ -90,10 +90,11 @@ def build_lm_config(cfg: dict) -> SlowFastLMConfig:
     return SlowFastLMConfig(**kwargs)
 
 
-# Keys of the JAX package's YAMLs that name XLA devices with no counterpart
-# here: `scan_layers` (one compiled layer body) in `slow_lm:` / `fast_lm:`,
-# `use_mesh` (a device mesh; one process on one device here) in `fit:`.
-JAX_ONLY_KEYS = ("scan_layers", "use_mesh")
+# Keys of the JAX package's YAMLs that name XLA constructs with no
+# counterpart here: `scan_layers` (one compiled layer body) in `slow_lm:` /
+# `fast_lm:`. (`fit.use_mesh` is `FitConfig.use_mesh`: data parallelism
+# under a process group.)
+JAX_ONLY_KEYS = ("scan_layers",)
 
 
 def without_jax_only(section: Optional[dict]) -> dict:

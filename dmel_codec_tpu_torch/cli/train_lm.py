@@ -8,16 +8,18 @@ tokenize audio; optionally a HF Qwen2-0.5B safetensors file for foundation
 weights and a HF tokenizer path (byte-tokenizer fallback otherwise).
 Checkpoints go to `fit.ckpt_dir` as `step_<N>/{step,params,opt_state}.pt`
 (train/checkpoint.py); a run resumes from the newest one, and
-`cli.infer_lm` serves from it. Runs on `--device` (default cuda) in one
-process: `--distributed`, or a `distributed:` section with `enabled: true`,
-is refused until data parallelism is ported (ROADMAP item 13).
+`cli.infer_lm` serves from it. Runs on `--device` (default cuda).
+
+`--distributed` (or `distributed: {enabled: true}`) trains data-parallel,
+one process per device, as `cli/train_codec.py` describes: each rank
+tokenizes its shard of the manifest, and with `fit.use_mesh` (the default)
+each micro-step is the micro-step on the union of the ranks' batches.
 """
 
 from __future__ import annotations
 
 import argparse
-
-import torch
+import dataclasses
 
 from dmel_codec_tpu_torch.cli.common import build_lm_config, load_codec_adapter, without_jax_only
 from dmel_codec_tpu_torch.data.loader import DataLoader
@@ -27,6 +29,7 @@ from dmel_codec_tpu_torch.lm.inputs import TokenGridBuilder
 from dmel_codec_tpu_torch.lm.tokenizer import load_text_tokenizer
 from dmel_codec_tpu_torch.models.codec import DMelCodecConfig
 from dmel_codec_tpu_torch.models.lm import load_qwen2_foundation
+from dmel_codec_tpu_torch.parallel.multihost import DistributedConfig, distributed, host_shard
 from dmel_codec_tpu_torch.train.lm_loop import LMFitLoop
 from dmel_codec_tpu_torch.train.lm_trainer import LMTrainConfig, LMTrainer
 from dmel_codec_tpu_torch.train.loop import FitConfig
@@ -44,23 +47,24 @@ def main(argv=None):
     parser.add_argument(
         "--distributed",
         action="store_true",
-        help="multi-process training; not available yet (ROADMAP item 13) and refused",
+        help="data-parallel over torch.distributed, one process per device; the rendezvous comes from the "
+        "config's `distributed:` section or torchrun's environment",
     )
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
     args = parser.parse_args(argv)
     strict_float32()  # no TF32: the JAX package's float32 contract (utils/precision.py)
-    device = torch.device(args.device)
 
     cfg = load_yaml(args.config)
     log.info("config:\n" + print_config_tree(cfg))
 
-    if args.distributed or (cfg.get("distributed") or {}).get("enabled"):
-        raise NotImplementedError(
-            "distributed LM training (--distributed / `distributed: {enabled: true}`) is not ported "
-            "yet: data parallelism over torch.distributed is ROADMAP item 13. Run one process on one "
-            "device, or remove the setting."
-        )
+    dist_cfg = dataclass_from_dict(DistributedConfig, cfg.get("distributed"))
+    if args.distributed:
+        dist_cfg = dataclasses.replace(dist_cfg, enabled=True)
+    with distributed(dist_cfg, args.device) as device:
+        train(cfg, device)
 
+
+def train(cfg: dict, device) -> None:
     lm_cfg = build_lm_config(cfg)
     train_cfg = dataclass_from_dict(LMTrainConfig, cfg.get("train"))
     fit_cfg = dataclass_from_dict(FitConfig, without_jax_only(cfg.get("fit")))
@@ -82,12 +86,17 @@ def main(argv=None):
     )
 
     train_cuts = load_manifest(data["train_manifest"])
+    shard, n_shards = host_shard()
 
     def train_batches(epoch):
+        # one device per process: a rank's batch needs no padding to a multiple
         loader = DataLoader(
             train_cuts,
             max_duration=data.get("max_duration", 80.0),
             seed=data.get("seed", 0),
+            num_shards=n_shards,
+            shard_index=shard,
+            audio_backend=data.get("audio_backend", "auto"),
         )
         for audio_batch in loader.epoch(epoch):
             yield lm_batch_from_audio(codec, gridder, tokenizer, audio_batch)

@@ -4,16 +4,18 @@
   * dynamic batch size by TOTAL seconds (`max_duration`, flagship 210 s)
   * batches padded to QUANTIZED lengths (multiples of `length_quantum`
     samples), so the codec sees a small set of shapes
+  * per-rank sharding of the cut list (`num_shards`, `shard_index`: the
+    data-parallel world size and this process's rank), taken before the
+    sort, and silent zero-length fillers that pad the batch size to a
+    multiple (`batch_multiple`)
   * `num_workers` decode threads materialize batches concurrently ahead of
-    the training loop. Threads (not processes): the decode path is scipy C
-    code (wavfile mmap read + resample_poly's upfirdn) that releases the
-    GIL.
+    the training loop. Threads (not processes): both decode backends
+    (`audio_backend`, data/audio.py: the native C++ kernels, or scipy's
+    wavfile mmap read + resample_poly) release the GIL.
 
 Batch dict matches the trainer contract: {'audios' [B, L] float32,
-'audio_lengths' [B] int32, 'texts': list[str]}. Audio is decoded by this
-package's numpy/scipy backend (`data/audio.py`), the original's "python"
-backend. The original's sharding of the cut list and its padding of the
-batch size to a multiple serve a device mesh and come with data parallelism.
+'audio_lengths' [B] int32, 'texts': list[str | None]}; a filler has
+`texts` None and `audio_lengths` 0.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from dmel_codec_tpu_torch.data.audio import load_audio
+from dmel_codec_tpu_torch.data.audio import BACKENDS, load_audio
 from dmel_codec_tpu_torch.data.manifest import Cut
 
 
@@ -40,9 +42,11 @@ class BucketBatcher:
         max_duration: float = 210.0,
         shuffle: bool = True,
         seed: int = 0,
+        num_shards: int = 1,
+        shard_index: int = 0,
         max_batch_size: Optional[int] = None,
     ):
-        self.cuts = list(cuts)
+        self.cuts = list(cuts)[shard_index::num_shards]
         self.max_duration = max_duration
         self.shuffle = shuffle
         self.seed = seed
@@ -84,20 +88,37 @@ class DataLoader:
         length_quantum: int = 1024,  # pad lengths to a multiple (hop*4)
         shuffle: bool = True,
         seed: int = 0,
+        num_shards: int = 1,
+        shard_index: int = 0,
         prefetch: int = 2,
         max_batch_size: Optional[int] = None,
+        batch_multiple: int = 1,
         num_workers: int = 8,
+        audio_backend: str = "auto",
     ):
-        """num_workers: decode threads materializing batches concurrently
-        (1 = the original single background thread)."""
+        """batch_multiple: pad each batch with silent zero-length items so
+        that its size is a multiple (masked losses make the fillers
+        contribute nothing).
+
+        num_workers: decode threads materializing batches concurrently
+        (1 = the original single background thread).
+
+        audio_backend: 'auto' (the native C++ decode kernels where they
+        build, else scipy), 'native' or 'python'; see data/audio.load_audio."""
+        if audio_backend not in BACKENDS:
+            raise ValueError(f"audio_backend {audio_backend!r}: expected one of {BACKENDS}")
         self.sample_rate = sample_rate
         self.length_quantum = length_quantum
+        self.batch_multiple = batch_multiple
         self.num_workers = num_workers
+        self.audio_backend = audio_backend
         self.batcher = BucketBatcher(
             cuts,
             max_duration=max_duration,
             shuffle=shuffle,
             seed=seed,
+            num_shards=num_shards,
+            shard_index=shard_index,
             max_batch_size=max_batch_size,
         )
         self.prefetch = prefetch
@@ -109,19 +130,24 @@ class DataLoader:
                 self.sample_rate,
                 c.start,
                 c.duration if c.duration > 0 else None,
+                backend=self.audio_backend,
             )
             for c in batch
         ]
         lengths = np.array([len(a) for a in audios], np.int32)
         q = self.length_quantum
         max_len = ((int(lengths.max()) + q - 1) // q) * q
-        out = np.zeros((len(audios), max_len), np.float32)
+        b = len(audios)
+        m = self.batch_multiple
+        b_pad = ((b + m - 1) // m) * m
+        out = np.zeros((b_pad, max_len), np.float32)
         for i, a in enumerate(audios):
             out[i, : len(a)] = a
+        lengths = np.concatenate([lengths, np.zeros(b_pad - b, np.int32)])
         return {
             "audios": out,
             "audio_lengths": lengths,
-            "texts": [c.text for c in batch],
+            "texts": [c.text for c in batch] + [None] * (b_pad - b),
         }
 
     def __iter__(self) -> Iterator[dict]:

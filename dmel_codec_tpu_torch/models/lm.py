@@ -34,6 +34,7 @@ from dmel_codec_tpu_torch.models.transformer import (
     TransformerConfig,
     init_kv_cache,
 )
+from dmel_codec_tpu_torch.parallel.mesh import global_count
 
 IGNORE_INDEX = -100
 
@@ -75,14 +76,16 @@ def cross_entropy_ignore(
     logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = IGNORE_INDEX
 ) -> torch.Tensor:
     """Mean CE over labels != ignore_index (HF ForCausalLMLoss semantics,
-    on ALREADY-shifted logits/labels); 0 when every label is ignored."""
+    on ALREADY-shifted logits/labels); 0 when every label is ignored. Inside
+    a data-parallel step (`parallel.mesh.global_batch`) the count is every
+    rank's: this rank's share of the global mean."""
     total = F.cross_entropy(
         logits.float().reshape(-1, logits.shape[-1]),
         labels.reshape(-1),
         ignore_index=ignore_index,
         reduction="sum",
     )
-    return total / (labels != ignore_index).sum().clamp(min=1)
+    return total / global_count((labels != ignore_index).sum()).clamp(min=1)
 
 
 def _zero_if_not_finite(x: torch.Tensor) -> torch.Tensor:

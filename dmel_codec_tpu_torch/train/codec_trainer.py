@@ -9,8 +9,13 @@ the JAX step's order:
 A train state holds the trainer's own modules' parameters, which the steps
 update IN PLACE (what buffer donation gives the JAX trainer):
 `train_step(state, batch)` returns the same state object, advanced, and a
-trainer carries one state at a time. Float32 parameters and arithmetic; one
-process on one device.
+trainer carries one state at a time. Float32 parameters and arithmetic.
+
+With `data_parallel` set (a `parallel.mesh.DataParallel`; the fit loop sets
+it under a process group) each step is the step on the union of the ranks'
+batches: every masked mean is this rank's share of the global mean, and the
+gradients (of both updates) and the logged values are summed over the
+ranks before the clip, the non-finite guard and the update.
 
 Both optimizers are `train/optim.AccumulatingAdamW` (optax's chain): the
 accumulator keeps the MEAN of the micro-step gradients, so the losses are
@@ -28,6 +33,7 @@ from torch.profiler import record_function
 from dmel_codec_tpu_torch.dsp.spectrogram import LogMelSpectrogram
 from dmel_codec_tpu_torch.models.codec import DMelCodec, DMelCodecConfig, quality_from_gt_mels
 from dmel_codec_tpu_torch.models.discriminator import MelDiscriminator
+from dmel_codec_tpu_torch.parallel.mesh import DataParallel, global_batch
 from dmel_codec_tpu_torch.train.losses import (
     adversarial_loss,
     discriminator_loss,
@@ -106,6 +112,7 @@ class CodecTrainer:
         self.codec_config = codec_config
         self.config = train_config
         self.device = torch.device(device)
+        self.data_parallel: Optional[DataParallel] = None  # set by the fit loop under a process group
         self.codec = DMelCodec(codec_config).to(self.device).train()
         self.discriminator = MelDiscriminator().to(self.device).train()
         # two independently configurable transforms: `mel_transform` feeds
@@ -215,6 +222,7 @@ class CodecTrainer:
         runs under a `torch.profiler.record_function("codec/<part>")`, which
         costs nothing unless a profiler is active."""
         cfg = self.config
+        dp = self.data_parallel
         self._check_own(state)
         with record_function("codec/preamble"):
             encode_mels, gt_mels, mel_masks, quality = self._prepare(batch["audios"].float(), batch["audio_lengths"])
@@ -225,13 +233,15 @@ class CodecTrainer:
             gen_mel, _ = self.codec(encode_mels, mel_masks, quality, noise)
 
         # discriminator update on (real, detached fake)
-        with record_function("codec/discriminator forward, real and fake"):
+        with record_function("codec/discriminator forward, real and fake"), global_batch(dp):
             real = self.discriminator(gt_mels)
             fake = self.discriminator(gen_mel.detach())
             d_mask = resample_mask_nearest(mel_masks, real.shape[2])
             loss_d, loss_real, loss_fake = discriminator_loss(real, fake, d_mask)
         with record_function("codec/discriminator backward"):
             d_grads = torch.autograd.grad(loss_d, list(state.disc_params.values()))
+            if dp is not None:
+                dp.sum_(d_grads)
             d_norm = global_norm(d_grads)
             del real, fake
         with record_function("codec/discriminator optimizer"):
@@ -240,13 +250,15 @@ class CodecTrainer:
         # generator losses against the UPDATED critic; the gradient is taken
         # with respect to the generator's parameters only, so none lands on
         # the critic's
-        with record_function("codec/generator losses, discriminator forward on the fake"):
+        with record_function("codec/generator losses, discriminator forward on the fake"), global_batch(dp):
             loss_mel = weighted_mel_loss(gen_mel, gt_mels, mel_masks)
             loss_adv = adversarial_loss(self.discriminator(gen_mel), d_mask)
             loss_g = cfg.weight_mel * loss_mel + cfg.weight_adv * loss_adv
         names = list(state.gen_params)
         with record_function("codec/generator backward, through the discriminator"):
             g_grads = torch.autograd.grad(loss_g, [state.gen_params[n] for n in names])
+            if dp is not None:
+                dp.sum_(g_grads)
             g_norm = global_norm(g_grads)  # over every subtree, frozen ones too
         with record_function("codec/generator optimizer"):
             state.gen_opt_state.update(
@@ -254,15 +266,20 @@ class CodecTrainer:
                 watch=[g for n, g in zip(names, g_grads) if not self.trained(n)],
             )
 
-        metrics = {
-            "train/grad_norm/generator": g_norm,
-            "train/grad_norm/discriminator": d_norm,
+        shares = {
             "train/discriminator/loss": loss_d.detach(),
             "train/discriminator/loss_real": loss_real.detach(),
             "train/discriminator/loss_fake": loss_fake.detach(),
             "train/generator/loss": loss_g.detach(),
             "train/generator/loss_mel": loss_mel.detach(),
             "train/generator/loss_adv": loss_adv.detach(),
+        }
+        if dp is not None:
+            shares = dp.sum_metrics(shares)
+        metrics = {
+            "train/grad_norm/generator": g_norm,
+            "train/grad_norm/discriminator": d_norm,
+            **shares,
             # the schedule advances once per accumulated update
             "train/lr": self.schedule(state.step // max(1, cfg.accumulate_grad)),
         }

@@ -1,5 +1,6 @@
 """LM fit loop: token-grid batches -> LM train step (port of
-`dmel_codec_tpu/train/lm_loop.py`), on one device; no mesh."""
+`dmel_codec_tpu/train/lm_loop.py`); data-parallel under a process group with
+`use_mesh`, as `train/loop.py` describes."""
 
 from __future__ import annotations
 
@@ -7,10 +8,12 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
+from dmel_codec_tpu_torch.parallel.mesh import data_parallel
 from dmel_codec_tpu_torch.train.checkpoint import CheckpointManager
 from dmel_codec_tpu_torch.train.lm_trainer import LMTrainer, LMTrainState, LoRATrainState
-from dmel_codec_tpu_torch.train.loop import FitConfig
-from dmel_codec_tpu_torch.utils.logging import MetricsWriter, RankedLogger
+from dmel_codec_tpu_torch.train.lora import lora_leaves
+from dmel_codec_tpu_torch.train.loop import FitConfig, epoch_batches, start_replicated
+from dmel_codec_tpu_torch.utils.logging import MetricsWriter, NullWriter, RankedLogger
 
 log = RankedLogger(__name__)
 
@@ -37,7 +40,9 @@ class LMFitLoop:
 
     def run(self, state: Optional[LMTrainState] = None) -> LMTrainState:
         cfg = self.cfg
-        writer = MetricsWriter(cfg.log_dir)
+        dp = self.trainer.data_parallel = data_parallel(cfg.use_mesh)
+        is_main = dp is None or dp.is_main
+        writer = MetricsWriter(cfg.log_dir) if is_main else NullWriter()
         ckpt = CheckpointManager(
             cfg.ckpt_dir,
             max_to_keep=cfg.keep_checkpoints,
@@ -55,12 +60,16 @@ class LMFitLoop:
         # the `lora` field is a LoRA-only checkpoint)
         is_lora = isinstance(state, LoRATrainState)
         step_fn = self.trainer.lora_train_step if is_lora else self.trainer.train_step
+        if is_lora:
+            start_replicated(dp, state.step, [*state.base_params.values(), *lora_leaves(state.lora).values()])
+        else:
+            start_replicated(dp, state.step, state.params.values())
 
         step = state.step
         epoch = 0
         try:
             while step < cfg.max_steps:
-                for batch in self.train_batches(epoch):
+                for batch in epoch_batches(self.train_batches(epoch), epoch):
                     state, metrics = step_fn(state, self.trainer.device_batch(batch))
                     step = state.step
                     if step % cfg.log_every == 0:
@@ -76,13 +85,16 @@ class LMFitLoop:
                                     f"top1 {val_means.get('val/audio_top1_acc', 0.0):.3f}"
                                 )
                         # checkpoint cadence == val cadence; val metrics rank it
-                        ckpt.save(step, state, metrics=val_means)
+                        if is_main:
+                            ckpt.save(step, state, metrics=val_means)
                     if step >= cfg.max_steps:
                         break
                 epoch += 1
-            if ckpt.latest_step() != step:
+            if is_main and ckpt.latest_step() != step:
                 ckpt.save(step, state)
             ckpt.wait()
+            if dp is not None:
+                dp.barrier()  # every rank returns once the last checkpoint is written
         finally:
             writer.close()
             ckpt.close()

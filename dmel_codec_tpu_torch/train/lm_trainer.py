@@ -16,6 +16,13 @@ The optimizer chain has optax's semantics (`train/optim.py`): gradients are
 averaged over `accumulate_grad` micro-steps, the clip acts on the average,
 the schedule advances once per update, and with `skip_nonfinite_updates`
 a non-finite micro-step is dropped, up to N in a row.
+
+With `data_parallel` set (a `parallel.mesh.DataParallel`; the fit loop sets
+it under a process group) each step is the step on the union of the ranks'
+batches: the losses and accuracies are this rank's shares of the global
+masked means, and the gradients and the logged values are summed over the
+ranks before the clip, the non-finite guard and the update, so every rank
+takes the same update.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from torch import nn
 from torch.func import functional_call
 
 from dmel_codec_tpu_torch.models.lm import IGNORE_INDEX, ChatMusicLM, SlowFastLMConfig
+from dmel_codec_tpu_torch.parallel.mesh import DataParallel, global_batch, global_count
 from dmel_codec_tpu_torch.train.lora import (
     LoRAConfig,
     init_lora,
@@ -80,14 +88,15 @@ def topk_accuracy(
     """Shifted next-token top-k accuracy. logits [..., S, V], labels
     [..., S]. A label counts as a hit at k when fewer than k logits come
     before it in a stable descending order (ties go to the lower index, as
-    `jax.lax.top_k` breaks them)."""
+    `jax.lax.top_k` breaks them). Inside a data-parallel step the valid
+    labels are counted over every rank (this rank's share of the accuracy)."""
     logits = logits[..., :-1, :]
     labels = labels[..., 1:]
     vocab = logits.shape[-1]
     valid = torch.ones_like(labels, dtype=torch.bool)
     for ig in ignore_ids:
         valid &= labels != ig
-    n_valid = valid.sum().clamp(min=1)
+    n_valid = global_count(valid.sum()).clamp(min=1)
     in_range = (labels >= 0) & (labels < vocab)
     lab = labels.clamp(0, vocab - 1)[..., None]
     lab_logit = logits.gather(-1, lab)
@@ -169,6 +178,7 @@ class LMTrainer:
         self.lm_config = lm_config
         self.config = train_config
         self.device = torch.device(device)
+        self.data_parallel: Optional[DataParallel] = None  # set by the fit loop under a process group
         with torch.device(self.device):
             self.model = ChatMusicLM(lm_config)
         self.model.train()
@@ -236,12 +246,21 @@ class LMTrainer:
         )
         return {f"{prefix}/audio_top{k}_acc": v for k, v in acc.items()}
 
-    def _train_metrics(self, step: int, loss, out, grads) -> Dict[str, Any]:
-        return {
-            "train/grad_norm": global_norm(grads),
+    def _train_metrics(self, step: int, loss, out, grads, accuracy=None) -> Dict[str, Any]:
+        """The step's metrics. Under data parallelism the gradients are first
+        summed over the ranks IN PLACE (the update takes them so), and the
+        losses and accuracies, this rank's shares, are summed too."""
+        shares = {
             "train/loss": loss.detach(),
             "train/text_loss": out["text_loss"].detach(),
             "train/audio_loss": out["audio_loss"].detach(),
+        } | (accuracy or {})
+        if self.data_parallel is not None:
+            self.data_parallel.sum_(grads)
+            shares = self.data_parallel.sum_metrics(shares)
+        return {
+            "train/grad_norm": global_norm(grads),
+            **shares,
             "train/lr": self.schedule(step // max(1, self.config.accumulate_grad)),
         }
 
@@ -257,9 +276,10 @@ class LMTrainer:
         """One micro-step on a device batch. The state is advanced in
         place and returned. `train/grad_norm` is the norm of this
         micro-step's own gradient, before averaging and clipping."""
-        (loss, out), grads = self.loss_fn(state.params, batch, wrt=list(state.params.values()))
-        metrics = self._train_metrics(state.step, loss, out, grads)
-        metrics |= self._audio_accuracy(out, batch, "train")
+        with global_batch(self.data_parallel):
+            (loss, out), grads = self.loss_fn(state.params, batch, wrt=list(state.params.values()))
+            accuracy = self._audio_accuracy(out, batch, "train")
+        metrics = self._train_metrics(state.step, loss, out, grads, accuracy)
         del out
         state.opt_state.update(grads)
         state.step += 1
@@ -292,9 +312,10 @@ class LMTrainer:
 
     def lora_train_step(self, state: LoRATrainState, batch) -> Tuple[LoRATrainState, Dict[str, Any]]:
         self._require_lora_setup()
-        (loss, out), grads = loss_and_grads_lora(
-            self.loss_fn, state.base_params, state.lora, self.lora_config, batch
-        )
+        with global_batch(self.data_parallel):
+            (loss, out), grads = loss_and_grads_lora(
+                self.loss_fn, state.base_params, state.lora, self.lora_config, batch
+            )
         flat = list(lora_leaves(grads).values())
         metrics = self._train_metrics(state.step, loss, out, flat)
         del out

@@ -1,5 +1,15 @@
 """Fit-loop settings and the codec's fit loop (the `FitConfig` and
-`CodecFitLoop` of `dmel_codec_tpu/train/loop.py`)."""
+`CodecFitLoop` of `dmel_codec_tpu/train/loop.py`).
+
+Under a process group with `use_mesh` (the JAX meaning: a data-parallel
+mesh) the loops run the trainers' data-parallel steps
+(`parallel/mesh.py`): every rank steps on its own shard, in lockstep by
+step count (a rank whose shard gives fewer batches per epoch starts its
+next epoch sooner), validates on the whole validation set, and rank 0
+alone writes the metrics and the checkpoints. Every rank restores the
+newest checkpoint of `ckpt_dir`, which must be visible to all of them;
+the ranks then check that they stand at the same step and take rank 0's
+parameters."""
 
 from __future__ import annotations
 
@@ -9,9 +19,10 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from dmel_codec_tpu_torch.parallel.mesh import DataParallel, data_parallel
 from dmel_codec_tpu_torch.train.checkpoint import CheckpointManager
 from dmel_codec_tpu_torch.train.codec_trainer import CodecTrainer, CodecTrainState
-from dmel_codec_tpu_torch.utils.logging import MetricsWriter, RankedLogger, plot_mel
+from dmel_codec_tpu_torch.utils.logging import MetricsWriter, NullWriter, RankedLogger, plot_mel
 
 log = RankedLogger(__name__)
 
@@ -30,13 +41,35 @@ class FitConfig:
     best_mode: str = "min"
     seed: int = 0
     max_val_batches: int = 4
+    # data-parallel steps when a process group is up
+    use_mesh: bool = True
+
+
+def epoch_batches(batches: Iterable[dict], epoch: int) -> Iterable[dict]:
+    """The epoch's batches; raises when there is none (the loop would spin
+    without stepping, and its data-parallel peers would wait for it)."""
+    empty = True
+    for batch in batches:
+        empty = False
+        yield batch
+    if empty:
+        raise RuntimeError(f"epoch {epoch} gave no training batch (an empty manifest or shard)")
+
+
+def start_replicated(dp: Optional[DataParallel], step: int, tensors: Iterable[torch.Tensor]) -> None:
+    """Data parallelism starts from one state: every rank at the same step,
+    with rank 0's parameters."""
+    if dp is not None:
+        dp.same_step(step)
+        dp.broadcast_(list(tensors))
 
 
 class CodecFitLoop:
     """Data loader -> codec train step -> metrics / checkpoints / validation
-    (the `CodecFitLoop` of `dmel_codec_tpu/train/loop.py`), on one device; no
-    mesh. Resumes from the newest checkpoint; validation and the checkpoint
-    share one cadence, and the validation metrics rank the checkpoint."""
+    (the `CodecFitLoop` of `dmel_codec_tpu/train/loop.py`), data-parallel
+    under a process group (module docstring). Resumes from the newest
+    checkpoint; validation and the checkpoint share one cadence, and the
+    validation metrics rank the checkpoint."""
 
     def __init__(
         self,
@@ -57,15 +90,22 @@ class CodecFitLoop:
         self.vocoder_apply = vocoder_apply
         self._warned_no_figure = False
 
-    def _generator(self, seed: int, step: int = 0) -> torch.Generator:
+    def _generator(self, seed: int, step: int = 0, dp: Optional[DataParallel] = None) -> torch.Generator:
         """The noise generator for one step, keyed like `jax.random.fold_in`:
-        the same (seed, step) draws the same noise, resumed or not."""
-        return torch.Generator(device=self.trainer.device).manual_seed(seed * 1_000_003 + step)
+        the same (seed, step) draws the same noise, resumed or not; under
+        data parallelism each rank draws its own (the key takes the rank
+        too, and is the single-process key at world size 1)."""
+        key = seed * 1_000_003 + step
+        if dp is not None:
+            key = key * dp.world + dp.rank
+        return torch.Generator(device=self.trainer.device).manual_seed(key)
 
     def run(self, state: Optional[CodecTrainState] = None) -> CodecTrainState:
         cfg = self.cfg
         trainer = self.trainer
-        writer = MetricsWriter(cfg.log_dir)
+        dp = trainer.data_parallel = data_parallel(cfg.use_mesh)
+        is_main = dp is None or dp.is_main
+        writer = MetricsWriter(cfg.log_dir) if is_main else NullWriter()
         ckpt = CheckpointManager(
             cfg.ckpt_dir,
             max_to_keep=cfg.keep_checkpoints,
@@ -76,14 +116,15 @@ class CodecFitLoop:
             state = trainer.init_state(cfg.seed)
         if ckpt.restore_latest(state) is not None:
             log.info(f"resumed from checkpoint step {state.step}")
+        start_replicated(dp, state.step, [*state.gen_params.values(), *state.disc_params.values()])
 
         step = state.step
         epoch = 0
         try:
             while step < cfg.max_steps:
-                for batch in self.train_batches(epoch):
+                for batch in epoch_batches(self.train_batches(epoch), epoch):
                     state, metrics = trainer.train_step(
-                        state, trainer.device_batch(batch), self._generator(cfg.seed + 1, step)
+                        state, trainer.device_batch(batch), self._generator(cfg.seed + 1, step, dp)
                     )
                     step = state.step
                     if step % cfg.log_every == 0:
@@ -92,13 +133,16 @@ class CodecFitLoop:
                         val_metrics = None
                         if self.val_batches is not None:
                             val_metrics = self._validate(state, writer, step)
-                        ckpt.save(step, state, metrics=val_metrics)
+                        if is_main:
+                            ckpt.save(step, state, metrics=val_metrics)
                     if step >= cfg.max_steps:
                         break
                 epoch += 1
-            if ckpt.latest_step() != step:
+            if is_main and ckpt.latest_step() != step:
                 ckpt.save(step, state)
             ckpt.wait()
+            if dp is not None:
+                dp.barrier()  # every rank returns once the last checkpoint is written
         finally:
             writer.close()
             ckpt.close()
@@ -106,7 +150,8 @@ class CodecFitLoop:
 
     def _validate(self, state: CodecTrainState, writer: MetricsWriter, step: int) -> Optional[dict]:
         """Mean `val_loss` over the first `max_val_batches` validation
-        batches, and the media of the first one's first clip."""
+        batches, and the media of the first one's first clip. Every rank
+        takes the whole validation set, outside the data-parallel step."""
         cfg = self.cfg
         losses = []
         first_batch = None

@@ -99,3 +99,20 @@ class MetricsWriter:
         self._jsonl.close()
         if self._tb:
             self._tb.close()
+
+
+class NullWriter:
+    """A `MetricsWriter` that writes nothing (the data-parallel ranks other
+    than 0)."""
+
+    def scalars(self, step: int, values: Dict[str, float]) -> None:
+        pass
+
+    def figure(self, step: int, tag: str, fig) -> None:
+        pass
+
+    def audio(self, step: int, tag: str, audio: np.ndarray, sample_rate: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -1,7 +1,8 @@
-"""The port's entry points pin float32: each CLI `main` turns TF32 off for
-cuBLAS matmuls and cuDNN convs before it builds a model, whatever the
-process allowed before (PyTorch's default lets cuDNN convs run in TF32),
-as the JAX package computes float32 in full float32.
+"""The port's entry points pin float32: each CLI `main` that builds a model
+(all but `preprocess`) turns TF32 off for cuBLAS matmuls and cuDNN convs
+before it builds one, whatever the process allowed before (PyTorch's
+default lets cuDNN convs run in TF32), as the JAX package computes float32
+in full float32.
 
 Each case runs one `main(... --device cpu)` at the small sizes of the
 CLIs' own tests in a fresh process that first turns both TF32 flags on:
@@ -123,8 +124,18 @@ def _evaluate(tmp_path: Path) -> list:
     return ["--config", str(tmp_path / "eval.yaml"), "--device", "cpu"]
 
 
-CLIS = {"evaluate": _evaluate, "infer_lm": _infer_lm, "stream_codec": _stream_codec, "train_codec": _train_codec,
-        "train_lm": _train_lm}
+def _convert(tmp_path: Path) -> list:
+    """`convert vqgan` on a Lightning checkpoint of the small codec."""
+    torch.manual_seed(0)
+    sd = DMelCodec(DMelCodecConfig(**CODEC_KW)).state_dict()
+    torch.save({"state_dict": sd}, tmp_path / "ref.ckpt")
+    (tmp_path / "codec.yaml").write_text(yaml.safe_dump({"model": CODEC_KW}))
+    return ["vqgan", "--ckpt", str(tmp_path / "ref.ckpt"), "--out", str(tmp_path / "codec"),
+            "--config", str(tmp_path / "codec.yaml"), "--device", "cpu"]
+
+
+CLIS = {"convert": _convert, "evaluate": _evaluate, "infer_lm": _infer_lm, "stream_codec": _stream_codec,
+        "train_codec": _train_codec, "train_lm": _train_lm}
 
 
 @pytest.mark.parametrize("cli", sorted(CLIS))

@@ -195,9 +195,11 @@ def test_codec_decodes_ids_beyond_its_codes():
 
 def test_codec_adapter_and_audio_loading(tmp_path):
     """The prompt-audio path: a 16 kHz int16 WAV loads (resampled, peak
-    0.95) as through the JAX package's numpy backend, and the adapter
+    0.95) as through the JAX package's loader, with the default backend
+    (both the native C++ decode) and with the numpy backend, and the adapter
     tokenizes it, with and without per-sample lengths, to the JAX adapter's
     indices; `get_latent` within 1e-4 (two FFTs under a log, then 3 WaveNet layers)."""
+    from dmel_codec_tpu.data.audio import load_audio as jax_load_audio
     from dmel_codec_tpu.data.audio import load_audio_python
     from dmel_codec_tpu_torch.data.audio import load_audio
 
@@ -206,7 +208,9 @@ def test_codec_adapter_and_audio_loading(tmp_path):
     tone += 0.05 * np.random.default_rng(0).standard_normal(t.shape)  # no mel bin at the log floor
     wavfile.write(tmp_path / "p.wav", 16000, (tone * 32767).astype(np.int16))
     audio = load_audio(str(tmp_path / "p.wav"), target_sr=24000)
-    np.testing.assert_array_equal(audio, load_audio_python(str(tmp_path / "p.wav"), target_sr=24000))
+    np.testing.assert_array_equal(audio, jax_load_audio(str(tmp_path / "p.wav"), target_sr=24000))
+    np.testing.assert_array_equal(load_audio(str(tmp_path / "p.wav"), target_sr=24000, backend="python"),
+                                  load_audio_python(str(tmp_path / "p.wav"), target_sr=24000))
     assert audio.shape == (24000,) and abs(np.abs(audio).max() - 0.95) < 1e-6
 
     _, cparams, cport = build_codec()

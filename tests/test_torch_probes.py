@@ -21,7 +21,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from dmel_codec_tpu_torch.cli import common, evaluate, infer_lm, stream_codec, train_codec, train_lm
+from dmel_codec_tpu_torch.cli import common, convert, evaluate, infer_lm, stream_codec, train_codec, train_lm
 from dmel_codec_tpu_torch.eval import codecs
 from dmel_codec_tpu_torch.eval.evaluation import Evaluation
 from dmel_codec_tpu_torch.eval.external import WhisperASR, speaker_similarity
@@ -311,7 +311,7 @@ def test_port_file_imports_no_jax(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path.name}:{node.lineno} imports {name}"
 
 
-@pytest.mark.parametrize("module", [evaluate, infer_lm, stream_codec, train_lm, train_codec],
+@pytest.mark.parametrize("module", [convert, evaluate, infer_lm, stream_codec, train_lm, train_codec],
                          ids=lambda m: m.__name__.split(".")[-1])
 def test_entry_point_defaults_to_the_gpu(module, monkeypatch):
     """Each CLI parses `--device` with the default "cuda"."""
@@ -324,7 +324,7 @@ def test_entry_point_defaults_to_the_gpu(module, monkeypatch):
         raise SystemExit(0)
 
     monkeypatch.setattr(module.argparse.ArgumentParser, "parse_args", parse)
-    required = {"evaluate": ["--config", "c"], "infer_lm": ["--config", "c"], "stream_codec": ["--in", "x.wav"],
+    required = {"convert": ["vqgan", "--ckpt", "c", "--out", "o"], "evaluate": ["--config", "c"], "infer_lm": ["--config", "c"], "stream_codec": ["--in", "x.wav"],
                 "train_lm": ["--config", "c"], "train_codec": ["--config", "c"]}[module.__name__.split(".")[-1]]
     with pytest.raises(SystemExit):
         module.main(required)

@@ -417,12 +417,19 @@ def test_train_codec_main_checkpoints_resumes_and_serves(tmp_path):
 
 
 @pytest.mark.parametrize("how", ["flag", "section"])
-def test_train_codec_refuses_distributed(tmp_path, how):
+def test_train_codec_refuses_distributed(tmp_path, how, monkeypatch):
+    """`--distributed` (or an enabled `distributed:` section) trains
+    data-parallel (tests/test_torch_data_parallel.py); without a rendezvous
+    (no config fields, no torchrun environment) it is refused before any
+    model is built."""
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
     manifest = _write_corpus(tmp_path, 1)
     extra = "distributed: {enabled: true}\n" if how == "section" else ""
     argv = ["--config", _yaml(tmp_path, manifest, 2, extra), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(ValueError, match="distributed training needs this process's rank"):
         train_codec.main(argv + (["--distributed"] if how == "flag" else []))
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_fit_loop_validates_and_logs_media(tmp_path):

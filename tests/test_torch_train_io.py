@@ -250,11 +250,13 @@ def test_bucket_batcher_copy(dataset, kw):
 
 @pytest.mark.parametrize("workers", [1, 3])
 def test_data_loader_copy(dataset, workers):
-    """The same batches and the same arrays as the original's scipy
-    backend, from one decode thread and from several."""
+    """The same batches and the same arrays as the original's, both with
+    their default decode backend ("auto": the native C++ kernels where they
+    build, the same source on both sides), from one decode thread and from
+    several."""
     cuts = port_manifest.load_manifest(str(dataset / "flat.jsonl"))
     kw = dict(max_duration=2.0, seed=1, num_workers=workers)
-    want = list(jax_loader.DataLoader(cuts, audio_backend="python", **kw).epoch(1))
+    want = list(jax_loader.DataLoader(cuts, **kw).epoch(1))
     got = list(port_loader.DataLoader(cuts, **kw).epoch(1))
     assert len(got) == len(want) >= 2
     for g, w in zip(got, want):
@@ -337,11 +339,11 @@ def test_fit_loop_validates_ranks_and_resumes(tmp_path):
         LMFitLoop(pt, lambda epoch: train, None, fit)  # the default device is the card; this trainer is on the CPU
 
 
-def test_train_lm_cli_end_to_end(dataset, tmp_path):
+def test_train_lm_cli_end_to_end(dataset, tmp_path, monkeypatch):
     """`train_lm.main --device cpu` on the synthetic WAVs: trains 2 steps
     and checkpoints, resumes to 3, then `infer_lm.main` loads that
     checkpoint and writes a WAV; `--distributed` and an enabled
-    `distributed:` section are refused."""
+    `distributed:` section are refused without a rendezvous."""
     codec_kw = dict(CODEC_KW, dmel_groups=10)  # the LM speaks 10 codebooks
     torch.manual_seed(0)
     CheckpointManager(str(tmp_path / "codec")).save(0, {"gen_params": DMelCodec(DMelCodecConfig(**codec_kw)).state_dict()})
@@ -386,10 +388,13 @@ def test_train_lm_cli_end_to_end(dataset, tmp_path):
     sr, wav = wavfile.read(out)
     assert sr == 24000 and wav.dtype == np.float32 and wav.size > 0 and np.isfinite(wav).all()
 
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # data-parallel training needs a rendezvous: without one it is refused
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match="distributed training needs this process's rank"):
         train_lm.main(["--config", str(tmp_path / "lm.yaml"), "--device", "cpu", "--distributed"])
     cfg["distributed"] = {"enabled": True}
     (tmp_path / "dist.yaml").write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="distributed training needs this process's rank"):
         train_lm.main(["--config", str(tmp_path / "dist.yaml"), "--device", "cpu"])
     assert train_lm.main.__module__ == "dmel_codec_tpu_torch.cli.train_lm"
