@@ -2,7 +2,8 @@
 """Drive the PyTorch port's serving and training paths once on one CUDA card:
 the codec (log-mel -> dMel tokens -> BigVGAN), the slow-fast LM in front of
 it, the codec on long audio, window by window, LM training, codec GAN
-training, the kernel probes, and codec evaluation with the codec zoo.
+training, the kernel probes, codec evaluation with the codec zoo, the host
+data path and the parallel layer (data, tensor, FSDP, pipeline, sequence).
 
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
 
@@ -117,7 +118,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      (P4: C = 96 and 192) and plane count the probes' tables time and at
      ragged ones, P1 against K1 in the interior, then the probes' own
      checks and tables of times (P4's launches counted by kernel), bounds
-     and the library call's time (P4: one F.conv1d, a yardstick only);
+     and the library calls' times (yardsticks only: P2 one depthwise
+     F.conv1d, P3 one depthwise circular nn.Conv1d, P4 one F.conv1d);
  21. codec GAN training at full width through `CodecTrainer` (float32,
      B = 16 clips x 4 s from a numpy seed, one clip of half length, given
      decoder noise): 4 checked steps (nine finite metrics, nothing moves at
@@ -161,7 +163,20 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      run without (losses within 1e-6 relative, ms per micro-step of both);
      `cli.train_codec --distributed` on the preprocessed manifest through
      the native decode (ms per step, the loader's share of the loop's wall
-     time). NCCL across two or more ranks needs a second card.
+     time). NCCL across two or more ranks needs a second card;
+ 26. the rest of the parallel layer in a process group of one rank on NCCL:
+     `LMTrainer.shard_state` on `dp_tp_mesh(model=1, data=1)`, tensor
+     parallel and tensor parallel + FSDP (every collective over a group of
+     one), 4 micro-steps at full width against phase 17's plain trainer on
+     the same seed and batches (losses within 1e-6 relative; FA, FA-dKV and
+     FA-dQ 24 launches each a micro-step), then ms per micro-step and peak
+     memory; FA, FA-dKV and FA-dQ against their plain versions at one rank's
+     head layout under 2-way tensor parallelism, [2, 1024, 7 -> 1, 64],
+     float32 and bf16; `pipelined_decoder` (1 stage, 2 microbatches) over
+     the slow decoder, flash on, against the plain decoder (hidden state,
+     gradients, 48 launches of each FA kernel); `time_sharded_encode` /
+     `decode` on 2 x 60 s at the flagship codec width against the
+     one-process encode / decode (tokens equal, mel within 1e-5), timed.
 The comparison phases run with TF32 off for cuBLAS and cuDNN, as the entry
 points run (each `main` calls `strict_float32`). The
 line before the last is one JSON object describing the kernels; the last
@@ -1088,6 +1103,222 @@ def host_path_phase(dev, card: str) -> dict:
         out["train_codec"] = {"step_ms": step_ms, "loader_wall_share": share, "loop_s": loop_s}
     out["seconds"] = time.perf_counter() - t_phase
     say(f"phase 25 in {out['seconds']:.1f} s")
+    return out
+
+
+# Phase 26, the rest of the parallel layer at world size 1 (one card; NCCL).
+# Tolerances:
+#  the laid-out trainer (tensor parallel over a model group of one, with and
+#    without FSDP over a data group of one) against phase 17's plain trainer,
+#    the same seed and batches: the losses within 1e-6 relative. They cannot
+#    be bit-equal: the vocab-parallel cross entropy sums -log softmax as
+#    log(sum exp(x - max)) + max - x[label] where F.cross_entropy takes
+#    log_softmax, and the layout's global norm adds the squares by kind
+#    before the root, each ~1e-7 relative in float32; the kernels, the
+#    GEMMs and the collectives over one rank change no bit.
+#  the GPipe decoder (one stage, 2 microbatches of 1) against the plain
+#    decoder on the batch of 2: the same kernels, but float32 GEMMs of half
+#    the rows may take another cuBLAS kernel and sum in another order
+#    (~1e-7 relative per op, over 24 blocks): the hidden state within 1e-4
+#    of max(1, max |plain|), each gradient within TOL_TRAIN_GRAD of its
+#    tensor's largest (phase 17's reason).
+#  time-sharded encode / decode at world size 1 against the one-process
+#    encode / decode: the same modules on the same window: tokens equal,
+#    the mel within 1e-5 (TOL_CHUNKED_DECODE).
+TOL_PARALLEL_LOSS, TOL_PIPELINE_OUT = 1e-6, 1e-4
+PARALLEL_STEPS, SHARDED_SECONDS = 6, 60
+
+
+def parallel_phase(dev, card: str, flash_cfg, train_cfg, batches, plain_losses, plain_stats, counters_fa) -> dict:
+    """(a) `LMTrainer.shard_state` on `dp_tp_mesh(model=1, data=1)` with and
+    without `fsdp`, TRAIN_MICRO_STEPS checked micro-steps against phase 17's
+    plain trainer, then timed; (b) FA, FA-dKV, FA-dQ at one rank's head
+    layout under 2-way tensor parallelism against their plain versions;
+    (c) `pipelined_decoder` (1 stage, M = 2) over the slow decoder, flash
+    on, against the plain decoder; (d) `time_sharded_encode` / `decode` on
+    a 60 s clip at the flagship codec width against the one-process ones.
+    NCCL across ranks is not exercised (one card)."""
+    import torch.distributed as dist
+
+    from dmel_codec_tpu_torch.models.codec import DMelCodec, DMelCodecConfig
+    from dmel_codec_tpu_torch.models.transformer import Decoder
+    from dmel_codec_tpu_torch.ops import flash_attention as fa_ops
+    from dmel_codec_tpu_torch.parallel import (
+        dp_tp_mesh, pipelined_decoder, stage_mesh, time_sharded_decode, time_sharded_encode,
+    )
+    from dmel_codec_tpu_torch.train.lm_trainer import LMTrainer
+
+    def say(msg: str) -> None:
+        log(f"  [{card}] {msg}")
+
+    def reset_counts() -> None:
+        for fn in counters_fa.values():
+            fn.launches = 0
+
+    def counts() -> dict:
+        return {n_: fn.launches for n_, fn in counters_fa.items()}
+
+    out = {"card": card}
+    t_phase = time.perf_counter()
+    n_layers = flash_cfg.slow.num_layers
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+                            device_id=dev)
+    try:
+        # ---- (a) the laid-out LM train step
+        log(f"parallel (a): LMTrainer.shard_state on dp_tp_mesh(model=1, data=1) (NCCL, world 1), full width, "
+            f"float32, {LM_BATCH} x {TRAIN_SEQ}, accumulate_grad = {TRAIN_ACCUMULATE}")
+        for fsdp in (False, True):
+            what = "tensor parallel + FSDP" if fsdp else "tensor parallel"
+            gc.collect()
+            torch.cuda.empty_cache()
+            trainer = LMTrainer(flash_cfg, train_cfg, device=dev)
+            state = trainer.shard_state(trainer.init_state(0), dp_tp_mesh(model=1, data=1), fsdp=fsdp)
+            cut = sum(a_ is not None for spec in trainer.layout.specs.values() for a_ in spec)
+            reset_counts()
+            losses = []
+            for i in range(TRAIN_MICRO_STEPS):
+                state, metrics = trainer.train_step(state, batches[i % 2])
+                torch.cuda.synchronize()
+                want_n = (i + 1) * n_layers
+                assert counts() == {"FA": want_n, "FA-dKV": want_n, "FA-dQ": want_n}, (what, i, counts())
+                vals = {k_: float(v_) for k_, v_ in metrics.items()}
+                assert all(math.isfinite(x) for x in vals.values()), vals
+                losses.append({k_: vals[k_] for k_ in plain_losses[i]})
+                rel = max(abs(losses[i][k_] - w_) / max(abs(w_), 1e-30) for k_, w_ in plain_losses[i].items())
+                say(f"{what}, micro-step {i + 1}: loss {vals['train/loss']:.6f} (phase 17 "
+                    f"{plain_losses[i]['train/loss']:.6f}), grad norm {vals['train/grad_norm']:.6f}; largest "
+                    f"relative difference of the three losses {rel:.3e} (tol {TOL_PARALLEL_LOSS:.0e})")
+                assert rel <= TOL_PARALLEL_LOSS, (what, i, losses[i], plain_losses[i])
+            launches = counts()
+            say(f"{what}: {cut} dimensions cut over an axis, launches over {TRAIN_MICRO_STEPS} micro-steps {launches} "
+                f"({n_layers} each per micro-step)")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            events = []
+            for i in range(PARALLEL_STEPS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                trainer.train_step(state, batches[i % 2])
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize()
+            times = [s_.elapsed_time(e_) for s_, e_ in events[2:]]
+            step_ms, peak = sum(times) / len(times), torch.cuda.max_memory_allocated() / 2**30
+            say(f"{what}: {step_ms:.2f} ms per micro-step (last 4: {', '.join(f'{t_:.2f}' for t_ in times)}), peak "
+                f"{peak:.2f} GiB; phase 17's plain trainer {plain_stats[0]:.2f} ms, {plain_stats[1]:.2f} GiB")
+            out["fsdp" if fsdp else "tp"] = {"losses": losses, "launches": launches, "ms": step_ms, "peak_gib": peak,
+                                             "plain_ms": plain_stats[0], "plain_peak_gib": plain_stats[1]}
+            del trainer, state
+
+        # ---- (b) FA, FA-dKV, FA-dQ at one rank's heads under 2-way tensor parallelism
+        slow = flash_cfg.slow
+        heads, kv_heads, hd = slow.num_heads // 2, slow.num_kv_heads // 2, slow.head_dim
+        log(f"parallel (b): FA / FA-dKV / FA-dQ at a TP = 2 rank's layout [{LM_BATCH}, {TRAIN_SEQ}, "
+            f"{heads} -> {kv_heads}, {hd}] vs plain")
+        gen = torch.Generator(device=dev).manual_seed(26)
+        out["tp2_layout"] = {}
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, g = (torch.randn((LM_BATCH, TRAIN_SEQ, n_, hd), device=dev, generator=gen).to(dt)
+                          for n_ in (heads, kv_heads, kv_heads, heads))
+            reset_counts()
+            ins = [t_.clone().requires_grad_() for t_ in (q, k, v)]
+            got_out = fa_ops.flash_attention(*ins)
+            got = torch.autograd.grad(got_out, ins, g)
+            torch.cuda.synchronize()
+            assert counts() == {"FA": 1, "FA-dKV": 1, "FA-dQ": 1}, counts()
+            out_p, lse_p = fa_ops.flash_attention_forward_reference(q, k, v)
+            dk_p, dv_p = fa_ops.flash_attention_dkv_reference(q, k, v, out_p, lse_p, g)
+            dq_p = fa_ops.flash_attention_dq_reference(q, k, v, out_p, lse_p, g)
+            tag = f"[{LM_BATCH}, {TRAIN_SEQ}, {heads} -> {kv_heads}, {hd}] {dt}"
+            out["tp2_layout"][str(dt)] = {
+                "FA": check_close(f"FA {tag}", got_out.detach(), out_p, fa_rel(dt, v, out_p)),
+                "FA-dQ": check_close(f"FA-dQ {tag}", got[0], dq_p, TOL[("FA-bwd", dt)]),
+                "FA-dKV": max(check_close(f"FA-dKV dk {tag}", got[1], dk_p, TOL[("FA-bwd", dt)]),
+                              check_close(f"FA-dKV dv {tag}", got[2], dv_p, TOL[("FA-bwd", dt)])),
+            }
+            del q, k, v, g, ins, got_out, got, out_p, lse_p, dk_p, dv_p, dq_p
+
+        # ---- (c) the GPipe decoder, one stage
+        log(f"parallel (c): pipelined_decoder over the slow decoder (1 stage, M = 2), flash on, float32, "
+            f"{LM_BATCH} x {TRAIN_SEQ}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch.random.fork_rng(devices=[dev]):
+            torch.manual_seed(26)
+            decoder = Decoder(slow).to(dev)
+        x = torch.randn((LM_BATCH, TRAIN_SEQ, slow.hidden_size), device=dev, generator=gen)
+        w = torch.randn(x.shape, device=dev, generator=gen)
+        fn = pipelined_decoder(decoder, stage_mesh(1), 2)
+        xp = x.clone().requires_grad_()
+        reset_counts()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        got = fn(xp)
+        (got * w).sum().backward()
+        t1.record()
+        torch.cuda.synchronize()
+        pipe_launches = counts()
+        assert pipe_launches == {"FA": 2 * slow.num_layers, "FA-dKV": 2 * slow.num_layers,
+                                 "FA-dQ": 2 * slow.num_layers}, pipe_launches
+        got_grads = {n_: p_.grad.clone() for n_, p_ in decoder.named_parameters()}
+        decoder.zero_grad(set_to_none=True)
+        xr = x.clone().requires_grad_()
+        want, _ = decoder(xr)
+        (want * w).sum().backward()
+        torch.cuda.synchronize()
+        e_out = check_close("pipelined decoder hidden vs the plain decoder", got.detach(), want.detach(),
+                            TOL_PIPELINE_OUT)
+        worst = max(((n_, max_err(got_grads[n_], p_.grad) / max(p_.grad.abs().max().item(), 1e-30))
+                     for n_, p_ in decoder.named_parameters()), key=lambda t_: t_[1])
+        e_x = max_err(xp.grad, xr.grad) / max(xr.grad.abs().max().item(), 1e-30)
+        say(f"pipelined decoder: {pipe_launches} launches (2 microbatches x {slow.num_layers} blocks), "
+            f"{t0.elapsed_time(t1):.2f} ms forward + backward; gradients vs plain: worst {worst[1]:.3e} of the "
+            f"tensor's largest at {worst[0]}, input {e_x:.3e} (tol {TOL_TRAIN_GRAD:.0e})")
+        assert worst[1] <= TOL_TRAIN_GRAD and e_x <= TOL_TRAIN_GRAD, (worst, e_x)
+        out["pipeline"] = {"launches": pipe_launches, "max_abs_err": e_out, "grad_rel_err": worst[1],
+                           "input_grad_rel_err": e_x, "ms": t0.elapsed_time(t1)}
+        del decoder, x, w, xp, xr, got, want, got_grads
+
+        # ---- (d) time-sharded encode / decode, world 1
+        log(f"parallel (d): time_sharded_encode / decode on a {SHARDED_SECONDS} s clip at the flagship codec width, "
+            f"float32")
+        gc.collect()
+        torch.cuda.empty_cache()
+        ccfg = DMelCodecConfig()
+        with torch.random.fork_rng(devices=[dev]):
+            torch.manual_seed(27)
+            codec = DMelCodec(ccfg).to(dev).eval()
+        t_frames = (SHARDED_SECONDS * SR // HOP // 4) * 4
+        mels = torch.randn((2, t_frames, ccfg.n_mels), device=dev, generator=gen)
+        lengths = torch.tensor([t_frames, t_frames * 3 // 4], device=dev)
+        times_ = {}
+
+        def timed(name, fn_):
+            """fn_'s result; its ms, the mean of 3 calls after one untimed (cuDNN picks its algorithms there)."""
+            r_ = fn_()
+            times_[name] = cuda_ms(fn_, 3, warm=False)
+            return r_
+
+        with torch.no_grad():
+            want_idx, want_len = timed("encode", lambda: codec.encode(mels, lengths))
+            got_idx, got_len = timed("sharded encode", lambda: time_sharded_encode(codec)(mels, lengths))
+            assert torch.equal(got_idx, want_idx) and torch.equal(got_len, want_len)
+            noise = torch.randn((2, t_frames, ccfg.concat_dim), device=dev, generator=gen)
+            want_mel = timed("decode", lambda: codec.decode(want_idx, want_len, noise))
+            got_mel = timed("sharded decode", lambda: time_sharded_decode(codec)(want_idx, want_len, noise))
+        e_mel = check_close(f"time-sharded decode vs one-process, {list(want_mel.shape)}", got_mel, want_mel,
+                            TOL_CHUNKED_DECODE)
+        say(f"time-sharded at world 1: tokens {list(got_idx.shape)} equal; " + ", ".join(
+            f"{k_} {v_:.2f} ms" for k_, v_ in times_.items()))
+        out["sequence"] = {"tokens_equal": True, "mel_max_abs_err": e_mel, "ms": times_}
+        del codec, mels, noise, want_idx, got_idx, want_mel, got_mel
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"phase 26 in {out['seconds']:.1f} s")
     return out
 
 
@@ -2212,6 +2443,7 @@ def main() -> None:
 
     # 4 micro-steps = 2 updates through train_step
     snapshot = {n_: p.detach().clone() for n_, p in state.params.items()}
+    plain_losses = []  # phase 26 holds the laid-out trainer to these
     reset_counts()
     for i in range(TRAIN_MICRO_STEPS):
         state, metrics = trainer.train_step(state, train_batches[i % 2])
@@ -2221,6 +2453,7 @@ def main() -> None:
         assert seen == {"FA": want_n, "FA-dKV": want_n, "FA-dQ": want_n}, (i, seen)
         vals = {k_: float(v_) for k_, v_ in metrics.items()}
         assert all(math.isfinite(x) for x in vals.values()), vals
+        plain_losses.append({k_: vals[k_] for k_ in ("train/loss", "train/text_loss", "train/audio_loss")})
         changed = sum(not torch.equal(snapshot[n_], p) for n_, p in state.params.items())
         is_update = (i + 1) % TRAIN_ACCUMULATE == 0
         log(f"  micro-step {i + 1}: loss {vals['train/loss']:.4f} (text {vals['train/text_loss']:.4f}, audio "
@@ -2300,6 +2533,7 @@ def main() -> None:
     decoder_options(remat=False)
     train_stats["long"] = time_micro_steps(long_batches, f"{LM_BATCH} x {LM_SEQ}, kernels on, no remat", n_layers)
     assert all(torch.isfinite(p).all() for p in state.params.values())
+    parallel_batches = train_batches  # phase 26's
     del long_batches, train_batches, state, trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -2546,7 +2780,7 @@ def main() -> None:
         a = torch.exp(0.1 * torch.randn(p1_shape[1], device=dev, generator=gen))
         p1_plain = cuda_ms(lambda: cf_act.cf_act_reference(x, a, a), 3)
         del x
-        rows_plain, rows_library, mm_plain, mm_library = {}, {}, {}, {}
+        rows_plain, rows_library, roll_library, mm_plain, mm_library = {}, {}, {}, {}, {}
         for planes in (1, fill):
             x = torch.randn((planes, sublane_ops.ROWS, sublane_ops.LANES), device=dev, generator=gen)
             rows_plain[planes] = {"slice": cuda_ms(lambda: sublane_ops.slice_reference(x), 10),
@@ -2565,6 +2799,16 @@ def main() -> None:
             check_close(f"library conv1d vs P2, P = {planes}", rows_conv().transpose(1, 2),
                         sublane_ops.slice_rows(x), 1e-6)  # six float32 additions in another order
             del x_rows, taps
+            # P3's library call: one depthwise circular conv with 0/1 taps, P3's rows a view of its output
+            roll_conv, x_cf = sublane_ops.roll_library(dev), x.transpose(1, 2).contiguous()
+
+            def roll_call():
+                return roll_conv(x_cf)[..., : sublane_ops.OUT_ROWS]
+
+            roll_library[planes] = cuda_ms(roll_call, 10)
+            check_close(f"library circular conv1d vs P3, P = {planes}", roll_call().transpose(1, 2),
+                        sublane_ops.roll_reference(x), sublane_ops.LIBRARY_TOL)
+            del roll_conv, x_cf
             for c in sublane_ops.WIDTHS:
                 xb = torch.randn((planes, sublane_ops.MM_ROWS, c), device=dev, generator=gen).to(torch.bfloat16)
                 w_ = torch.randn((c, c), device=dev, generator=gen).to(torch.bfloat16)
@@ -2589,7 +2833,8 @@ def main() -> None:
     for planes in (1, fill):
         log(f"  P = {planes}: P2 {rows_table[planes]['slice']:.4f} ms (plain {rows_plain[planes]['slice']:.4f}, depthwise "
             f"F.conv1d {rows_library[planes]:.4f}), P3 "
-            f"{rows_table[planes]['roll']:.4f} ms (plain {rows_plain[planes]['roll']:.4f}), bound "
+            f"{rows_table[planes]['roll']:.4f} ms (plain {rows_plain[planes]['roll']:.4f}, depthwise circular "
+            f"nn.Conv1d {roll_library[planes]:.4f}), bound "
             f"{sublane_ops.rows_bound_ms(planes):.5f} ms by bytes")
         for c in sublane_ops.WIDTHS:
             b_ = mm_bound[planes, c]
@@ -2873,6 +3118,11 @@ def main() -> None:
     # ---- 25. the host path: preprocess, the native decode, convert, data-parallel training
     host_path = host_path_phase(dev, smi)
 
+    # ---- 26. the rest of the parallel layer: TP / FSDP step, TP = 2 head layout, GPipe, time-sharded codec
+    parallel = parallel_phase(dev, smi, flash_cfg, train_cfg, parallel_batches, plain_losses, train_stats["kernels"],
+                              counters_fa)
+    del parallel_batches
+
     kernels = [
         {"name": "anti_alias_activation (K1)", "route": "cuda", "source": K1_SOURCE,
          "replaces": "dmel_codec_tpu/ops/anti_alias.py:521", "launches": launches["K1"],
@@ -3039,7 +3289,10 @@ def main() -> None:
         {"name": "roll_rows (P3)", "route": "cuda", "source": PROBES_SOURCE,
          "replaces": "scripts/exp_sublane_ops.py:63 (k_roll)", "launches": launches["P3"], "max_abs_err": errs["P3"],
          "ms": rows_table[1]["roll"], "plain_ms": rows_plain[1]["roll"], "bound_ms": sublane_ops.rows_bound_ms(1),
-         "bound_by": "bytes", "library_ms": None,
+         "bound_by": "bytes", "library_ms": roll_library[1],
+         "library_is": "nn.Conv1d(96, 96, 10, groups=96, padding=9, padding_mode='circular', bias=False), float32, "
+                       "taps 1 at 9 - offset for offsets 0, 1, 3, 5, 7, 9 and 0 elsewhere, on the channels-first "
+                       "plane; P3's 112 rows a view of its output", "fill_library_ms": roll_library[fill],
          "per": f"one launch on one [{sublane_ops.ROWS}, {sublane_ops.LANES}] float32 plane; launches: one run of the probe",
          "fill_planes": fill, "fill_ms": rows_table[fill]["roll"], "fill_plain_ms": rows_plain[fill]["roll"],
          "fill_bound_ms": sublane_ops.rows_bound_ms(fill)},
@@ -3061,13 +3314,23 @@ def main() -> None:
                   "fill_plain_ms": mm_plain[fill, 192], "fill_bound_ms": max(mm_bound[fill, 192].values()),
                   "fill_library_ms": mm_library[fill, 192]}},
     ]
+    # phase 26's own paths: each kernel's launches in the laid-out train steps and the GPipe decoder, and its
+    # error at one rank's head layout under 2-way tensor parallelism
+    for entry in kernels:
+        short = re.search(r"\((FA(?:-dKV|-dQ)?)\)", entry["name"])
+        if short:
+            key = short.group(1)
+            entry["parallel"] = {
+                "launches": {path_: parallel[path_]["launches"][key] for path_ in ("tp", "fsdp", "pipeline")},
+                "tp2_layout_max_abs_err": {dt_: errs_[key] for dt_, errs_ in parallel["tp2_layout"].items()},
+            }
     train_step = {name: {"ms": v[0], "peak_gib": v[1]} for name, v in train_stats.items()}
     codec_train_step = {name: {"ms": v[0], "peak_gib": v[1], "audio_s_per_s": v[2]} for name, v in codec_stats.items()}
     codec_train_step["parts_ms"] = parts
     codec_train_step["state_gib"] = state_gib
     codec_train_step["overfit"] = {"steps": overfit_steps, "seconds": overfit_s, "val_loss": curve}
     print(json.dumps({"kernels": kernels, "train_step": train_step, "codec_train_step": codec_train_step,
-                      "evaluation": evaluation, "host_path": host_path}))
+                      "evaluation": evaluation, "host_path": host_path, "parallel": parallel}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 

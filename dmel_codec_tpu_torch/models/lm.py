@@ -14,6 +14,9 @@
     decode over <= 11 tokens, with or without a cache
 
 Logits come out in the activations' dtype; the cross entropy is float32.
+Under tensor parallelism a head cut over its vocabulary
+(`vocab_groups`, set by `parallel/tensor.set_model_groups`) gives this
+rank's slice of the logits, and the cross entropy is taken over the slices.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from dmel_codec_tpu_torch.models.transformer import (
     init_kv_cache,
 )
 from dmel_codec_tpu_torch.parallel.mesh import global_count
+from dmel_codec_tpu_torch.parallel.tensor import copy_to_model, vocab_parallel_cross_entropy
 
 IGNORE_INDEX = -100
 
@@ -73,18 +77,18 @@ class SlowFastLMConfig:
 
 
 def cross_entropy_ignore(
-    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = IGNORE_INDEX
+    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = IGNORE_INDEX, vocab_group=None
 ) -> torch.Tensor:
     """Mean CE over labels != ignore_index (HF ForCausalLMLoss semantics,
     on ALREADY-shifted logits/labels); 0 when every label is ignored. Inside
     a data-parallel step (`parallel.mesh.global_batch`) the count is every
-    rank's: this rank's share of the global mean."""
-    total = F.cross_entropy(
-        logits.float().reshape(-1, logits.shape[-1]),
-        labels.reshape(-1),
-        ignore_index=ignore_index,
-        reduction="sum",
-    )
+    rank's: this rank's share of the global mean. With `vocab_group` the
+    logits are this rank's slice of the vocabulary (tensor parallelism)."""
+    flat_logits, flat_labels = logits.float().reshape(-1, logits.shape[-1]), labels.reshape(-1)
+    if vocab_group is None:
+        total = F.cross_entropy(flat_logits, flat_labels, ignore_index=ignore_index, reduction="sum")
+    else:
+        total = vocab_parallel_cross_entropy(flat_logits, flat_labels, ignore_index, vocab_group)
     return total / global_count((labels != ignore_index).sum()).clamp(min=1)
 
 
@@ -115,6 +119,8 @@ class ChatMusicLM(nn.Module):
 
         self.text_head = nn.Linear(hs, cfg.slow.vocab_size, bias=False)
         self.audio_head = nn.Linear(hf, cfg.audio_vocab, bias=False)
+        # tensor parallel: the model group of a head cut over its vocabulary
+        self.vocab_groups = {"text_head": None, "audio_head": None}
         self.reset_parameters()
 
     @torch.no_grad()
@@ -157,8 +163,9 @@ class ChatMusicLM(nn.Module):
         b, s, _ = inputs_embeds.shape
         c = cfg.audio_codebook_count
 
+        text_group, audio_group = self.vocab_groups["text_head"], self.vocab_groups["audio_head"]
         slow_hidden, _ = self.slow_decoder(inputs_embeds)
-        text_logits = self.text_head(slow_hidden)  # [B, S, V_text]
+        text_logits = self.text_head(copy_to_model(slow_hidden, text_group))  # [B, S, V_text (this rank's)]
 
         # fast model input: labels shifted off the first frame
         frame_labels = audio_labels[:, 1:, :]  # [B, S-1, C]
@@ -170,18 +177,18 @@ class ChatMusicLM(nn.Module):
         cb_emb = cb_emb.masked_fill((fast_ids == cfg.fast_audio_pad_id)[..., None], 0.0)
         fast_in = torch.cat([h[:, :, None, :], cb_emb], dim=2).reshape(b * (s - 1), c + 1, -1)
         fast_hidden, _ = self.fast_decoder(fast_in)
-        audio_logits = self.audio_head(fast_hidden)  # [B*(S-1), C+1, V_audio]
+        audio_logits = self.audio_head(copy_to_model(fast_hidden, audio_group))  # [B*(S-1), C+1, V_audio]
 
         # text loss: standard next-token shift
         text_loss = _zero_if_not_finite(
-            cross_entropy_ignore(text_logits[:, :-1, :], text_labels[:, 1:])
+            cross_entropy_ignore(text_logits[:, :-1, :], text_labels[:, 1:], vocab_group=text_group)
         )
         # audio loss: depth-shift with the text label column prepended, so
         # position i predicts codebook i
         text_col = text_labels[:, 1:].reshape(b * (s - 1), 1)
         depth_labels = torch.cat([text_col, frame_labels.reshape(b * (s - 1), c)], dim=1)
         audio_loss = _zero_if_not_finite(
-            cross_entropy_ignore(audio_logits[:, :-1, :], depth_labels[:, 1:])
+            cross_entropy_ignore(audio_logits[:, :-1, :], depth_labels[:, 1:], vocab_group=audio_group)
         )
 
         loss = cfg.text_weight * text_loss + cfg.audio_weight * audio_loss

@@ -23,6 +23,10 @@ loads into `Decoder` directly.
   * RoPE is applied in float32 and returned in the input dtype, so that the
     cache and the flash kernel see one dtype (the JAX function leaves the
     float32 promotion in place; in float32 the two are the same).
+  * Under tensor parallelism (`parallel/tensor.set_model_groups`) an
+    attention or MLP block holds its rank's whole heads or MLP columns and
+    takes its head counts from its projections' widths; Megatron's copy
+    and reduce over `model_group` bracket it (None: one process).
 `scan_layers` of the JAX config (one compiled layer body under `nn.scan`)
 is an XLA device and has no counterpart here.
 """
@@ -40,6 +44,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dmel_codec_tpu_torch.ops.flash_attention import flash_attention
+from dmel_codec_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +143,7 @@ class Attention(nn.Module):
         self.k_proj = nn.Linear(cfg.hidden_size, cfg.num_kv_heads * hd)
         self.v_proj = nn.Linear(cfg.hidden_size, cfg.num_kv_heads * hd)
         self.o_proj = nn.Linear(cfg.num_heads * hd, cfg.hidden_size, bias=False)
+        self.model_group = None  # tensor parallel: this rank's heads, see parallel/tensor.py
 
     def forward(
         self,
@@ -155,10 +161,13 @@ class Attention(nn.Module):
         cfg = self.config
         b, s, _ = x.shape
         hd = cfg.head_dim
+        x = copy_to_model(x, self.model_group)
+        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        heads, kv_heads = q.shape[-1] // hd, k.shape[-1] // hd  # this rank's under tensor parallelism
 
-        q = apply_rope(self.q_proj(x).reshape(b, s, cfg.num_heads, hd), cos, sin)
-        k = apply_rope(self.k_proj(x).reshape(b, s, cfg.num_kv_heads, hd), cos, sin)
-        v = self.v_proj(x).reshape(b, s, cfg.num_kv_heads, hd)
+        q = apply_rope(q.reshape(b, s, heads, hd), cos, sin)
+        k = apply_rope(k.reshape(b, s, kv_heads, hd), cos, sin)
+        v = v.reshape(b, s, kv_heads, hd)
 
         if cache_kv is not None:
             ck, cv = cache_kv
@@ -169,18 +178,18 @@ class Attention(nn.Module):
         elif cfg.flash_attention and s >= cfg.flash_min_seq and mask_is_causal:
             # a caller-supplied mask must use the einsum path
             out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
-            return self.o_proj(out.reshape(b, s, -1))
+            return reduce_from_model(self.o_proj(out.reshape(b, s, -1)), self.model_group)
 
         # GQA: [B, T, kh, hd] -> heads via an extra group axis in the einsum;
         # a cache of another dtype promotes as jnp.einsum does
-        groups = cfg.num_heads // cfg.num_kv_heads
+        groups = heads // kv_heads
         qk = torch.promote_types(q.dtype, k.dtype)
-        qg = q.reshape(b, s, cfg.num_kv_heads, groups, hd).to(qk)
+        qg = q.reshape(b, s, kv_heads, groups, hd).to(qk)
         scores = torch.einsum("bskgh,btkh->bkgst", qg, k.to(qk)) / math.sqrt(hd)
         scores = torch.where(mask[:, None, None, :, :], scores, -1e30)
         probs = torch.softmax(scores.float(), dim=-1).to(torch.promote_types(x.dtype, v.dtype))
         out = torch.einsum("bkgst,btkh->bskgh", probs, v.to(probs.dtype))
-        return self.o_proj(out.reshape(b, s, -1).to(x.dtype))
+        return reduce_from_model(self.o_proj(out.reshape(b, s, -1).to(x.dtype)), self.model_group)
 
 
 class MLP(nn.Module):
@@ -190,9 +199,11 @@ class MLP(nn.Module):
         self.gate_proj = nn.Linear(h, i, bias=False)
         self.up_proj = nn.Linear(h, i, bias=False)
         self.down_proj = nn.Linear(i, h, bias=False)
+        self.model_group = None  # tensor parallel: this rank's columns, see parallel/tensor.py
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        x = copy_to_model(x, self.model_group)
+        return reduce_from_model(self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x)), self.model_group)
 
 
 class Block(nn.Module):

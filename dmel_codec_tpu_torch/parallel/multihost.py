@@ -108,9 +108,13 @@ def distributed(cfg: Optional[DistributedConfig], device="cuda") -> Iterator[tor
             dist.destroy_process_group()
 
 
-def host_shard() -> Tuple[int, int]:
+def host_shard(mesh=None) -> Tuple[int, int]:
     """(shard_index, num_shards) for per-process data loading: (rank, world
-    size) under a process group, else (0, 1)."""
+    size) under a process group, else (0, 1). On a `mesh` with a data axis
+    (`parallel/mesh.dp_tp_mesh`), (data coordinate, data size): the ranks of
+    one model group read the same batch."""
+    if mesh is not None and "data" in (mesh.mesh_dim_names or ()):
+        return mesh.get_local_rank("data"), mesh.size(mesh.mesh_dim_names.index("data"))
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1

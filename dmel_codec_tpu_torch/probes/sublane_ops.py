@@ -32,6 +32,9 @@ checks the three against their plain versions at the JAX probe's shapes
 C = 96 as the JAX probe and C = 192, K2's widest fused stage) at P = 1 and
 P = 264, raising if P2 or P3 differ from plain by a bit or P4 by more than
 1e-4 of max |y|, and prints ms per launch at both beside the bounds.
+Beside P3 it times one PyTorch call of the same function, a yardstick only
+(`roll_library`: a depthwise circular `nn.Conv1d` with 0/1 taps, held to
+`roll_reference` within LIBRARY_TOL).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ MM_TOL = 1e-4  # of max |y|: only the order of 11 x C float32 additions differs 
 MM_MAX = 256  # K, N
 WG_ROWS, WG_MAX_ROWS = 128, 256  # the wgmma kernel's output rows per tile; TMA's largest box
 WIDTHS = (96, 192)  # C of the timed P4 shapes: the JAX probe's, and K2's widest fused stage
+LIBRARY_TOL = 1e-6  # of max(1, max |y|): six float32 additions in another order than plain's
 
 
 def slice_reference(x: torch.Tensor, out_rows: int = OUT_ROWS) -> torch.Tensor:
@@ -65,6 +69,21 @@ def roll_reference(x: torch.Tensor, out_rows: int = OUT_ROWS) -> torch.Tensor:
     for off in OFFSETS[1:]:
         acc = acc + x[..., (i - off) % rows, :].float()
     return acc
+
+
+def roll_library(device, cols: int = LANES) -> torch.nn.Module:
+    """P3 as one PyTorch module: a depthwise `nn.Conv1d(cols, cols, 10,
+    groups=cols, padding=9, padding_mode="circular", bias=False)` whose tap
+    9 - off is 1 for each of OFFSETS and the others 0, on the plane
+    channels-first [P, cols, rows]: its output i is sum_off x[(i - off) mod
+    rows]; P3's rows are the view [..., :out_rows]."""
+    span = OFFSETS[-1]
+    conv = torch.nn.Conv1d(cols, cols, span + 1, groups=cols, padding=span, padding_mode="circular", bias=False,
+                           device=device)
+    with torch.no_grad():
+        conv.weight.zero_()
+        conv.weight[:, 0, [span - off for off in OFFSETS]] = 1.0
+    return conv.requires_grad_(False)
 
 
 def tap_matmul_reference(
@@ -198,6 +217,12 @@ def check_probes(planes: int, device="cuda") -> dict:
         out[name] = float((got - want).abs().max())
         if not torch.equal(got, want):
             raise AssertionError(f"{name}_rows, {planes} planes: max abs err {out[name]:.3e} vs plain, expected the same bits")
+    want = roll_reference(x)
+    with torch.no_grad():
+        library_out = roll_library(x.device)(x.transpose(1, 2).contiguous())[..., :OUT_ROWS].transpose(1, 2)
+    out["roll library"] = float((library_out - want).abs().max())
+    if not out["roll library"] <= LIBRARY_TOL * max(1.0, float(want.abs().max())):
+        raise AssertionError(f"roll_library, {planes} planes: max abs err {out['roll library']:.3e} vs plain")
     out["roll vs slice"] = float((roll_rows(x) - slice_rows(x)).abs().max())
     if not out["roll vs slice"] > 1.0:
         raise AssertionError(f"roll_rows equals slice_rows to {out['roll vs slice']:.3e}: they are two functions")
@@ -213,9 +238,13 @@ def check_probes(planes: int, device="cuda") -> dict:
 
 def time_probes(planes: int, reps: int = 20, device="cuda") -> dict:
     """Mean ms per launch of P2, P3 and P4 (at each of WIDTHS, keys
-    "matmul C") on `planes` planes."""
+    "matmul C") on `planes` planes, and of P3's library call ("roll
+    library": the module's call and the view, on the channels-first plane)."""
     x, _, _ = _inputs(planes, device)
     out = {"slice": cuda_ms(lambda: slice_rows(x), reps), "roll": cuda_ms(lambda: roll_rows(x), reps)}
+    conv, x_cf = roll_library(x.device), x.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        out["roll library"] = cuda_ms(lambda: conv(x_cf)[..., :OUT_ROWS], reps)
     for c in WIDTHS:
         _, xb, w = _inputs(planes, device, c)
         out[f"matmul {c}"] = cuda_ms(lambda: tap_matmul(xb, w), reps)
@@ -229,15 +258,16 @@ def main() -> dict:
     print(torch.cuda.get_device_name(0))
     for planes in (1, FILL_PLANES):
         err = check_probes(planes)
-        print(f"P = {planes}: max err vs plain: slice {err['slice']:.2e}, roll {err['roll']:.2e}, "
+        print(f"P = {planes}: max err vs plain: slice {err['slice']:.2e}, roll {err['roll']:.2e} "
+              f"(its library call {err['roll library']:.2e}), "
               + ", ".join(f"matmul C = {c} {err[f'matmul {c}']:.2e} (max |y| {err[f'max |y| {c}']:.1f})" for c in WIDTHS)
               + f"; roll vs slice {err['roll vs slice']:.2f} (two functions)")
     table = {}
-    print(f"{'planes':<8}{'slice':>9}{'roll':>9}{'bound':>9}"
+    print(f"{'planes':<8}{'slice':>9}{'roll':>9}{'roll lib':>9}{'bound':>9}"
           + "".join(f"{'matmul ' + str(c):>12}{'bound':>9}" for c in WIDTHS) + "   (ms per launch)")
     for planes in (1, FILL_PLANES):
         ms = table[planes] = time_probes(planes)
-        print(f"{planes:<8}{ms['slice']:>9.4f}{ms['roll']:>9.4f}{rows_bound_ms(planes):>9.5f}"
+        print(f"{planes:<8}{ms['slice']:>9.4f}{ms['roll']:>9.4f}{ms['roll library']:>9.4f}{rows_bound_ms(planes):>9.5f}"
               + "".join(f"{ms[f'matmul {c}']:>12.4f}{max(tap_matmul_bound_ms(planes, c, c).values()):>9.5f}"
                         for c in WIDTHS), flush=True)
     for c in WIDTHS:

@@ -23,10 +23,19 @@ batches: the losses and accuracies are this rank's shares of the global
 masked means, and the gradients and the logged values are summed over the
 ranks before the clip, the non-finite guard and the update, so every rank
 takes the same update.
+
+`shard_state(state, mesh, fsdp)` lays a state out on a (data, model) mesh
+(`parallel/mesh.dp_tp_mesh`), as the JAX trainer's `shard_state` and
+`jit_train_step(mesh, fsdp)` do: Megatron tensor parallelism over the model
+axis (`parallel/tensor.py`), data parallelism over the data axis, and with
+`fsdp` ZeRO-3 over the data axis (`parallel/fsdp.py`). `train_step` then
+runs the step on the union of the data ranks' batches; the parameters and
+Adam moments stay laid out from step to step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -35,7 +44,12 @@ from torch import nn
 from torch.func import functional_call
 
 from dmel_codec_tpu_torch.models.lm import IGNORE_INDEX, ChatMusicLM, SlowFastLMConfig
-from dmel_codec_tpu_torch.parallel.mesh import DataParallel, global_batch, global_count
+from dmel_codec_tpu_torch.parallel.fsdp import GatherOnUse
+from dmel_codec_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, DataParallel, ParamLayout, axis_group, axis_size, global_batch, global_count,
+    lm_param_shardings, shard_lm_params,
+)
+from dmel_codec_tpu_torch.parallel.tensor import check_whole_heads, set_model_groups, vocab_parallel_rank
 from dmel_codec_tpu_torch.train.lora import (
     LoRAConfig,
     init_lora,
@@ -43,7 +57,7 @@ from dmel_codec_tpu_torch.train.lora import (
     loss_and_grads_lora,
     merge_lora,
 )
-from dmel_codec_tpu_torch.train.optim import AccumulatingAdamW, copy_into, detached, global_norm
+from dmel_codec_tpu_torch.train.optim import AccumulatingAdamW, copy_into, detached
 from dmel_codec_tpu_torch.train.schedule import cosine_schedule_with_warmup
 
 BATCH_KEYS = ("text_tokens", "audio_tokens", "text_labels", "audio_labels", "valid")
@@ -84,24 +98,29 @@ def topk_accuracy(
     labels: torch.Tensor,
     ks: Sequence[int],
     ignore_ids: Sequence[int] = (IGNORE_INDEX,),
+    vocab_group=None,
 ) -> Dict[int, torch.Tensor]:
     """Shifted next-token top-k accuracy. logits [..., S, V], labels
     [..., S]. A label counts as a hit at k when fewer than k logits come
     before it in a stable descending order (ties go to the lower index, as
     `jax.lax.top_k` breaks them). Inside a data-parallel step the valid
-    labels are counted over every rank (this rank's share of the accuracy)."""
+    labels are counted over every rank (this rank's share of the accuracy).
+    With `vocab_group` the logits are this rank's slice of the vocabulary."""
     logits = logits[..., :-1, :]
     labels = labels[..., 1:]
-    vocab = logits.shape[-1]
+    vocab = logits.shape[-1] * (1 if vocab_group is None else torch.distributed.get_world_size(vocab_group))
     valid = torch.ones_like(labels, dtype=torch.bool)
     for ig in ignore_ids:
         valid &= labels != ig
     n_valid = global_count(valid.sum()).clamp(min=1)
     in_range = (labels >= 0) & (labels < vocab)
-    lab = labels.clamp(0, vocab - 1)[..., None]
-    lab_logit = logits.gather(-1, lab)
-    index = torch.arange(vocab, device=logits.device)
-    rank = ((logits > lab_logit) | ((logits == lab_logit) & (index < lab))).sum(-1)
+    if vocab_group is not None:
+        rank = vocab_parallel_rank(logits, labels.clamp(0, vocab - 1), vocab_group)
+    else:
+        lab = labels.clamp(0, vocab - 1)[..., None]
+        lab_logit = logits.gather(-1, lab)
+        index = torch.arange(vocab, device=logits.device)
+        rank = ((logits > lab_logit) | ((logits == lab_logit) & (index < lab))).sum(-1)
     return {k: ((rank < k) & valid & in_range).sum() / n_valid for k in ks}
 
 
@@ -179,6 +198,8 @@ class LMTrainer:
         self.config = train_config
         self.device = torch.device(device)
         self.data_parallel: Optional[DataParallel] = None  # set by the fit loop under a process group
+        self.layout: Optional[ParamLayout] = None  # set by shard_state
+        self._fsdp: Optional[GatherOnUse] = None  # set by shard_state(fsdp=True)
         with torch.device(self.device):
             self.model = ChatMusicLM(lm_config)
         self.model.train()
@@ -193,7 +214,7 @@ class LMTrainer:
         """`adapter=True`: LoRA a/b matrices get NO weight decay (decaying
         `a` while b == 0 shrinks the init with zero loss signal)."""
         decay = {name: False for name in params} if adapter else _decay_mask(params)
-        return AccumulatingAdamW(params, decay, self.config, self.schedule)
+        return AccumulatingAdamW(params, decay, self.config, self.schedule, layout=None if adapter else self.layout)
 
     def init_params(self, seed: int = 0) -> Dict[str, torch.Tensor]:
         """The model's parameters, re-initialised from `seed` (no optimizer
@@ -204,6 +225,37 @@ class LMTrainer:
     def init_state(self, seed: int = 0) -> LMTrainState:
         params = self.init_params(seed)
         return LMTrainState(step=0, params=params, opt_state=self.make_optimizer(params))
+
+    def shard_state(self, state: LMTrainState, mesh, fsdp: bool = False) -> LMTrainState:
+        """Lay `state` (this trainer's full state) out on `mesh`, a
+        `DeviceMesh` with a "data" and / or a "model" axis: the parameters
+        become this rank's pieces (`parallel/mesh.lm_param_shardings`:
+        Megatron's split over the model axis, with `fsdp` ZeRO-3 over the
+        data axis too) and the trainer's own parameters, the attention, MLP
+        and head modules run on them with the model group's collectives, and
+        the data axis becomes `data_parallel`. The optimizer is built anew
+        on the pieces (the JAX trainer re-initialises it under jit), so the
+        Adam moments take the same layout. Raises when the model axis would
+        cut a head."""
+        if self.layout is not None:
+            raise RuntimeError("this trainer's state is laid out on a mesh already")
+        names = mesh.mesh_dim_names or ()
+        if MODEL_AXIS in names:
+            check_whole_heads(self.lm_config, axis_size(mesh, MODEL_AXIS))
+        specs = lm_param_shardings(state.params, mesh, fsdp=fsdp)
+        pieces = shard_lm_params(state.params, mesh, specs=specs)
+        modules = dict(self.model.named_modules())
+        for name, piece in pieces.items():
+            owner, _, attr = name.rpartition(".")
+            setattr(modules[owner], attr, nn.Parameter(piece))
+        self.layout = ParamLayout(mesh, specs)
+        if MODEL_AXIS in names:
+            set_model_groups(self.model, specs, self.layout.model_group)
+        if fsdp:
+            self._fsdp = GatherOnUse(self.model, specs, self.layout.data_group)
+        self.data_parallel = DataParallel(axis_group(mesh, DATA_AXIS)) if DATA_AXIS in names else None
+        params = dict(self.model.named_parameters())
+        return LMTrainState(step=state.step, params=params, opt_state=self.make_optimizer(params))
 
     def device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """A host batch (numpy arrays or tensors) on the trainer's device,
@@ -220,10 +272,11 @@ class LMTrainer:
         gradients of the loss with respect to those tensors:
         ((loss, out), grads)."""
         named = {f"lm.{k}": v for k, v in params.items()}
-        if wrt is None:
-            out = functional_call(self._loss_module, named, (batch,))
-            return out["loss"], out
-        out, grads = functional_call(self._loss_module, named, (batch, wrt))
+        with self._fsdp.saved_tensors_freed() if self._fsdp is not None else contextlib.nullcontext():
+            if wrt is None:
+                out = functional_call(self._loss_module, named, (batch,))
+                return out["loss"], out
+            out, grads = functional_call(self._loss_module, named, (batch, wrt))
         return (out["loss"], out), grads
 
     def _depth_labels(self, batch) -> torch.Tensor:
@@ -243,23 +296,28 @@ class LMTrainer:
             self._depth_labels(batch),
             self.config.topk,
             ignore_ids=(IGNORE_INDEX, self.lm_config.slow_audio_pad_id),
+            vocab_group=self.model.vocab_groups["audio_head"],
         )
         return {f"{prefix}/audio_top{k}_acc": v for k, v in acc.items()}
 
-    def _train_metrics(self, step: int, loss, out, grads, accuracy=None) -> Dict[str, Any]:
+    def _train_metrics(self, step: int, loss, out, grads, opt_state: AccumulatingAdamW, accuracy=None) -> Dict[str, Any]:
         """The step's metrics. Under data parallelism the gradients are first
-        summed over the ranks IN PLACE (the update takes them so), and the
-        losses and accuracies, this rank's shares, are summed too."""
+        summed over the ranks IN PLACE (the update takes them so; a shard of
+        a leaf cut over the data axis comes summed from its reduce-scatter),
+        and the losses and accuracies, this rank's shares, are summed too."""
         shares = {
             "train/loss": loss.detach(),
             "train/text_loss": out["text_loss"].detach(),
             "train/audio_loss": out["audio_loss"].detach(),
         } | (accuracy or {})
         if self.data_parallel is not None:
-            self.data_parallel.sum_(grads)
+            if self.layout is None:
+                self.data_parallel.sum_(grads)
+            else:
+                self.data_parallel.sum_([g for n, g in zip(opt_state.names, grads) if not self.layout.data_sharded(n)])
             shares = self.data_parallel.sum_metrics(shares)
         return {
-            "train/grad_norm": global_norm(grads),
+            "train/grad_norm": opt_state.global_norm(grads),
             **shares,
             "train/lr": self.schedule(step // max(1, self.config.accumulate_grad)),
         }
@@ -279,7 +337,7 @@ class LMTrainer:
         with global_batch(self.data_parallel):
             (loss, out), grads = self.loss_fn(state.params, batch, wrt=list(state.params.values()))
             accuracy = self._audio_accuracy(out, batch, "train")
-        metrics = self._train_metrics(state.step, loss, out, grads, accuracy)
+        metrics = self._train_metrics(state.step, loss, out, grads, state.opt_state, accuracy)
         del out
         state.opt_state.update(grads)
         state.step += 1
@@ -301,6 +359,8 @@ class LMTrainer:
         """Base params (frozen) + adapters with b = 0: the merged model
         starts exactly at the base model. Pass `base_params` to finetune
         from loaded weights (e.g. the Qwen2 foundation)."""
+        if self.layout is not None:
+            raise RuntimeError("LoRA finetuning runs on a trainer whose state is not laid out on a mesh")
         self.lora_config = lora_config or LoRAConfig()
         base = base_params if base_params is not None else self.init_params(seed)
         gen = torch.Generator(device=self.device).manual_seed(seed + 1)
@@ -317,7 +377,7 @@ class LMTrainer:
                 self.loss_fn, state.base_params, state.lora, self.lora_config, batch
             )
         flat = list(lora_leaves(grads).values())
-        metrics = self._train_metrics(state.step, loss, out, flat)
+        metrics = self._train_metrics(state.step, loss, out, flat, state.opt_state)
         del out
         state.opt_state.update(flat)
         state.step += 1

@@ -35,11 +35,17 @@ class AccumulatingAdamW:
         parameters follow at the cycle's emitting micro-step).
     `torch.optim.AdamW` is optax's `adamw`: decay decoupled and times the
     scheduled lr, eps outside the root after bias correction. Parameters
-    are updated in place."""
+    are updated in place.
 
-    def __init__(self, params: Dict[str, torch.Tensor], decay: Dict[str, bool], config, schedule):
+    With `layout` (a `parallel.mesh.ParamLayout`: the parameters are this
+    rank's shards) the clip's norm is the whole tree's and the non-finite
+    guard decides once for every rank of the mesh, so that all ranks take
+    the same update or skip the same micro-step."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], decay: Dict[str, bool], config, schedule, layout=None):
         self.config = config
         self.schedule = schedule
+        self.layout = layout
         self.names = list(params)
         self.params = [params[n] for n in self.names]
         groups = [
@@ -65,7 +71,10 @@ class AccumulatingAdamW:
         grads = list(grads)
         limit = self.config.skip_nonfinite_updates
         if limit > 0:
-            finite = bool(torch.stack([torch.isfinite(g).all() for g in (*grads, *watch)]).all())
+            if self.layout is not None:
+                finite = self.layout.all_finite([*grads, *watch])
+            else:
+                finite = bool(torch.stack([torch.isfinite(g).all() for g in (*grads, *watch)]).all())
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
             self.total_notfinite += 0 if finite else 1
             if not (finite or self.notfinite_count > limit):
@@ -80,7 +89,7 @@ class AccumulatingAdamW:
             if not emit:
                 return
             grads = self.acc_grads
-        norm = float(global_norm(grads))
+        norm = float(self.global_norm(grads))
         if not norm < self.config.grad_clip:
             torch._foreach_div_(grads, norm)
             torch._foreach_mul_(grads, self.config.grad_clip)
@@ -95,6 +104,12 @@ class AccumulatingAdamW:
         self.gradient_step += 1
         if self.acc_grads is not None:
             torch._foreach_zero_(self.acc_grads)
+
+    def global_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The norm of the whole tree of `grads` (in the parameters' order)."""
+        if self.layout is not None:
+            return self.layout.global_norm(self.names, grads)
+        return global_norm(grads)
 
     def state_dict(self) -> dict:
         acc = None

@@ -72,10 +72,11 @@ def _port() -> int:
         return s.getsockname()[1]
 
 
-def start_ranks(tmp_path: Path, job: dict, world: int = 2, env: dict | None = None):
-    """Start `job` on `world` gloo ranks; returns a function that waits for
-    them (the test works on its side meanwhile) and gives each rank's
-    output dict."""
+def start_ranks(tmp_path: Path, job: dict, world: int = 2, env: dict | None = None,
+                worker: str = "tests.torch_dp_worker", timeout: float = RANK_TIMEOUT):
+    """Start `job` on `world` gloo ranks, each a `python -m WORKER JOB RANK`
+    process; returns a function that waits for them (the test works on its
+    side meanwhile) and gives each rank's output dict."""
     job = dict(job, world=world, port=_port())
     torch.save(job, tmp_path / "job.pt")
     base = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
@@ -83,10 +84,10 @@ def start_ranks(tmp_path: Path, job: dict, world: int = 2, env: dict | None = No
     for rank in range(world):
         rank_env = dict(base, **{k: v.format(rank=rank, port=job["port"]) for k, v in (env or {}).items()})
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "tests.torch_dp_worker", str(tmp_path / "job.pt"), str(rank)],
+            [sys.executable, "-m", worker, str(tmp_path / "job.pt"), str(rank)],
             cwd=ROOT, env=rank_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
-    deadline = time.monotonic() + RANK_TIMEOUT
+    deadline = time.monotonic() + timeout
 
     def wait() -> list:
         outputs = []
@@ -97,7 +98,7 @@ def start_ranks(tmp_path: Path, job: dict, world: int = 2, env: dict | None = No
             for p in procs:
                 p.kill()
                 p.communicate()
-            pytest.fail(f"a rank did not finish within {RANK_TIMEOUT} s (a hang in a collective?)")
+            pytest.fail(f"a rank did not finish within {timeout} s (a hang in a collective?)")
         for rank, (p, out) in enumerate(zip(procs, outputs)):
             assert p.returncode == 0, f"rank {rank} exited {p.returncode}:\n{out[-3000:]}"
         return [torch.load(tmp_path / f"out_{rank}.pt", weights_only=False) for rank in range(world)]

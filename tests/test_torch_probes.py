@@ -175,6 +175,19 @@ def test_roll_is_not_the_slice_sum():
     assert torch.equal(sliced[0], x[0] + x[1] + x[3] + x[5] + x[7] + x[9])
 
 
+@pytest.mark.parametrize("planes", [1, 3])
+def test_roll_library_call_is_p3(planes):
+    """P3's yardstick, one depthwise circular `nn.Conv1d` with 0/1 taps and
+    P3's rows a view of its output, within `LIBRARY_TOL` of the plain P3."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((planes, sublane_ops.ROWS, sublane_ops.LANES))
+                         .astype(np.float32))
+    with torch.no_grad():
+        got = sublane_ops.roll_library("cpu")(x.transpose(1, 2).contiguous())[..., : sublane_ops.OUT_ROWS]
+    want = sublane_ops.roll_reference(x)
+    torch.testing.assert_close(got.transpose(1, 2), want, rtol=0,
+                               atol=sublane_ops.LIBRARY_TOL * max(1.0, float(want.abs().max())))
+
+
 def test_rows_take_a_planes_axis_and_other_sizes():
     x = torch.from_numpy(np.random.default_rng(4).standard_normal((3, 50, 7)).astype(np.float32))
     for fn in (sublane_ops.slice_rows, sublane_ops.roll_rows):
@@ -293,14 +306,16 @@ def test_bounds_count_this_shape():
 
 # ---- the port's standing rules ----------------------------------------------------
 
-PORT_FILES = sorted((ROOT / "dmel_codec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "dmel_codec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tests").glob("torch_*_worker.py")))
 FORBIDDEN = ("jax", "flax", "optax", "dmel_codec_tpu", "scripts")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_no_jax(path):
-    """No module of the port, and not `chip_smoke.py`, imports jax, flax,
-    optax, the JAX package or `scripts/` (anywhere: function bodies too)."""
+    """No module of the port, not `chip_smoke.py` and no test worker
+    (`tests/torch_*_worker.py`) imports jax, flax, optax, the JAX package or
+    `scripts/` (anywhere: function bodies too)."""
     for node in ast.walk(ast.parse(path.read_text())):
         names = []
         if isinstance(node, ast.Import):
