@@ -116,10 +116,15 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      P4 (11-tap conv as a tap matmul: wgmma where the shape allows, else
      mma.sync) against their plain versions at every shape, window, width
      (P4: C = 96 and 192) and plane count the probes' tables time and at
-     ragged ones, P1 against K1 in the interior, then the probes' own
-     checks and tables of times (P4's launches counted by kernel), bounds
-     and the library calls' times (yardsticks only: P2 one depthwise
-     F.conv1d, P3 one depthwise circular nn.Conv1d, P4 one F.conv1d);
+     ragged ones (P1: odd C, T of 7..257 around a unit, tasks of 1, 2 and
+     64 units; P2 / P3: column counts off the float4 path on odd plane
+     counts, rows = out_rows + 9, 4,096 planes), P1 against K1 in the
+     interior, then the probes' own checks and tables of times (P2 / P3
+     per call and on the device in a CUDA graph, the wrapper's host cost
+     part by part; P4's launches counted by kernel), bounds (P1 by bytes,
+     by operations and its SASS issue floor from phase 5) and the library
+     calls' times (yardsticks only: P2 one depthwise F.conv1d, P3 one
+     depthwise circular nn.Conv1d, P4 one F.conv1d);
  21. codec GAN training at full width through `CodecTrainer` (float32,
      B = 16 clips x 4 s from a numpy seed, one clip of half length, given
      decoder noise): 4 checked steps (nine finite metrics, nothing moves at
@@ -329,8 +334,8 @@ TOL_CHUNKED_DECODE, TOL_CHUNKED_STAGE, TOL_CHUNKED_WAVE = 1e-5, 2e-5, 2e-5
 #  P1 f32: sinf and 6-tap sums in another order than the plain version's
 #    sliced sums, ~1e-7 relative per op (K1's 1e-6 would do): 2e-5, the gate
 #    of the JAX probe it replaces. P1 bf16: one bf16 ulp, as K1.
-#  P1 vs K1 beyond 16 samples from the ends, f32: the same helpers in the
-#    same order (measured 0): 2e-5.
+#  P1 vs K1 beyond 16 samples from the ends, f32: the same warp walker
+#    (csrc/snake_units.cuh) in the same order (measured 0): 2e-5.
 #  P2, P3: the plain version's additions in the same order: the same bits.
 #  P4: bf16 operands are exact in float32, so only the order of 11 x C
 #    float32 additions per output differs between the tensor cores and the
@@ -2693,6 +2698,10 @@ def main() -> None:
     p1_cases += [((b, c, t_len), (1, 16, 256, 1000, 4096, cf_act.MAX_WINDOW), (torch.float32, torch.bfloat16))
                  for b, c, t_len in ((1, 5, 1), (3, 7, 37), (2, 3, 700))]
     p1_cases += [((2, 96, 5000), cf_act.WINDOWS, (torch.float32, torch.bfloat16))]
+    # where the warp-unit kernel branches: odd C (rows off 16-byte boundaries), T around one unit of 256
+    # outputs and a 16-byte vector, tasks of one unit (w up to 256), two (257) and 64 (16384)
+    p1_cases += [((2, 5, t_len), (1, 255, 256, 257, cf_act.MAX_WINDOW), (torch.float32, torch.bfloat16))
+                 for t_len in (7, 8, 9, 255, 257)]
     for shape, windows, dts in p1_cases:
         c = shape[1]
         alpha = torch.exp(0.1 * torch.randn(c, device=dev, generator=gen))
@@ -2723,7 +2732,13 @@ def main() -> None:
     for shape, out_rows in (((sublane_ops.ROWS, sublane_ops.LANES), sublane_ops.OUT_ROWS),
                             ((3, sublane_ops.ROWS, sublane_ops.LANES), sublane_ops.OUT_ROWS),
                             ((sublane_ops.FILL_PLANES, sublane_ops.ROWS, sublane_ops.LANES), sublane_ops.OUT_ROWS),
-                            ((2, 50, 33), 17), ((1, 10, 1), 1), ((2, 5000, 300), 1000)):
+                            ((2, 50, 33), 17), ((1, 10, 1), 1), ((2, 5000, 300), 1000),
+                            # where the kernel branches: rows = out_rows + 9, column counts off the float4 path
+                            # and odd plane counts (planes off 16-byte boundaries), a ragged last row tile, and
+                            # 4,096 planes
+                            *(((3, 59, cols), 50) for cols in (1, 2, 3, 5, 300)),
+                            ((3, sublane_ops.OUT_ROWS + 9, sublane_ops.LANES), sublane_ops.OUT_ROWS),
+                            ((4096, sublane_ops.OUT_ROWS + 9, sublane_ops.LANES), sublane_ops.OUT_ROWS)):
         x = torch.randn(shape, device=dev, generator=gen)
         for name, fn, ref in (("P2", sublane_ops.slice_rows, sublane_ops.slice_reference),
                               ("P3", sublane_ops.roll_rows, sublane_ops.roll_reference)):
@@ -2780,35 +2795,11 @@ def main() -> None:
         a = torch.exp(0.1 * torch.randn(p1_shape[1], device=dev, generator=gen))
         p1_plain = cuda_ms(lambda: cf_act.cf_act_reference(x, a, a), 3)
         del x
-        rows_plain, rows_library, roll_library, mm_plain, mm_library = {}, {}, {}, {}, {}
+        rows_plain, mm_plain, mm_library = {}, {}, {}
         for planes in (1, fill):
             x = torch.randn((planes, sublane_ops.ROWS, sublane_ops.LANES), device=dev, generator=gen)
             rows_plain[planes] = {"slice": cuda_ms(lambda: sublane_ops.slice_reference(x), 10),
                                   "roll": cuda_ms(lambda: sublane_ops.roll_reference(x), 10)}
-            # P2's library call: one depthwise float32 conv whose taps are 1 at the offsets, 0 elsewhere,
-            # over the rows P2 reads (P3's rotate has none)
-            span = sublane_ops.OUT_ROWS + sublane_ops.OFFSETS[-1]
-            x_rows = x[:, :span].transpose(1, 2).contiguous()
-            taps = torch.zeros(sublane_ops.LANES, 1, sublane_ops.OFFSETS[-1] + 1, device=dev)
-            taps[:, 0, list(sublane_ops.OFFSETS)] = 1.0
-
-            def rows_conv():
-                return torch.nn.functional.conv1d(x_rows, taps, groups=sublane_ops.LANES)
-
-            rows_library[planes] = cuda_ms(rows_conv, 10)
-            check_close(f"library conv1d vs P2, P = {planes}", rows_conv().transpose(1, 2),
-                        sublane_ops.slice_rows(x), 1e-6)  # six float32 additions in another order
-            del x_rows, taps
-            # P3's library call: one depthwise circular conv with 0/1 taps, P3's rows a view of its output
-            roll_conv, x_cf = sublane_ops.roll_library(dev), x.transpose(1, 2).contiguous()
-
-            def roll_call():
-                return roll_conv(x_cf)[..., : sublane_ops.OUT_ROWS]
-
-            roll_library[planes] = cuda_ms(roll_call, 10)
-            check_close(f"library circular conv1d vs P3, P = {planes}", roll_call().transpose(1, 2),
-                        sublane_ops.roll_reference(x), sublane_ops.LIBRARY_TOL)
-            del roll_conv, x_cf
             for c in sublane_ops.WIDTHS:
                 xb = torch.randn((planes, sublane_ops.MM_ROWS, c), device=dev, generator=gen).to(torch.bfloat16)
                 w_ = torch.randn((c, c), device=dev, generator=gen).to(torch.bfloat16)
@@ -2825,23 +2816,34 @@ def main() -> None:
                             sublane_ops.tap_matmul(xb, w_), 2.0**-7)  # the library rounds its result to bf16
                 del xb, x_cf, kernel
             del x
-    p1_bound = cf_act.bound_ms(p1_shape)
+    # P2's and P3's library calls, timed and held to plain by the probe's own run
+    rows_library = {planes: rows_table[planes]["slice library"] for planes in (1, fill)}
+    roll_library = {planes: rows_table[planes]["roll library"] for planes in (1, fill)}
+    p1_bounds = {"bytes": cf_act.bound_ms(p1_shape), "operations": cf_act.ops_bound_ms(p1_shape)}
+    p1_bound = max(p1_bounds.values())
+    p1_floor = k1_issue["p1"]["ms"]
     mm_bound = {(planes, c): sublane_ops.tap_matmul_bound_ms(planes, c, c)
                 for planes in (1, fill) for c in sublane_ops.WIDTHS}
-    log(f"  P1 {list(p1_shape)} bf16 w = {p1_window}: kernel {cf_table[p1_shape][p1_window]:.4f} ms, K1 "
-        f"{cf_table[p1_shape]['K1']:.4f} ms, plain {p1_plain:.3f} ms, bound {p1_bound:.4f} ms by bytes")
+    p1_ms = cf_table[p1_shape][p1_window]
+    log(f"  P1 {list(p1_shape)} bf16 w = {p1_window}: kernel {p1_ms:.4f} ms, K1 "
+        f"{cf_table[p1_shape]['K1']:.4f} ms, plain {p1_plain:.3f} ms, bound {p1_bounds['operations']:.4f} ms by "
+        f"operations ({p1_bounds['bytes']:.4f} by bytes), issue floor {p1_floor:.4f} ms (its share "
+        f"{p1_floor / p1_ms:.3f}, the bound's {p1_bound / p1_ms:.3f})")
     for planes in (1, fill):
-        log(f"  P = {planes}: P2 {rows_table[planes]['slice']:.4f} ms (plain {rows_plain[planes]['slice']:.4f}, depthwise "
-            f"F.conv1d {rows_library[planes]:.4f}), P3 "
-            f"{rows_table[planes]['roll']:.4f} ms (plain {rows_plain[planes]['roll']:.4f}, depthwise circular "
-            f"nn.Conv1d {roll_library[planes]:.4f}), bound "
-            f"{sublane_ops.rows_bound_ms(planes):.5f} ms by bytes")
+        bound = sublane_ops.rows_bound_ms(planes)
+        log(f"  P = {planes}: P2 {rows_table[planes]['slice']:.5f} ms a call, {rows_table[planes]['slice device']:.5f} "
+            f"on the device (plain {rows_plain[planes]['slice']:.4f}, depthwise F.conv1d {rows_library[planes]:.5f}), "
+            f"P3 {rows_table[planes]['roll']:.5f} a call, {rows_table[planes]['roll device']:.5f} on the device (plain "
+            f"{rows_plain[planes]['roll']:.4f}, depthwise circular nn.Conv1d {roll_library[planes]:.5f}), bound "
+            f"{bound:.5f} ms by bytes; device roofline share P2 {bound / rows_table[planes]['slice device']:.3f}, "
+            f"P3 {bound / rows_table[planes]['roll device']:.3f}")
         for c in sublane_ops.WIDTHS:
             b_ = mm_bound[planes, c]
             log(f"  P = {planes}, C = {c}: P4 {rows_table[planes][f'matmul {c}']:.4f} ms (plain {mm_plain[planes, c]:.4f}, "
                 f"F.conv1d {mm_library[planes, c]:.4f}, which writes bf16 where P4 writes float32), bound "
                 f"{b_['operations']:.5f} ms by operations, {b_['bytes']:.5f} by bytes; roofline share "
                 f"{max(b_.values()) / rows_table[planes][f'matmul {c}']:.3f}")
+    log(f"  P2's wrapper, host us per call: {rows_table['host_us']}")
     log(f"  P4 launches by kernel in the probe's run: {p4_paths}")
 
     # ---- 21. codec GAN training at full width
@@ -3273,9 +3275,9 @@ def main() -> None:
          "variants_ms": {str(list(sh)): row for sh, row in probe_table.items()}},
         {"name": "cf_act_windowed (P1)", "route": "cuda", "source": PROBES_SOURCE,
          "replaces": "scripts/exp_cf_act.py:181", "launches": launches["P1"], "max_abs_err": errs["P1"],
-         "ms": cf_table[p1_shape][p1_window], "plain_ms": p1_plain, "bound_ms": p1_bound, "bound_by": "bytes",
+         "ms": p1_ms, "plain_ms": p1_plain, "bound_ms": p1_bound, "bound_by": max(p1_bounds, key=p1_bounds.get),
          "library_ms": None, "per": f"one launch at {list(p1_shape)} bf16, w = {p1_window}; launches: one run of the probe",
-         "k1_same_ms": cf_table[p1_shape]["K1"],
+         "bytes_bound_ms": p1_bounds["bytes"], "issue_floor_ms": p1_floor, "k1_same_ms": cf_table[p1_shape]["K1"],
          "windows_ms": {str(list(sh)): {str(k_): v_ for k_, v_ in row.items()} for sh, row in cf_table.items()}},
         {"name": "slice_rows (P2)", "route": "cuda", "source": PROBES_SOURCE,
          "replaces": "scripts/exp_sublane_ops.py:63 (k_slice)", "launches": launches["P2"], "max_abs_err": errs["P2"],
@@ -3285,7 +3287,10 @@ def main() -> None:
                        "elsewhere, on the 121 rows P2 reads", "fill_library_ms": rows_library[fill],
          "per": f"one launch on one [{sublane_ops.ROWS}, {sublane_ops.LANES}] float32 plane; launches: one run of the probe",
          "fill_planes": fill, "fill_ms": rows_table[fill]["slice"], "fill_plain_ms": rows_plain[fill]["slice"],
-         "fill_bound_ms": sublane_ops.rows_bound_ms(fill)},
+         "fill_bound_ms": sublane_ops.rows_bound_ms(fill), "device_ms": rows_table[1]["slice device"],
+         "fill_device_ms": rows_table[fill]["slice device"], "host_us": rows_table["host_us"],
+         "ms_is": "per wrapper call (CUDA events around back-to-back calls); device_ms: per launch of 20 in a CUDA "
+                  "graph over 5 rotated input sets"},
         {"name": "roll_rows (P3)", "route": "cuda", "source": PROBES_SOURCE,
          "replaces": "scripts/exp_sublane_ops.py:63 (k_roll)", "launches": launches["P3"], "max_abs_err": errs["P3"],
          "ms": rows_table[1]["roll"], "plain_ms": rows_plain[1]["roll"], "bound_ms": sublane_ops.rows_bound_ms(1),
@@ -3295,7 +3300,8 @@ def main() -> None:
                        "plane; P3's 112 rows a view of its output", "fill_library_ms": roll_library[fill],
          "per": f"one launch on one [{sublane_ops.ROWS}, {sublane_ops.LANES}] float32 plane; launches: one run of the probe",
          "fill_planes": fill, "fill_ms": rows_table[fill]["roll"], "fill_plain_ms": rows_plain[fill]["roll"],
-         "fill_bound_ms": sublane_ops.rows_bound_ms(fill)},
+         "fill_bound_ms": sublane_ops.rows_bound_ms(fill), "device_ms": rows_table[1]["roll device"],
+         "fill_device_ms": rows_table[fill]["roll device"]},
         {"name": "tap_matmul (P4)", "route": "cuda", "source": PROBES_SOURCE,
          "replaces": "scripts/exp_sublane_ops.py:80", "launches": launches["P4"], "max_abs_err": errs["P4"],
          "ms": rows_table[1]["matmul 96"], "plain_ms": mm_plain[1, 96], "bound_ms": max(mm_bound[1, 96].values()),

@@ -7,23 +7,37 @@
 // roll_reference and tap_matmul_reference beside the wrappers.
 //
 // P1 dmel_cf_act: one anti-aliased snake on channels-first [B, C, T] with
-//   interior semantics (x replicate-clamped, no post-snake edge rule), and
-//   the time tile `w` as a run-time argument: the probe of K1's tiling.
-//   Bound: bytes (one element in, one out per sample, ~58 flops and two
-//   sinf). One block = (window of w samples, tile of channels, batch row);
-//   it stages x[t0-8, t0+w+8) of its channels in shared memory as float32,
-//   then both snake phases at [t0-3, t0+w+3), then the down FIR. Shared
-//   memory (12 w + 112 bytes per channel) decides how many channels a
-//   block takes: 73 at w = 256, 4 at w = 4096.
+//   interior semantics (x replicate-clamped, no post-snake edge rule),
+//   float32 taps and v in both dtypes, and the window `w` as a run-time
+//   argument: the probe of K1's tiling. Bound: instruction issue, as K1's
+//   (probes/k1_floor.py counts both from the SASS); on paper by operations
+//   (24 FIR FMAs, the gain, two snakes and two sines per output sample at
+//   the float32 rate) ahead of bytes. Design: K1's (snake_units.cuh) without
+//   its edge rule and v rounding: warps walk tasks of 256-output units of a
+//   row, 8 outputs a lane, 16-byte loads and stores on each row's aligned
+//   body and element by element at its head and tail, register windows
+//   filled by shuffles, the down FIR a unit late, sin_reduced under a
+//   warp-uniform test with sinf's slow path out of line, a grid-stride loop
+//   over as many blocks as the card holds (3 of 256 threads an SM). A task
+//   spans ceil(w / 256) units of a row, so w still sets the tiling and the
+//   result does not depend on it. No shared memory, no barrier. The sums run
+//   in the first-port design's order and sin_reduced has sinf's bits, so
+//   the outputs keep that design's bits.
 // P2 dmel_rows_slice / P3 dmel_rows_roll: y[i] = sum over off in
 //   (0, 1, 3, 5, 7, 9) of x[i + off] (P2, misaligned row reads) or of
 //   x[(i - off) mod rows] (P3, np.roll's whole-plane rotate), i < out_rows,
-//   on [P, rows, cols] float32 planes. Bound: bytes. The TPU kernels held
-//   the whole plane in VMEM and P3 rotated all of it; here a block stages
-//   only the out_rows + 9 rows its outputs read (P3: the last 9 rows of the
-//   plane first, by modular index, then the leading rows) and every thread
-//   sums six rows of shared memory at the odd offsets, in the TPU kernels'
-//   order of additions, so the results agree to the bit.
+//   on [P, rows, cols] float32 planes. Bound: bytes (the out_rows + 9 rows
+//   a plane's result reads, once, and the result). The TPU kernels held the
+//   whole plane in VMEM and P3 rotated all of it. Here a thread owns 16
+//   bytes of columns (a float4) and 16 consecutive output rows: it loads
+//   the 25 rows those read (P3: by modular index) as float4s on the
+//   read-only path, all before its first sum, adds in the order of OFFSETS
+//   (the plain version's bits) and stores float4s. Threads run over (row
+//   tile, column vector, plane) in one flat grid of 64-thread blocks, so one
+//   plane spreads over several SMs; neighbouring row tiles share 9 rows
+//   through L1 / L2. Where cols is no multiple of 4 or x or y is off a
+//   16-byte boundary, the same kernel takes one float a thread. No shared
+//   memory.
 // P4 dmel_tap_matmul: y = sum_{i < taps} x[step*i : step*i + M, :] @ w, an
 //   11-tap conv in tap-matmul form, bf16 operands, float32 accumulation.
 //   Bound at the probe's shapes: operations on the tensor cores for the
@@ -59,7 +73,7 @@
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "snake_units.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -77,109 +91,105 @@ using dmel::wgmma_wait;
 constexpr int SMEM = 227 * 1024;  // dynamic shared memory one block may ask for on sm_90
 
 // ---- P1 -------------------------------------------------------------------
-constexpr int P1_THREADS = 512;
-constexpr int XH = 8;  // input halo per side (the chain reaches 6)
-constexpr int VH = 3;  // half-rate snake halo per side
-
-__host__ __device__ constexpr int p1_floats_per_channel(int w) {
-  return (w + 2 * XH) + 2 * (w + 2 * VH);
+// K1's warps over register windows (snake_units.cuh) with P1's contract:
+// interior semantics, float32 taps and v; alpha and 1 / (beta + eps) as
+// they are used, one load of each per task.
+template <bool BF16>
+__global__ void __launch_bounds__(dmel::units::THREADS, dmel::units::MIN_BLOCKS)
+cf_act_kernel(const void* __restrict__ x, void* __restrict__ y, const float* __restrict__ alpha,
+              const float* __restrict__ inv_beta, int C, int n_rows, dmel::units::Plan pl, dmel::Taps taps) {
+  dmel::units::walk<dmel::units::FULL, BF16, false, false>(x, y, alpha, inv_beta, C, n_rows, pl, taps);
 }
 
-__global__ void __launch_bounds__(P1_THREADS)
-cf_act_kernel(const void* __restrict__ x, void* __restrict__ y, const float* __restrict__ alpha,
-              const float* __restrict__ inv_beta, int C, int T, int w, int ct, int bf16,
-              dmel::Taps taps) {
-  extern __shared__ float smem[];
-  const int nx = w + 2 * XH, nv = w + 2 * VH;
-  float* xs = smem;            // [ct][nx]
-  float* ve = xs + ct * nx;    // [ct][nv]
-  float* vo = ve + ct * nv;    // [ct][nv]
-
-  const int t0 = blockIdx.x * w;
-  const int c0 = blockIdx.y * ct;
-  const int nc = min(ct, C - c0);
-  const long long plane = (static_cast<long long>(blockIdx.z) * C + c0) * T;
-  const int xbase = t0 - XH;
-
-  for (int idx = threadIdx.x; idx < nc * nx; idx += P1_THREADS) {
-    const int c = idx / nx, i = idx - c * nx;
-    xs[idx] = dmel::load_f(x, plane + static_cast<long long>(c) * T + dmel::clampi(xbase + i, 0, T - 1), bf16);
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < nc * nv; idx += P1_THREADS) {
-    const int c = idx / nv, i = idx - c * nv;
-    const int s = t0 - VH + i;
-    const float a = alpha[c0 + c], ib = inv_beta[c0 + c];
-    const float* row = xs + c * nx;
-    ve[idx] = dmel::snake(dmel::up_even(row, xbase, s, taps), a, ib);
-    vo[idx] = dmel::snake(dmel::up_odd(row, xbase, s, taps), a, ib);
-  }
-  __syncthreads();
-
-  const int nt = min(w, T - t0);
-  for (int idx = threadIdx.x; idx < nc * w; idx += P1_THREADS) {
-    const int c = idx / w, i = idx - c * w;
-    if (i < nt) {
-      dmel::store_f(y, plane + static_cast<long long>(c) * T + t0 + i,
-                    dmel::down(ve + c * nv + i, vo + c * nv + i, taps), bf16);
-    }
-  }
+template <bool BF16>
+int launch_cf_act(const void* x, void* y, const float* alpha, const float* inv_beta, int B, int C, int T, int w,
+                  const dmel::Taps& taps, cudaStream_t stream) {
+  using namespace dmel::units;
+  const long long n_rows = static_cast<long long>(B) * C;
+  if (n_rows >= MAX_ROWS) return static_cast<int>(cudaErrorInvalidValue);
+  Plan pl = make_plan(x, y, T, BF16 ? 2 : 4);
+  pl.segu = (w + UNIT - 1) / UNIT;  // the window: the span of a row one task covers, in whole units
+  static const long long cap = resident_blocks(cf_act_kernel<BF16>, 0);
+  const int grid = grid_of(pl, n_rows, cap);
+  cf_act_kernel<BF16><<<grid, THREADS, 0, stream>>>(x, y, alpha, inv_beta, C, static_cast<int>(n_rows), pl, taps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- P2, P3 ---------------------------------------------------------------
-constexpr int ROWS_THREADS = 256;
+constexpr int ROWS_THREADS = 64;
+constexpr int ROWS_R = 16;  // output rows per thread
 constexpr int NOFF = 6;
 constexpr int MAXOFF = 9;
-__constant__ int OFFS[NOFF] = {0, 1, 3, 5, 7, 9};
 
-template <bool ROLL>
+// OFFSETS = (0, 1, 3, 5, 7, 9)
+__host__ __device__ constexpr int offset(int k) { return k == 0 ? 0 : 2 * k - 1; }
+
+__device__ __forceinline__ float4 ldg(const float4* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float4 add(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+
+// One thread: a column vector c (V = float4: 4 columns; float: 1) of rows
+// [i0, i0 + ROWS_R) of one plane. Its window w[j] holds plane row i0 + j
+// (slice) or (i0 - 9 + j) mod rows (roll), all loaded before any sum.
+template <bool ROLL, typename V>
 __global__ void __launch_bounds__(ROWS_THREADS)
-rows_kernel(const float* __restrict__ x, float* __restrict__ y, int rows, int cols, int out_rows, int ct) {
-  extern __shared__ float smem[];  // [out_rows + MAXOFF][ct]
-  const int c0 = blockIdx.x * ct;
-  const int nc = min(ct, cols - c0);
-  const float* xp = x + static_cast<long long>(blockIdx.y) * rows * cols + c0;
-  float* yp = y + static_cast<long long>(blockIdx.y) * out_rows * cols + c0;
-  const int ns = out_rows + MAXOFF;
+rows_kernel(const V* __restrict__ x, V* __restrict__ y, int rows, int nv, int out_rows, int tiles,
+            long long total) {
+  const long long idx = static_cast<long long>(blockIdx.x) * ROWS_THREADS + threadIdx.x;
+  if (idx >= total) return;
+  const long long per_plane = static_cast<long long>(tiles) * nv;
+  const long long plane = idx / per_plane;
+  const int rest = static_cast<int>(idx - plane * per_plane);
+  const int tile = rest / nv, c = rest - tile * nv;
+  const int i0 = tile * ROWS_R;
+  const int n = min(ROWS_R, out_rows - i0);  // this thread's output rows
+  const V* xp = x + plane * rows * nv + c;
+  V* yp = y + (plane * out_rows + i0) * nv + c;
 
-  // slice: staged row j is plane row j; roll: plane row (j - MAXOFF) mod rows
-  for (int idx = threadIdx.x; idx < ns * nc; idx += ROWS_THREADS) {
-    const int j = idx / nc, c = idx - j * nc;
-    int r = ROLL ? (j - MAXOFF) % rows : j;
-    if (r < 0) r += rows;
-    smem[j * ct + c] = xp[static_cast<long long>(r) * cols + c];
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < out_rows * nc; idx += ROWS_THREADS) {
-    const int i = idx / nc, c = idx - i * nc;
-    float acc = 0.f;
+  V w[ROWS_R + MAXOFF];
 #pragma unroll
-    for (int k = 0; k < NOFF; ++k) {
-      const int j = ROLL ? i + MAXOFF - OFFS[k] : i + OFFS[k];
-      const float v = smem[j * ct + c];
-      acc = k == 0 ? v : acc + v;
+  for (int j = 0; j < ROWS_R + MAXOFF; ++j) {
+    if (j < n + MAXOFF) {
+      int r = ROLL ? i0 - MAXOFF + j : i0 + j;
+      if (ROLL && r < 0) r += rows;
+      w[j] = ldg(xp + static_cast<long long>(r) * nv);
     }
-    yp[static_cast<long long>(i) * cols + c] = acc;
+  }
+#pragma unroll
+  for (int q = 0; q < ROWS_R; ++q) {
+    if (q < n) {
+      // the additions in the order of OFFSETS, as the plain version's
+      V acc = w[ROLL ? q + MAXOFF : q];
+#pragma unroll
+      for (int k = 1; k < NOFF; ++k) acc = add(acc, w[ROLL ? q + MAXOFF - offset(k) : q + offset(k)]);
+      yp[static_cast<long long>(q) * nv] = acc;
+    }
   }
 }
 
 template <bool ROLL>
 int launch_rows(const float* x, float* y, int P, int rows, int cols, int out_rows, void* stream) {
-  if (P < 1 || P > 65535 || cols < 1 || out_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (P < 1 || cols < 1 || out_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   // slice reads rows [0, out_rows + 9); roll needs the 9 wrapped rows to be distinct from those
   if (out_rows + MAXOFF > rows) return static_cast<int>(cudaErrorInvalidValue);
-  const int ns = out_rows + MAXOFF;
-  const int ct_max = SMEM / (ns * static_cast<int>(sizeof(float)));
-  if (ct_max < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = (cols + ct_max - 1) / ct_max;
-  const int ct = (cols + tiles - 1) / tiles;
-  const int bytes = ns * ct * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(rows_kernel<ROLL>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rows_kernel<ROLL><<<dim3(tiles, P), ROWS_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      x, y, rows, cols, out_rows, ct);
+  // 16-byte vectors where every row of every plane starts on a 16-byte boundary
+  const bool vec = cols % 4 == 0 && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 == 0;
+  const int nv = vec ? cols / 4 : cols;
+  const int tiles = (out_rows + ROWS_R - 1) / ROWS_R;
+  const long long total = static_cast<long long>(P) * tiles * nv;
+  const long long grid = (total + ROWS_THREADS - 1) / ROWS_THREADS;
+  if (grid > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    rows_kernel<ROLL, float4><<<static_cast<unsigned>(grid), ROWS_THREADS, 0, st>>>(
+        reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y), rows, nv, out_rows, tiles, total);
+  } else {
+    rows_kernel<ROLL, float><<<static_cast<unsigned>(grid), ROWS_THREADS, 0, st>>>(
+        x, y, rows, nv, out_rows, tiles, total);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -445,25 +455,16 @@ int launch_wgmma(const void* x, const void* w, float* y, int P, int rows, int M,
 
 // P1. x, y: [B, C, T] contiguous, float32 (bf16 = 0) or bfloat16 (bf16 = 1);
 // alpha, inv_beta: [C] float32 on the device, used as they are (not
-// log-scale); w: the window length, 1 .. 16384; taps: 12 host floats.
+// log-scale); w: the window length, 1 .. 16384 (a task spans ceil(w / 256)
+// units of 256 outputs); taps: 12 host floats.
 extern "C" int dmel_cf_act(const void* x, void* y, const float* alpha, const float* inv_beta,
                            int B, int C, int T, int w, int bf16, const float* taps, void* stream) {
-  if (B < 1 || B > 65535 || C < 1 || T < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int per_channel = p1_floats_per_channel(w) * static_cast<int>(sizeof(float));
-  const int ct_max = SMEM / per_channel;
-  if (ct_max < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = (C + ct_max - 1) / ct_max;
-  const int ct = (C + tiles - 1) / tiles;
-  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = ct * per_channel;
-  cudaError_t err = cudaFuncSetAttribute(cf_act_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B < 1 || C < 1 || T < 1 || w < 1 || w > 16384) return static_cast<int>(cudaErrorInvalidValue);
   dmel::Taps tp;
   for (int i = 0; i < 12; ++i) tp.f[i] = taps[i];
-  const dim3 grid((T + w - 1) / w, tiles, B);
-  cf_act_kernel<<<grid, P1_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      x, y, alpha, inv_beta, C, T, w, ct, bf16, tp);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_cf_act<true>(x, y, alpha, inv_beta, B, C, T, w, tp, st)
+              : launch_cf_act<false>(x, y, alpha, inv_beta, B, C, T, w, tp, st);
 }
 
 // P2. x: [P, rows, cols] float32, y: [P, out_rows, cols] float32, contiguous;

@@ -13,16 +13,18 @@ columns (not log-scale). These are interior semantics: within 6 samples of
 either end the result differs from `anti_alias_activation` (K1), which
 replicates the POST-snake signal there. On a CPU tensor it runs the plain
 version `cf_act_reference`; on a CUDA tensor it launches kernel P1
-(csrc/probes.cu, `dmel_cf_act`), one block per (window of `w` samples,
-channel tile, batch row), or raises. Any T; no padding of T to a multiple
-of `w`.
+(csrc/probes.cu, `dmel_cf_act`: K1's warps over register windows, a warp
+task spanning `units_per_task(w)` units of 256 outputs of a row), or raises.
+Any T; no padding of T to a multiple of `w`; the result does not depend on
+`w`.
 
     python -m dmel_codec_tpu_torch.probes.cf_act
 
 checks the kernel against its plain version and prints ms per launch at the
 JAX probe's three shapes (bfloat16) for w in (256, 512, 1024, 2048, 4096),
-beside K1 at the same shape and the byte bound. It raises if a window's
-result is more than one bfloat16 ulp from the plain version's.
+beside K1 at the same shape and the bounds by bytes and by operations. It
+raises if a window's result is more than one bfloat16 ulp from the plain
+version's.
 """
 
 from __future__ import annotations
@@ -32,12 +34,21 @@ import torch.nn.functional as F
 
 from dmel_codec_tpu_torch.ops import library
 from dmel_codec_tpu_torch.ops.anti_alias import FILT, anti_alias_activation
-from dmel_codec_tpu_torch.probes.timing import PEAK_BYTES, cuda_ms, require_gpu
+from dmel_codec_tpu_torch.probes.timing import PEAK_BYTES, PEAK_F32, cuda_ms, require_gpu
 
 SHAPES = ((16, 96, 24064), (16, 48, 48128), (16, 24, 96256))  # [B, C, T], the JAX probe's
 WINDOWS = (256, 512, 1024, 2048, 4096)
-MAX_WINDOW = 16384  # one channel's float32 tile of 3 w + 28 values must fit in 227 KB
+MAX_WINDOW = 16384  # a task of at most 64 units of 256 outputs
+UNIT = 256  # outputs a warp computes at once (32 lanes x 8)
 _PAD = 6  # the chain's reach per side
+# float32 operations the function needs per output sample (an FMA counts
+# two): the two 6-tap up FIRs and the 12-tap down FIR (24 FMAs, of which
+# each of the three chains' first is a multiply: 45; the up FIRs' gain of 2
+# goes into their taps, exactly), two snakes (a u, ib s, then s + u by one
+# FMA: 4 each) and two sines at sinf's fast path (the quadrant's multiply,
+# add and subtract, the three-part reduction's 3 FMAs, r^2, one polynomial
+# of 4 FMAs: 18 each)
+FLOPS_PER_SAMPLE = 45 + 2 * 4 + 2 * 18
 
 
 def cf_act_reference(x: torch.Tensor, a_col: torch.Tensor, ib_col: torch.Tensor) -> torch.Tensor:
@@ -57,7 +68,8 @@ def cf_act_reference(x: torch.Tensor, a_col: torch.Tensor, ib_col: torch.Tensor)
 
 
 def cf_act_windowed(x: torch.Tensor, a_col: torch.Tensor, ib_col: torch.Tensor, w: int = 2048) -> torch.Tensor:
-    """[B, C, T] -> [B, C, T]; `w` is the window one block stages."""
+    """[B, C, T] -> [B, C, T]; `w` is the span of a row one warp task
+    covers (in whole units of 256 outputs)."""
     if not 1 <= w <= MAX_WINDOW:
         raise ValueError(f"the window must be 1..{MAX_WINDOW} samples, got {w}")
     if x.device.type == "cpu":
@@ -80,10 +92,23 @@ def cf_act_windowed(x: torch.Tensor, a_col: torch.Tensor, ib_col: torch.Tensor, 
 cf_act_windowed.launches = 0  # P1 launches, counted where the kernel is launched
 
 
+def units_per_task(w: int) -> int:
+    """Units of 256 outputs of a row that one warp task of the kernel spans
+    for window `w`."""
+    return -(-w // UNIT)
+
+
 def bound_ms(shape, itemsize: int = 2) -> float:
     """Least time by bytes: the plane in once and out once."""
     b, c, t = shape
     return 2 * b * c * t * itemsize / PEAK_BYTES * 1e3
+
+
+def ops_bound_ms(shape) -> float:
+    """Least time by operations: FLOPS_PER_SAMPLE per output sample at the
+    float32 rate (67 TFLOP/s)."""
+    b, c, t = shape
+    return FLOPS_PER_SAMPLE * b * c * t / PEAK_F32 * 1e3
 
 
 def _inputs(shape, dtype, device):
@@ -124,13 +149,14 @@ def main() -> dict:
     require_gpu("cf_act")
     print(torch.cuda.get_device_name(0))
     print(f"{'shape':<20}" + "".join(f"{'w=' + str(w):>9}" for w in WINDOWS)
-          + f"{'K1':>9}{'bound':>9}{'max err':>10}   (ms, bf16; err vs plain over the windows)")
+          + f"{'K1':>9}{'bytes':>9}{'ops':>9}{'max err':>10}   (ms, bf16; bounds by bytes and by operations; "
+          "err vs plain over the windows)")
     table = {}
     for shape in SHAPES:
         err = check_windows(shape)
         ms = table[shape] = time_windows(shape)
         print(f"{str(list(shape)):<20}" + "".join(f"{ms[w]:>9.4f}" for w in WINDOWS)
-              + f"{ms['K1']:>9.4f}{bound_ms(shape):>9.4f}{err:>10.2e}", flush=True)
+              + f"{ms['K1']:>9.4f}{bound_ms(shape):>9.4f}{ops_bound_ms(shape):>9.4f}{err:>10.2e}", flush=True)
     return table
 
 

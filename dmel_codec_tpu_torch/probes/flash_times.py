@@ -1,9 +1,12 @@
 """Times of the redesigned kernels at their main-path shapes (the
 flash-attention kernels FA, FA-dKV and FA-dQ at the LM's shapes, P4 at the
 probe's 264 planes at C = 96 and 192, K2's stages s2..s5 and K2-v1's s4
-and s5 of the flagship vocoder in bf16 and float32, and K1 at its three
-shapes, each at a codec request's and a streaming window's shapes), and a
-same-card comparison of two checkouts.
+and s5 of the flagship vocoder in bf16 and float32, K1 at its three
+shapes, each at a codec request's and a streaming window's shapes, the
+probe P1 at its timed shape [16, 96, 24064], w = 2048, in bf16 and
+float32 with K1 at that shape beside it, and P2 / P3 on 1 and 264 planes,
+per call and per launch on the device), and a same-card comparison of two
+checkouts.
 
     python3 -m dmel_codec_tpu_torch.probes.flash_times              # this checkout
     python3 -m dmel_codec_tpu_torch.probes.flash_times --ab OTHER   # OTHER, this, this, OTHER
@@ -16,7 +19,11 @@ through its `ops/flash_attention.py` (`_launch(q, k, v, with_lse)`,
 its `probes/sublane_ops.tap_matmul` (a width that checkout refuses is
 left out), its `ops/stage_fused.amp_stage(x, packed, spec)` and
 `amp_stage_v1(x, packed, spec)` and its
-`ops/anti_alias.anti_alias_activation(x, alpha, beta, logscale)`; the runs
+`ops/anti_alias.anti_alias_activation(x, alpha, beta, logscale)`, its
+`probes/cf_act.cf_act_windowed(x, alpha, inv_beta, w)` and its
+`probes/sublane_ops.slice_rows` / `roll_rows` (per call: CUDA events around
+back-to-back calls; on the device: 20 launches captured in one CUDA graph,
+the input rotated over 5 sets of planes, replayed); the runs
 alternate so that a drift of the card shows as a difference between the
 two runs of one checkout. K2 and K2-v1 are timed in bf16 and in float32
 (the float32 kernels run split-TF32 products on the tensor cores since
@@ -25,7 +32,9 @@ what must not change: hashes of the bf16 FA output and L at [2, 2048], of
 the bf16 FA-dKV and FA-dQ outputs at [2, 2048] and the float32 FA-dKV
 outputs at [2, 1024] (both fed the plain forward's output and L), of the bf16 K2 stage at a window's s3 and the bf16
 K2-v1 stage at a window's s5, and of K1 in float32 and bf16 at s1 and at a
-ragged shape (the same bits in all four runs); and of the float32 FA
+ragged shape, of P1 in bf16 and float32 at its timed shape, and of P2 /
+P3 on 1 and 264 planes (the same bits in all four runs; P2 / P3 also
+equal to their plain versions, or the run raises); and of the float32 FA
 output and L and FA-dQ output at [2, 1024] and the float32 K2 and K2-v1
 stages (the same bits in the two runs of one checkout: these float32
 kernels sum in a fixed order, in another one than before their split-TF32
@@ -64,6 +73,8 @@ V1_BITS = ("window s5", 1, 24, 560 * 256)
 K1_CASES = tuple((f"{what} {name}", b, c, frames * rate) for what, b, frames in (("request", 16, 372), ("window", 1, 560))
                  for name, c, rate in (("act_post", 24, 256), ("s0", 768, 4), ("s1", 384, 16)))
 K1_BITS = (("s1", 2, 384, 5952), ("ragged", 3, 7, 1037))
+P1_SHAPE, P1_WINDOW = (16, 96, 24064), 2048  # the probe P1's timed shape and window
+ROWS_PLANES, ROWS_SETS, ROWS_GRAPH = (1, 264), 5, 20  # P2 / P3: planes; sets and launches of the device timing
 
 
 def digest(*tensors) -> str:
@@ -85,7 +96,7 @@ def time_here(root: Path, reps: int = 20) -> dict:
     from dmel_codec_tpu_torch.ops import flash_attention as fa
     from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation
     from dmel_codec_tpu_torch.ops.stage_fused import StageSpec, amp_stage, amp_stage_v1
-    from dmel_codec_tpu_torch.probes import sublane_ops
+    from dmel_codec_tpu_torch.probes import cf_act, sublane_ops
 
     def cuda_ms(fn, n):  # CUDA events over n launches after one warm-up
         fn()
@@ -97,6 +108,21 @@ def time_here(root: Path, reps: int = 20) -> dict:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / n
+
+    def graph_ms(fn, xs, n, replays=5):  # n launches of fn over the inputs in turn, in one CUDA graph
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            ys = [fn(xs[i % len(xs)]) for i in range(n)]
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        del ys
+        return start.elapsed_time(end) / (replays * n)
 
     assert Path(fa.__file__).resolve().is_relative_to(root.resolve()), fa.__file__
     (root / "build").mkdir(exist_ok=True)
@@ -163,6 +189,29 @@ def time_here(root: Path, reps: int = 20) -> dict:
             for dt in (torch.float32, torch.bfloat16):
                 y = anti_alias_activation(x.to(dt), alpha, beta, True).float().cpu().numpy()
                 out[f"bits K1 {dt} {name} {[b, c, t]}"] = hashlib.sha256(y.tobytes()).hexdigest()
+        x = torch.randn(P1_SHAPE, generator=cpu)
+        alpha, beta = (torch.exp(0.1 * torch.randn(P1_SHAPE[1], generator=cpu)).to("cuda") for _ in range(2))
+        inv_beta = 1.0 / (beta + 1e-9)
+        for dt in (torch.bfloat16, torch.float32):
+            xd = x.to("cuda", dt)
+            tag = f"{'bf16' if dt == torch.bfloat16 else 'float32'} {list(P1_SHAPE)}"
+            out[f"P1 {tag} w = {P1_WINDOW}"] = cuda_ms(lambda: cf_act.cf_act_windowed(xd, alpha, inv_beta, P1_WINDOW),
+                                                       reps)
+            out[f"K1 {tag} (P1's shape)"] = cuda_ms(lambda: anti_alias_activation(xd, alpha, beta, False), reps)
+            out[f"bits P1 {tag} w = {P1_WINDOW}"] = digest(cf_act.cf_act_windowed(xd, alpha, inv_beta, P1_WINDOW))
+        rows_gen = torch.Generator(device="cuda").manual_seed(3)
+        for planes in ROWS_PLANES:
+            xs = [torch.randn((planes, sublane_ops.ROWS, sublane_ops.LANES), device="cuda", generator=rows_gen)
+                  for _ in range(ROWS_SETS)]
+            for name, fn, ref in (("P2", sublane_ops.slice_rows, sublane_ops.slice_reference),
+                                  ("P3", sublane_ops.roll_rows, sublane_ops.roll_reference)):
+                y = fn(xs[0])
+                if not torch.equal(y, ref(xs[0])):
+                    raise AssertionError(f"{name} on {planes} planes differs from its plain version")
+                out[f"bits {name} [{planes} planes]"] = digest(y)
+                out[f"{name} per call [{planes} planes]"] = cuda_ms(lambda: fn(xs[0]), reps)
+                out[f"{name} device per launch [{planes} planes]"] = graph_ms(fn, xs, ROWS_GRAPH)
+            del xs
         torch.save(vocoder_bf16(), root / "build" / "ab_vocoder.pt")
     return out
 

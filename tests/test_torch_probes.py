@@ -70,14 +70,18 @@ def _cf_inputs(shape, seed: int):
 # ---- P1 ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("shape,w,halo", [((2, 24, 4096), 1024, 128), ((1, 5, 700), 256, 128)])
+@pytest.mark.parametrize("shape,w,halo", [((2, 24, 4096), 1024, 128), ((1, 5, 700), 256, 128),
+                                         ((1, 3, 4099), 256, 128), ((2, 5, 257), 256, 128)])
 def test_cf_act_plain_matches_jax_kernel(jax_cf, shape, w, halo):
     """P1's plain version against `cf_act_kernel` in interpret mode, beyond
     16 samples from either end: the JAX kernel uses a fitted sine
     (`_fast_sin`, ~1e-6) where the port uses the accurate one: 2e-5, the JAX
     probe's own gate. At the ends the TPU wrapper's edge padding is the
     port's replicate clamp, so they agree there too, to the same tolerance;
-    T = 700 is no multiple of the window."""
+    T = 700 is no multiple of the window, T = 4099 and 257 leave one sample
+    past a whole number of the kernel's 256-output units (and of the
+    JAX window), where the card's kernel takes its element-by-element
+    tail."""
     x, alpha, beta = _cf_inputs(shape, 0)
     ib = 1.0 / (beta + 1e-9)
     want = np.asarray(jax_cf.cf_act_windowed(
@@ -134,6 +138,26 @@ def test_cf_act_plain_bf16_matches_jax_kernel(jax_cf, shape, w):
     assert np.abs(got - want).max() <= 2.0**-8 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("shape", cf_act.SHAPES)
+def test_cf_act_operation_bound_at_the_probe_shapes(shape):
+    """P1's bound by operations at each of the probe's shapes (36.96 M
+    output samples each): 24 FIR FMAs less the three chains' first, which
+    are multiplies (45; the up FIRs' gain of 2 lies in their taps), two
+    snakes (4 each) and two sines at sinf's fast path (18 each) per sample,
+    89 flops at the float32 rate; above the byte bound in bfloat16."""
+    b, c, t = shape
+    assert b * c * t == 36_962_304
+    assert cf_act.FLOPS_PER_SAMPLE == 89
+    assert cf_act.ops_bound_ms(shape) == pytest.approx(89 * 36_962_304 / 67e12 * 1e3)  # 0.0491 ms
+    assert cf_act.ops_bound_ms(shape) > cf_act.bound_ms(shape)
+
+
+def test_cf_act_window_sets_the_task_span():
+    """The kernel's warp task spans ceil(w / 256) units of 256 outputs: w
+    up to 256 one unit, the probe's 2048 eight, MAX_WINDOW 64."""
+    assert [cf_act.units_per_task(w) for w in (1, 255, 256, 257, 2048, cf_act.MAX_WINDOW)] == [1, 1, 1, 2, 8, 64]
+
+
 @pytest.mark.parametrize("w", [0, cf_act.MAX_WINDOW + 1])
 def test_cf_act_refuses_a_window_it_cannot_stage(w):
     with pytest.raises(ValueError, match="window"):
@@ -163,6 +187,35 @@ def test_rows_plain_equals_jax_kernel(jax_sublane, name):
     ref = {"slice": lambda: sum(x[off : off + 112] for off in sublane_ops.OFFSETS),
            "roll": lambda: sum(np.roll(x, off, 0)[:112] for off in sublane_ops.OFFSETS)}[name]()
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("lanes", [1, 33, 100])
+@pytest.mark.parametrize("name", ["slice", "roll"])
+def test_rows_plain_equals_jax_kernel_on_the_fewest_rows(jax_sublane, name, lanes):
+    """P2 / P3 against `k_slice` / `k_roll` in interpret mode on planes of
+    121 rows, the fewest the JAX kernels read (k_slice reads rows 0..120;
+    k_roll rotates the whole plane, so here its wrap reaches rows 112..120),
+    with column counts the card's kernel takes one float a thread (1, 33)
+    and as float4s (100): the same bits."""
+    x = np.random.default_rng(lanes).standard_normal((sublane_ops.OUT_ROWS + 9, lanes)).astype(np.float32)
+    kern = {"slice": jax_sublane.k_slice, "roll": jax_sublane.k_roll}[name]
+    want = np.asarray(pl.pallas_call(
+        kern, out_shape=jax.ShapeDtypeStruct((sublane_ops.OUT_ROWS, lanes), jnp.float32), interpret=True)(jnp.asarray(x)))
+    fn = {"slice": sublane_ops.slice_rows, "roll": sublane_ops.roll_rows}[name]
+    np.testing.assert_array_equal(fn(torch.from_numpy(x)).numpy(), want)
+
+
+@pytest.mark.parametrize("planes", [1, 3])
+def test_slice_library_call_is_p2(planes):
+    """P2's yardstick, one depthwise `F.conv1d` with 0/1 taps on the rows
+    P2 reads, within `LIBRARY_TOL` of the plain P2."""
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((planes, sublane_ops.ROWS, sublane_ops.LANES))
+                         .astype(np.float32))
+    span = sublane_ops.OUT_ROWS + sublane_ops.OFFSETS[-1]
+    got = sublane_ops.slice_library("cpu")(x[:, :span].transpose(1, 2).contiguous())
+    want = sublane_ops.slice_reference(x)
+    torch.testing.assert_close(got.transpose(1, 2), want, rtol=0,
+                               atol=sublane_ops.LIBRARY_TOL * max(1.0, float(want.abs().max())))
 
 
 def test_roll_is_not_the_slice_sum():
