@@ -3,7 +3,9 @@
 the codec (log-mel -> dMel tokens -> BigVGAN), the slow-fast LM in front of
 it, the codec on long audio, window by window, LM training, codec GAN
 training, the kernel probes, codec evaluation with the codec zoo, the host
-data path and the parallel layer (data, tensor, FSDP, pipeline, sequence).
+data path, the parallel layer (data, tensor, FSDP, pipeline, sequence) and
+the public modules beside the main path (FireflyGAN, the WaveNet diffusion
+pathway, Snake and the resamplers).
 
     python3 chip_smoke.py        # from the root of a checkout; needs one GPU
 
@@ -181,7 +183,15 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      the slow decoder, flash on, against the plain decoder (hidden state,
      gradients, 48 launches of each FA kernel); `time_sharded_encode` /
      `decode` on 2 x 60 s at the flagship codec width against the
-     one-process encode / decode (tokens equal, mel within 1e-5), timed.
+     one-process encode / decode (tokens equal, mel within 1e-5), timed;
+ 27. the public modules beside the main path, float32, on the card against
+     the same seeded weights on the CPU: `FireflyGAN` at the
+     firefly-gan-base defaults (1 x 173 frames checked; 2 x 861 frames of
+     128-band mel, about 20 s of 44.1 kHz audio, timed: seconds of audio
+     per second), `WaveNet(is_diffusion=True)` at the codec decoder's width
+     and depth with a condition and a step t (1 x 375 frames checked,
+     16 x 375 timed), and `Snake`, `UpSample1d` and `DownSample1d` at s1's
+     shape [16, 384, 5952], timed.
 The comparison phases run with TF32 off for cuBLAS and cuDNN, as the entry
 points run (each `main` calls `strict_float32`). The
 line before the last is one JSON object describing the kernels; the last
@@ -1324,6 +1334,121 @@ def parallel_phase(dev, card: str, flash_cfg, train_cfg, batches, plain_losses, 
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     say(f"phase 26 in {out['seconds']:.1f} s")
+    return out
+
+
+# Phase 27, the public modules beside the main path: fish-speech's
+# firefly-gan-base vocoder (`FireflyGAN`), the WaveNet's diffusion-step
+# pathway at the codec decoder's width and depth, and the unfused `Snake`,
+# `UpSample1d` and `DownSample1d` at s1's shape. Each runs on the card and,
+# on the same seeded weights and inputs, on the CPU (float32, TF32 off).
+# Tolerances, relative to max |CPU| (random weights keep the outputs small:
+# FireflyGAN's waveform peaks near 4e-3, the WaveNet's near 5e-2):
+#  FireflyGAN: ~100 float32 convs (ConvNeXt, then 5 HiFiGAN stages) in
+#    cuDNN's summation order against the CPU's, ~1e-7 relative per op: 1e-4,
+#    phase 24's tolerance for the same backbone and head;
+#  WaveNet: 20 gated layers of 700-channel float32 convs: 1e-4;
+#  Snake: sinf against the CPU's sin, one op: 1e-5;
+#  UpSample1d / DownSample1d: one 12-tap depthwise conv: 1e-5.
+FIREFLY_FRAMES, FIREFLY_BATCH, FIREFLY_CHECK_FRAMES, FIREFLY_SR = 861, 2, 173, 44100
+TOL_FIREFLY, TOL_WAVENET, TOL_SNAKE, TOL_RESAMPLE = 1e-4, 1e-4, 1e-5, 1e-5
+S1_SHAPE = (16, 384, 5952)
+
+
+def public_modules_phase(dev, card: str) -> dict:
+    """(a) FireflyGAN at the firefly-gan-base defaults: 2 x 861 frames of
+    128-band mel timed (seconds of audio per second), 1 x 173 frames on the
+    card against the CPU; (b) WaveNet(is_diffusion=True) at the codec
+    decoder's width and depth with a condition and a step t in [0, 1000),
+    B = 1 on the card against the CPU, then B = 16 timed; (c) Snake,
+    UpSample1d and DownSample1d at s1's shape on the card against the CPU,
+    timed."""
+    from dmel_codec_tpu_torch.models import DMelCodecConfig, FireflyGAN
+    from dmel_codec_tpu_torch.nn import DownSample1d, Snake, UpSample1d, WaveNet
+
+    def say(msg: str) -> None:
+        log(f"  [{card}] {msg}")
+
+    def card_vs_cpu(what: str, module: torch.nn.Module, args: tuple, rel: float) -> tuple:
+        """(the card's output, max abs error against the CPU); fails beyond rel * max |CPU|."""
+        with torch.no_grad():
+            want = module(*args)
+            got = copy.deepcopy(module).to(dev)(*(a.to(dev) for a in args))
+        assert got.shape == want.shape and torch.isfinite(got).all(), (what, got.shape, want.shape)
+        err = max_err(got.cpu(), want)
+        scale = want.abs().max().item()
+        say(f"{what}: card vs CPU max abs err {err:.3e} (tol {rel * scale:.3e}, max|CPU| {scale:.3g})")
+        if not err <= rel * scale:
+            raise AssertionError(f"{what}: the card disagrees with the CPU")
+        return got, err
+
+    out = {"card": card}
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(27)
+
+    # ---- (a) FireflyGAN
+    torch.manual_seed(27)
+    firefly = FireflyGAN().eval()
+    with torch.no_grad():
+        for name, p in firefly.named_parameters():
+            if name.endswith("gamma"):  # layer scales spread around 1: their init, 1e-6, would hide the blocks
+                p.copy_(1 + 0.05 * torch.randn(p.shape, generator=gen))
+    mel = torch.randn(1, FIREFLY_CHECK_FRAMES, 128, generator=gen)
+    wave, err = card_vs_cpu(f"FireflyGAN 1 x {FIREFLY_CHECK_FRAMES} frames", firefly, (mel,), TOL_FIREFLY)
+    assert wave.shape == (1, FIREFLY_CHECK_FRAMES * 512) and wave.abs().max().item() > 1e-3
+    on_card = copy.deepcopy(firefly).to(dev)
+    big = torch.randn(FIREFLY_BATCH, FIREFLY_FRAMES, 128, generator=gen).to(dev)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: on_card(big), reps=5)
+    audio_s = FIREFLY_BATCH * FIREFLY_FRAMES * 512 / FIREFLY_SR
+    out["firefly_gan"] = {"check_frames": FIREFLY_CHECK_FRAMES, "max_abs_err": err, "tol": TOL_FIREFLY,
+                          "batch": FIREFLY_BATCH, "frames": FIREFLY_FRAMES, "ms": ms, "audio_s": audio_s,
+                          "audio_s_per_s": audio_s / (ms / 1e3),
+                          "params": sum(p.numel() for p in firefly.parameters())}
+    say(f"FireflyGAN {FIREFLY_BATCH} x {FIREFLY_FRAMES} frames ({audio_s:.2f} s of 44.1 kHz audio): {ms:.3f} ms, "
+        f"{audio_s / (ms / 1e3):.1f} s of audio per s")
+    del firefly, on_card, big
+
+    # ---- (b) WaveNet(is_diffusion=True) at the codec decoder's width and depth
+    ccfg = DMelCodecConfig()
+    c, frames = ccfg.concat_dim, (SECONDS * SR // HOP // 4) * 4
+    wavenet = WaveNet(input_channels=c, output_channels=ccfg.n_mels, residual_channels=c,
+                      residual_layers=ccfg.decoder_layers, condition_channels=c, is_diffusion=True).eval()
+    x, cond = torch.randn(1, c, frames, generator=gen), torch.randn(1, c, frames, generator=gen)
+    t = torch.from_numpy(np.random.default_rng(27).uniform(0, 1000, size=1).astype(np.float32))
+    y, err = card_vs_cpu(f"WaveNet(is_diffusion) {c} x {ccfg.decoder_layers} layers, 1 x {frames} frames, "
+                         f"t = {t.item():.3f}", wavenet, (x, cond, t), TOL_WAVENET)
+    assert y.shape == (1, ccfg.n_mels, frames)
+    on_card = copy.deepcopy(wavenet).to(dev)
+    xb, cb = (torch.randn(BATCH, c, frames, generator=gen).to(dev) for _ in range(2))
+    tb = torch.from_numpy(np.random.default_rng(28).uniform(0, 1000, size=BATCH).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: on_card(xb, cb, tb), reps=5)
+        moved = max_err(on_card(xb, cb, tb), on_card(xb, cb))
+    assert moved > 0.0, "the step t does not reach the output"
+    out["wavenet_diffusion"] = {"channels": c, "layers": ccfg.decoder_layers, "frames": frames, "max_abs_err": err,
+                                "tol": TOL_WAVENET, "batch": BATCH, "ms": ms, "step_moves_output_by": moved}
+    say(f"WaveNet(is_diffusion) {BATCH} x {frames} frames: {ms:.3f} ms; the step moves the output by {moved:.3e}")
+    del wavenet, on_card, xb, cb
+
+    # ---- (c) Snake, UpSample1d and DownSample1d at s1's shape
+    x = torch.randn(*S1_SHAPE, generator=gen)
+    snake = Snake(S1_SHAPE[1], alpha_logscale=True)
+    with torch.no_grad():
+        snake.alpha.copy_(0.3 * torch.randn(S1_SHAPE[1], generator=gen))
+    xd = x.to(dev)
+    for name, module, tol in (("snake", snake, TOL_SNAKE), ("upsample", UpSample1d(2), TOL_RESAMPLE),
+                              ("downsample", DownSample1d(2), TOL_RESAMPLE)):
+        y, err = card_vs_cpu(f"{type(module).__name__} {list(S1_SHAPE)}", module, (x,), tol)
+        on_card = copy.deepcopy(module).to(dev)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: on_card(xd))
+        out[name] = {"shape": list(S1_SHAPE), "out_shape": list(y.shape), "max_abs_err": err, "tol": tol, "ms": ms}
+        say(f"{type(module).__name__} {list(S1_SHAPE)} -> {list(y.shape)}: {ms:.4f} ms")
+    del x, xd
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"phase 27 in {out['seconds']:.1f} s")
     return out
 
 
@@ -3125,6 +3250,9 @@ def main() -> None:
                               counters_fa)
     del parallel_batches
 
+    # ---- 27. the public modules beside the main path: FireflyGAN, the WaveNet diffusion pathway, Snake, resamplers
+    public_modules = public_modules_phase(dev, smi)
+
     kernels = [
         {"name": "anti_alias_activation (K1)", "route": "cuda", "source": K1_SOURCE,
          "replaces": "dmel_codec_tpu/ops/anti_alias.py:521", "launches": launches["K1"],
@@ -3336,7 +3464,8 @@ def main() -> None:
     codec_train_step["state_gib"] = state_gib
     codec_train_step["overfit"] = {"steps": overfit_steps, "seconds": overfit_s, "val_loss": curve}
     print(json.dumps({"kernels": kernels, "train_step": train_step, "codec_train_step": codec_train_step,
-                      "evaluation": evaluation, "host_path": host_path, "parallel": parallel}))
+                      "evaluation": evaluation, "host_path": host_path, "parallel": parallel,
+                      "public_modules": public_modules}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 

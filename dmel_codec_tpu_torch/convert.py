@@ -42,6 +42,14 @@ def _linear(p: dict) -> Dict[str, torch.Tensor]:
     return {"weight": _t(np.asarray(p["kernel"]).T), "bias": _t(p["bias"])}
 
 
+def _dense(p: dict) -> Dict[str, torch.Tensor]:
+    """Dense with or without a bias."""
+    out = {"weight": _t(np.asarray(p["kernel"]).T)}
+    if "bias" in p:
+        out["bias"] = _t(p["bias"])
+    return out
+
+
 def _conv1x1(p: dict) -> Dict[str, torch.Tensor]:
     return {"weight": _t(np.asarray(p["kernel"]).T[:, :, None]), "bias": _t(p["bias"])}
 
@@ -63,9 +71,14 @@ def _wavenet(sd: dict, prefix: str, p: dict) -> None:
     for name in ("input_projection", "skip_projection", "output_projection"):
         if name in p:
             _put(sd, f"{prefix}.{name}.conv", _conv1x1(p[name]))
+    for name in ("mlp_0", "mlp_1"):
+        if name in p:
+            _put(sd, f"{prefix}.{name}", _dense(p[name]))
     i = 0
     while f"layer_{i}" in p:
         lp, out = p[f"layer_{i}"], f"{prefix}.residual_layers.{i}"
+        if "diffusion_projection" in lp:
+            _put(sd, f"{out}.diffusion_projection", _dense(lp["diffusion_projection"]))
         _put(sd, f"{out}.conv_layer.conv", _conv(lp["conv"]))
         _put(sd, f"{out}.output_projection.conv", _conv1x1(lp["output_projection"]))
         if "condition_projection" in lp:
@@ -166,14 +179,6 @@ def codec_train_state_from_jax(trainer, gen_params: dict, disc_params: dict):
     trainer.codec.load_state_dict(codec_state_dict_from_jax(gen_params))
     trainer.discriminator.load_state_dict(discriminator_state_dict_from_jax(disc_params))
     return state
-
-
-def _dense(p: dict) -> Dict[str, torch.Tensor]:
-    """Dense with or without a bias."""
-    out = {"weight": _t(np.asarray(p["kernel"]).T)}
-    if "bias" in p:
-        out["bias"] = _t(p["bias"])
-    return out
 
 
 def decoder_state_dict_from_jax(params: dict, num_layers: int) -> Dict[str, torch.Tensor]:

@@ -35,8 +35,13 @@ class LogMelSpectrogram(torch.nn.Module):
         super().__init__()
         if win_length != n_fft:
             raise NotImplementedError("win_length != n_fft not needed by any config")
+        self.sample_rate = sample_rate
         self.n_fft = n_fft
+        self.win_length = win_length
         self.hop_length = hop_length
+        self.n_mels = n_mels
+        self.f_min = f_min
+        self.f_max = f_max
         self.register_buffer(
             "window", torch.from_numpy(hann_window(win_length)), persistent=False
         )
@@ -46,15 +51,37 @@ class LogMelSpectrogram(torch.nn.Module):
             persistent=False,
         )
 
+    def num_frames(self, num_samples: int) -> int:
+        pad = (self.n_fft - self.hop_length) // 2
+        return 1 + (num_samples + 2 * pad - self.n_fft) // self.hop_length
+
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
         """audio [B, L] or [B, 1, L] -> log-mel [B, frames, n_mels] (float32)."""
-        if audio.dim() == 2:
-            audio = audio[:, None, :]
-        audio = audio.float()
-        pad = (self.n_fft - self.hop_length) // 2
-        audio = F.pad(audio, (pad, pad), mode="reflect")[:, 0, :]
-        frames = audio.unfold(-1, self.n_fft, self.hop_length) * self.window
-        spec = torch.fft.rfft(frames, dim=-1)
-        mag = torch.sqrt(spec.real.square() + spec.imag.square() + _MAG_EPS)
-        mel = mag @ self.mel_basis.T
-        return torch.log(torch.clamp(mel, min=_LOG_CLIP))
+        return log_mel_spectrogram(
+            audio,
+            n_fft=self.n_fft,
+            hop_length=self.hop_length,
+            mel_basis=self.mel_basis,
+            window=self.window,
+        )
+
+
+def log_mel_spectrogram(
+    audio: torch.Tensor,
+    *,
+    n_fft: int,
+    hop_length: int,
+    mel_basis: torch.Tensor,
+    window: torch.Tensor,
+) -> torch.Tensor:
+    """audio [B, L] or [B, 1, L] -> log-mel [B, frames, n_mels] (float32)."""
+    if audio.dim() == 2:
+        audio = audio[:, None, :]
+    audio = audio.float()
+    pad = (n_fft - hop_length) // 2
+    audio = F.pad(audio, (pad, pad), mode="reflect")[:, 0, :]
+    frames = audio.unfold(-1, n_fft, hop_length) * window
+    spec = torch.fft.rfft(frames, dim=-1)
+    mag = torch.sqrt(spec.real.square() + spec.imag.square() + _MAG_EPS)
+    mel = mag @ mel_basis.T.float()
+    return torch.log(torch.clamp(mel, min=_LOG_CLIP))

@@ -306,15 +306,55 @@ def load_torch_checkpoint(path: str, config: BigVGANConfig) -> BigVGAN:
     return model.eval()
 
 
-def from_pretrained(model_dir: str) -> BigVGAN:
-    """A BigVGAN release from a local directory holding `config.json` and
-    `bigvgan_generator.pt`. A hub id is not resolved: nothing is downloaded."""
-    if not os.path.isdir(model_dir):
-        raise FileNotFoundError(
-            f"{model_dir!r} is not a directory; from_pretrained loads a local directory with "
-            "config.json and bigvgan_generator.pt and does not download hub ids"
+def _resolve_pretrained_files(
+    model_id: str,
+    cache_dir: Optional[str] = None,
+    revision: Optional[str] = None,
+    local_files_only: bool = False,
+) -> Tuple[str, str]:
+    """A local directory or a Hugging Face hub id -> (config.json,
+    bigvgan_generator.pt) paths. A hub id resolves through the local hub
+    cache first; only a cache miss tries a download, which
+    `local_files_only=True` forbids. A directory never touches the hub."""
+    if os.path.isdir(model_id):
+        return (
+            os.path.join(model_id, "config.json"),
+            os.path.join(model_id, "bigvgan_generator.pt"),
         )
-    with open(os.path.join(model_dir, "config.json")) as f:
+    try:
+        from huggingface_hub import hf_hub_download
+        from huggingface_hub.utils import LocalEntryNotFoundError
+    except ImportError as e:
+        raise ImportError(
+            f"{model_id!r} is not a directory, and resolving it as a hub id needs "
+            "huggingface_hub, which is not installed"
+        ) from e
+    paths = []
+    for filename in ("config.json", "bigvgan_generator.pt"):
+        kw = dict(revision=revision, cache_dir=cache_dir)
+        try:
+            path = hf_hub_download(model_id, filename, local_files_only=True, **kw)
+        except LocalEntryNotFoundError:
+            if local_files_only:
+                raise
+            path = hf_hub_download(model_id, filename, **kw)
+        paths.append(path)
+    return paths[0], paths[1]
+
+
+def from_pretrained(
+    model_id: str,
+    cache_dir: Optional[str] = None,
+    revision: Optional[str] = None,
+    local_files_only: bool = False,
+) -> BigVGAN:
+    """A BigVGAN release (`config.json` + `bigvgan_generator.pt`) from a local
+    directory or a Hugging Face hub id, resolved as `_resolve_pretrained_files`
+    says."""
+    config_path, weights_path = _resolve_pretrained_files(
+        model_id, cache_dir=cache_dir, revision=revision, local_files_only=local_files_only
+    )
+    with open(config_path) as f:
         h = json.load(f)
     config = BigVGANConfig(
         num_mels=h["num_mels"],
@@ -329,4 +369,4 @@ def from_pretrained(model_dir: str) -> BigVGAN:
         use_bias_at_final=bool(h.get("use_bias_at_final", True)),
         use_tanh_at_final=bool(h.get("use_tanh_at_final", True)),
     )
-    return load_torch_checkpoint(os.path.join(model_dir, "bigvgan_generator.pt"), config)
+    return load_torch_checkpoint(weights_path, config)

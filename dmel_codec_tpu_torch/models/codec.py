@@ -57,6 +57,15 @@ class DMelCodecConfig:
         return math.prod(self.downsample_factor)
 
     @property
+    def frame_rate(self) -> float:
+        return self.sample_rate / self.hop_length / self.downsample_total
+
+    @property
+    def num_codebook_rows(self) -> int:
+        """Rows in the public index layout [B, G*R, L]."""
+        return self.dmel_groups * self.n_codebooks
+
+    @property
     def codebook_size(self) -> int:
         return math.prod(self.levels)
 

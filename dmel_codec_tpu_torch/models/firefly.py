@@ -8,6 +8,8 @@ head (port of `dmel_codec_tpu/models/firefly.py`).
     WN conv_post -> tanh
   * ConvNeXtEncoder: stem conv + LN, LN + 1x1 mid layers, ConvNeXt stages,
     final LN
+  * FireflyGAN: the firefly-gan-base vocoder (ConvNeXt backbone + HiFiGAN
+    head) on the public mel layout [B, T, 128]
   * FireflyArchitecture: the fish-speech codec (log-mel -> ConvNeXt backbone
     -> downsample-FSQ tokens -> HiFiGAN waveform head) with the encode /
     decode surface the reference's evaluation drives
@@ -159,6 +161,38 @@ class ConvNeXtEncoder(nn.Module):
         return self.norm(x)
 
 
+# fish-speech's firefly-gan-base head, shared by the vocoder and the codec
+_BASE_HEAD = HiFiGANConfig(
+    hop_length=512,
+    upsample_rates=(8, 8, 2, 2, 2),
+    upsample_kernel_sizes=(16, 16, 4, 4, 4),
+    num_mels=512,
+    upsample_initial_channel=512,
+    use_template=False,
+    pre_conv_kernel_size=13,
+    post_conv_kernel_size=13,
+)
+
+
+class FireflyGAN(nn.Module):
+    """fish-speech firefly-gan-base: ConvNeXt backbone + HiFiGAN head.
+    mel [B, T, 128] -> waveform [B, T * 512]."""
+
+    def __init__(
+        self,
+        encoder: ConvNeXtEncoderConfig = ConvNeXtEncoderConfig(
+            input_channels=128, depths=(3, 3, 9, 3), dims=(128, 256, 384, 512)
+        ),
+        head: HiFiGANConfig = _BASE_HEAD,
+    ):
+        super().__init__()
+        self.backbone = ConvNeXtEncoder(encoder)
+        self.head = HiFiGANGenerator(head)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        return self.head(self.backbone(mel.transpose(1, 2)))
+
+
 @dataclasses.dataclass(frozen=True)
 class FireflyArchitectureConfig:
     """fish-speech firefly-gan-vq codec sizes (8 groups x ~1k codes, ~21.5 Hz)."""
@@ -170,16 +204,7 @@ class FireflyArchitectureConfig:
     backbone: ConvNeXtEncoderConfig = ConvNeXtEncoderConfig(
         input_channels=160, depths=(3, 3, 9, 3), dims=(128, 256, 384, 512)
     )
-    head: HiFiGANConfig = HiFiGANConfig(
-        hop_length=512,
-        upsample_rates=(8, 8, 2, 2, 2),
-        upsample_kernel_sizes=(16, 16, 4, 4, 4),
-        num_mels=512,
-        upsample_initial_channel=512,
-        use_template=False,
-        pre_conv_kernel_size=13,
-        post_conv_kernel_size=13,
-    )
+    head: HiFiGANConfig = _BASE_HEAD
     fsq_input_dim: int = 512
     fsq_groups: int = 8
     fsq_codebooks: int = 1

@@ -67,3 +67,25 @@ def downsample1d(x: torch.Tensor, filt: torch.Tensor, ratio: int = 2, kernel_siz
     even = kernel_size % 2 == 0
     x = F.pad(x, (kernel_size // 2 - int(even), kernel_size // 2), mode="replicate")
     return F.conv1d(x, _depthwise(filt, x), stride=ratio, groups=x.shape[1])
+
+
+class _Resample1d(torch.nn.Module):
+    def __init__(self, ratio: int = 2, kernel_size: int | None = None):
+        super().__init__()
+        self.ratio = ratio
+        self.kernel_size = int(6 * ratio // 2) * 2 if kernel_size is None else kernel_size
+        self.register_buffer(
+            "filter",
+            torch.from_numpy(kaiser_sinc_filter1d(0.5 / ratio, 0.6 / ratio, self.kernel_size)),
+            persistent=False,
+        )
+
+
+class UpSample1d(_Resample1d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return upsample1d(x, self.filter, self.ratio, self.kernel_size)
+
+
+class DownSample1d(_Resample1d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return downsample1d(x, self.filter, self.ratio, self.kernel_size)

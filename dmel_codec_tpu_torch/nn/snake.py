@@ -31,6 +31,10 @@ def snake_coefficients(
     return alpha, 1.0 / ((alpha if beta is None else beta) + _EPS)
 
 
+def snake(x: torch.Tensor, alpha: torch.Tensor, logscale: bool = False) -> torch.Tensor:
+    return snake_beta(x, alpha, None, logscale)
+
+
 def snake_beta(
     x: torch.Tensor,
     alpha: torch.Tensor,
@@ -41,6 +45,20 @@ def snake_beta(
     alpha, gain = snake_coefficients(alpha, beta, logscale)
     s = torch.sin(x * alpha[:, None])
     return x + gain[:, None] * s * s
+
+
+class Snake(nn.Module):
+    """The plain snake activation with its one parameter `alpha` [features]."""
+
+    def __init__(self, features: int, alpha_logscale: bool = False):
+        super().__init__()
+        self.features = features
+        self.alpha_logscale = alpha_logscale
+        init = torch.zeros if alpha_logscale else torch.ones
+        self.alpha = nn.Parameter(init(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return snake(x, self.alpha, self.alpha_logscale)
 
 
 class SnakeBeta(nn.Module):

@@ -4,8 +4,12 @@ Channels-first [B, C, T], with the original torch reference's module names
 (models/modules/wavenet.py): every projection is a 1x1 `ConvNorm`, so the
 reference's state_dict keys (`residual_layers.{i}.conv_layer.conv.weight`,
 ...) load directly. Gated unit = sigmoid(first half) * tanh(second half);
-the residual is scaled by 1/sqrt(2) and the skip sum by 1/sqrt(L). The
-diffusion-step pathway is not ported: no codec config uses it.
+the residual is scaled by 1/sqrt(2) and the skip sum by 1/sqrt(L).
+
+The diffusion-step pathway (`is_diffusion`, the step `t`) is here as in the
+JAX package, for API completeness: no codec config uses it. Its bias-free
+projections are `nn.Linear`s named after the flax ones (`mlp_0`, `mlp_1`,
+each block's `diffusion_projection`).
 """
 
 from __future__ import annotations
@@ -18,11 +22,21 @@ from torch import nn
 import torch.nn.functional as F
 
 
-def _init(conv: nn.Conv1d) -> nn.Conv1d:
+def _init(layer: nn.Module) -> nn.Module:
     # the JAX package's truncated_normal(stddev=0.02), zero bias
-    nn.init.trunc_normal_(conv.weight, std=0.02, a=-0.04, b=0.04)
-    nn.init.zeros_(conv.bias)
-    return conv
+    nn.init.trunc_normal_(layer.weight, std=0.02, a=-0.04, b=0.04)
+    if layer.bias is not None:
+        nn.init.zeros_(layer.bias)
+    return layer
+
+
+def diffusion_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal step embedding (reference DiffusionEmbedding). t [B] -> [B, dim]."""
+    half = dim // 2
+    k = torch.arange(half, device=t.device, dtype=torch.float32)
+    freqs = torch.exp(math.log(10000.0) / (half - 1) * -k)
+    ang = t.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 class ConvNorm(nn.Module):
@@ -40,17 +54,32 @@ class ConvNorm(nn.Module):
 
 
 class ResidualBlock(nn.Module):
-    def __init__(self, residual_channels: int, dilation: int, condition_channels: Optional[int]):
+    def __init__(
+        self,
+        residual_channels: int,
+        dilation: int,
+        condition_channels: Optional[int],
+        is_diffusion: bool = False,
+    ):
         super().__init__()
         c = residual_channels
+        self.diffusion_projection = _init(nn.Linear(c, c, bias=False)) if is_diffusion else None
         self.conv_layer = ConvNorm(c, 2 * c, kernel_size=3, dilation=dilation)
         self.condition_projection = (
             ConvNorm(condition_channels, 2 * c) if condition_channels is not None else None
         )
         self.output_projection = ConvNorm(c, 2 * c)
 
-    def forward(self, x: torch.Tensor, condition: Optional[torch.Tensor] = None):
-        y = self.conv_layer(x)
+    def forward(
+        self,
+        x: torch.Tensor,
+        condition: Optional[torch.Tensor] = None,
+        diffusion_step: Optional[torch.Tensor] = None,
+    ):
+        y = x
+        if diffusion_step is not None:
+            y = y + self.diffusion_projection(diffusion_step)[:, :, None]
+        y = self.conv_layer(y)
         if self.condition_projection is not None:
             y = y + self.condition_projection(condition)
         gate, filt = torch.chunk(y, 2, dim=1)
@@ -70,10 +99,15 @@ class WaveNet(nn.Module):
         residual_layers: int = 20,
         dilation_cycle: Optional[int] = 4,
         condition_channels: Optional[int] = None,
+        is_diffusion: bool = False,
     ):
         super().__init__()
         c = residual_channels
         self.n_layers = residual_layers
+        self.is_diffusion = is_diffusion
+        if is_diffusion:
+            self.mlp_0 = _init(nn.Linear(c, 4 * c, bias=False))
+            self.mlp_1 = _init(nn.Linear(4 * c, c, bias=False))
         self.input_projection = (
             ConvNorm(input_channels, c)
             if input_channels is not None and input_channels != c
@@ -84,6 +118,7 @@ class WaveNet(nn.Module):
                 c,
                 2 ** (i % dilation_cycle) if dilation_cycle else 1,
                 condition_channels,
+                is_diffusion,
             )
             for i in range(residual_layers)
         )
@@ -94,12 +129,23 @@ class WaveNet(nn.Module):
             else None
         )
 
-    def forward(self, x: torch.Tensor, condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,
+        condition: Optional[torch.Tensor] = None,
+        t: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
         if self.input_projection is not None:
             x = F.silu(self.input_projection(x))
+        step = None
+        if t is not None:
+            if not self.is_diffusion:
+                raise ValueError("pass is_diffusion=True to use t")
+            step = diffusion_embedding(t, self.mlp_0.in_features)
+            step = self.mlp_1(F.mish(self.mlp_0(step)))
         skip_sum = None
         for layer in self.residual_layers:
-            x, skip = layer(x, condition)
+            x, skip = layer(x, condition, step)
             skip_sum = skip if skip_sum is None else skip_sum + skip
         y = self.skip_projection(skip_sum / math.sqrt(self.n_layers))
         if self.output_projection is not None:

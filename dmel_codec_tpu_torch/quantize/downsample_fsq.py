@@ -27,6 +27,7 @@ class FSQResult:
     z: torch.Tensor        # reconstructed features, channels-first like the input
     codes: torch.Tensor    # [G, B, L, Q] raw grouped indices
     latents: torch.Tensor  # pre-quantization downsampled features [B, L, dim]
+    loss: torch.Tensor | float = 0.0
 
 
 class DownsampleFiniteScalarQuantize(nn.Module):

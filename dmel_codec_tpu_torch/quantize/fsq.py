@@ -45,6 +45,10 @@ class FSQ:
     def __init__(self, levels: Tuple[int, ...]):
         self.levels = tuple(levels)
 
+    @property
+    def codebook_size(self) -> int:
+        return int(np.prod(self.levels))
+
     def _const(self, arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
         return torch.as_tensor(arr, dtype=torch.float32, device=like.device)
 
@@ -83,6 +87,8 @@ class ResidualFSQ(nn.Module):
 
     def __init__(self, dim: int, levels: Tuple[int, ...], num_quantizers: int = 1):
         super().__init__()
+        self.dim = dim
+        self.levels = tuple(levels)
         codebook_dim = len(levels)
         self.requires_projection = codebook_dim != dim
         if self.requires_projection:
@@ -141,12 +147,20 @@ class GroupedResidualFSQ(nn.Module):
         super().__init__()
         if dim % groups:
             raise ValueError(f"dim {dim} is not divisible by groups {groups}")
+        self.dim = dim
+        self.levels = tuple(levels)
+        self.num_quantizers = num_quantizers
+        self.groups = groups
         self.rvqs = nn.ModuleList(
             ResidualFSQ(dim // groups, levels, num_quantizers) for _ in range(groups)
         )
 
+    @property
+    def dim_per_group(self) -> int:
+        return self.dim // self.groups
+
     def forward(self, x: torch.Tensor):
-        outs = [rvq(z) for rvq, z in zip(self.rvqs, x.chunk(len(self.rvqs), dim=-1))]
+        outs = [rvq(z) for rvq, z in zip(self.rvqs, x.chunk(self.groups, dim=-1))]
         return (
             torch.cat([q for q, _ in outs], dim=-1),
             torch.stack([i for _, i in outs], dim=0),

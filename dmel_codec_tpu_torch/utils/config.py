@@ -104,6 +104,10 @@ def _tuple_ize(value):
     return value
 
 
+def config_to_dict(cfg) -> Dict:
+    return dataclasses.asdict(cfg)
+
+
 def print_config_tree(cfg: Dict, indent: int = 0) -> str:
     """Plain-text tree render of a config dict."""
     lines = []

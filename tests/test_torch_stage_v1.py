@@ -407,8 +407,11 @@ def test_loaders_are_strict_and_local(tmp_path):
     torch.save(sd, tmp_path / "missing.pt")
     with pytest.raises(RuntimeError, match="conv_post.weight_g"):
         bigvgan.load_torch_checkpoint(str(tmp_path / "missing.pt"), cfg)
-    with pytest.raises(FileNotFoundError, match="does not download"):
-        bigvgan.from_pretrained("nvidia/bigvgan_v2_24khz_100band_256x")
+    # a hub id missing from the cache raises under local_files_only: nothing is downloaded
+    with pytest.raises(FileNotFoundError):
+        bigvgan.from_pretrained(
+            "nvidia/bigvgan_v2_24khz_100band_256x", cache_dir=str(tmp_path / "hub"), local_files_only=True
+        )
 
 
 # ---- the K1 ablation probe's plain versions ----------------------------------------

@@ -15,6 +15,7 @@ import dataclasses
 import json
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -209,6 +210,52 @@ def test_hifigan_template_matches_jax():
     want = jfire.HiFiGANGenerator(jcfg).apply({"params": params}, jnp.asarray(mel.transpose(0, 2, 1)),
                                               jnp.asarray(template.transpose(0, 2, 1)))
     _close(got, want)
+
+
+def _firefly_gan_configs(mod):
+    """A small firefly-gan-base of `mod` (port or JAX module): (encoder, head)."""
+    return (mod.ConvNeXtEncoderConfig(input_channels=20, depths=(1, 2), dims=(16, 24)),
+            mod.HiFiGANConfig(hop_length=16, upsample_rates=(4, 2, 2), upsample_kernel_sizes=(8, 4, 4),
+                              resblock_kernel_sizes=(3, 5), resblock_dilation_sizes=((1, 3), (1, 2)),
+                              num_mels=24, upsample_initial_channel=16, use_template=False,
+                              pre_conv_kernel_size=7, post_conv_kernel_size=7))
+
+
+def test_firefly_gan_matches_jax():
+    """mel [B, T, n_mels] -> [B, T * hop], the weights carried by the JAX
+    package's `firefly_params_from_torch` on the port's state_dict."""
+    torch.manual_seed(4)
+    model = firefly.FireflyGAN(*_firefly_gan_configs(firefly)).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("gamma"):
+                p.copy_(1 + 0.05 * torch.randn_like(p))
+    jenc, jhead = _firefly_gan_configs(jfire)
+    jmodel = jfire.FireflyGAN(encoder=jenc, head=jhead)
+    params = jfire.firefly_params_from_torch(_np_sd(model), jmodel)
+    mel = np.random.default_rng(8).standard_normal((2, 23, 20)).astype(np.float32)
+    with torch.no_grad():
+        got = model(torch.from_numpy(mel))
+    want = jmodel.apply({"params": params}, jnp.asarray(mel))
+    assert got.shape == (2, 23 * 16)
+    _close(got, want)
+    assert np.abs(np.asarray(want)).max() > 1e-3
+
+
+def test_firefly_gan_default_layout_matches_jax():
+    """At the firefly-gan-base defaults the port's state_dict carries every
+    parameter of the JAX module, at its shape, under fish-speech's
+    `backbone.*` / `head.*` names (so a "generator."-stripped checkpoint loads
+    with strict=True)."""
+    model = firefly.FireflyGAN()
+    sd = _np_sd(model)
+    assert {k.split(".")[0] for k in sd} == {"backbone", "head"}
+    jmodel = jfire.FireflyGAN()
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jnp.zeros((1, 4, 128)))["params"]
+    params = jfire.firefly_params_from_torch(sd, jmodel)
+    assert jax.tree_util.tree_structure(params) == jax.tree_util.tree_structure(shapes)
+    for got, want in zip(jax.tree_util.tree_leaves(params), jax.tree_util.tree_leaves(shapes)):
+        assert np.shape(got) == want.shape
 
 
 # ---- adapters ---------------------------------------------------------------------
