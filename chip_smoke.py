@@ -53,10 +53,16 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      the flash kernel on against off, both timed, and a profile of one
      forward with the kernel (its kernels and the device's idle share);
   9. LM serving through the entry point: `cli.infer_lm.main` on checkpoints
-     written to a temporary directory, text prompt -> 128 frames -> codec
-     decode -> vocoder -> WAV, with output checks and K1 / K2 launch
-     counts; then `generate` (B = 1) and `generate_batched` (B = 16) timed,
-     a profile of one steady-state frame, and greedy agreement of the three
+     written to a temporary directory, text prompt -> 128 frames (replays
+     of the captured frame step) -> codec decode -> vocoder -> WAV, with
+     output checks and K1 / K2 / FA launch counts; then one eager frame
+     step with each fast decode under set_sync_debug_mode("error"), the
+     captured graph against the eager step (the same tokens, greedy float32
+     and seeded bf16, B = 1 and 16), `generate` (B = 1) and
+     `generate_batched` (B = 16 and 64) over 128 frames: frames/s, the
+     steady frame's ms beside one eager frame step's, the device's idle
+     share and top kernels over two replays, the capture's seconds and the
+     host's reads per generation; and greedy agreement of the three
      generation forms;
  10. FA, its plain version and PyTorch's scaled_dot_product_attention (a
      yardstick only: nothing in the port calls it) at the main-path shape,
@@ -449,7 +455,7 @@ def set_flash(model: torch.nn.Module, on: bool) -> None:
             m.config = dataclasses.replace(m.config, flash_attention=on)
 
 
-def profile_once(what: str, fn, parts: str = "", kernels: dict | None = None) -> dict:
+def profile_once(what: str, fn, parts: str = "", kernels: dict | None = None, totals: dict | None = None) -> dict:
     """Device kernel time by name over one call (torch.profiler, CUDA
     activity). Busy share = summed kernel time / the call's wall time under
     the profiler (its own host overhead inflates the idle share). A
@@ -459,7 +465,8 @@ def profile_once(what: str, fn, parts: str = "", kernels: dict | None = None) ->
     `parts` (if given) are logged and returned as {part: ms}; a range nested
     in one of them (the optimizer's own) takes its kernels from it, so a
     part ends where the last range that began inside it ends. `kernels`,
-    if given, receives {kernel name: ms} of the call."""
+    if given, receives {kernel name: ms} of the call, `totals` {"wall_ms",
+    "busy_ms", "idle"}."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -489,6 +496,8 @@ def profile_once(what: str, fn, parts: str = "", kernels: dict | None = None) ->
     if not by_name:
         log(f"  profile of {what}: no device time recorded (not measured)")
         return {}
+    if totals is not None:
+        totals.update(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms)
     log(f"  profile of {what}: wall {wall_ms:.2f} ms, kernels {busy_ms:.2f} ms, "
         f"device idle share {1 - busy_ms / wall_ms:.3f}")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
@@ -1451,6 +1460,140 @@ def public_modules_phase(dev, card: str) -> dict:
     say(f"phase 27 in {out['seconds']:.1f} s")
     return out
 
+# Phase 9's generation: LM_FRAMES frames at each batch size it times; GEN_CHECK_FRAMES where the captured
+# graph is held to the eager step (the eager loop is the slow side of that check)
+GEN_BATCHES, GEN_CHECK_FRAMES = (1, SERVE_BATCH, 64), 32
+
+
+def infer_prompts(cfg, b: int):
+    """b text prompts ("who are you? 0", ...) left-padded with modality-pad rows -> ([b, S], [b, S, C])."""
+    from dmel_codec_tpu_torch.lm.inputs import TokenGridBuilder
+    from dmel_codec_tpu_torch.lm.tokenizer import ByteTokenizer
+
+    gridder = TokenGridBuilder(config=cfg)
+    grids = [gridder.build_infer_grid(text_ids=ByteTokenizer().encode(f"who are you? {i}")) for i in range(b)]
+    s = max(len(t) for t, _ in grids)
+    text = np.full((b, s), cfg.text_pad_id, np.int64)
+    audio = np.full((b, s, cfg.audio_codebook_count), cfg.slow_audio_pad_id, np.int64)
+    for i, (t, a) in enumerate(grids):
+        text[i, s - len(t):], audio[i, s - len(t):] = t, a
+    return text, audio
+
+
+@torch.no_grad()
+def generation_phase(dev, lm, grid) -> dict:
+    """Phase 9 after the entry point. (a) The frame step reads nothing on the host: one eager frame with
+    each fast decode under torch.cuda.set_sync_debug_mode("error"). (b) The captured graph against the
+    eager step on the card: the same tokens, greedy float32 and seeded bf16, B = 1 and 16. (c) frames/s
+    over LM_FRAMES frames at B = 1, 16 and 64 (bf16 weights and cache, the default sampler), the steady
+    frame's ms (replays back to back) beside one eager frame step's, the device's idle share and top
+    kernels over two replays, the capture's seconds and the host's reads per generation. (d) Greedy
+    agreement of the three generation forms."""
+    from dmel_codec_tpu_torch.lm import generate as gen_mod
+    from dmel_codec_tpu_torch.lm.generate import InferenceConfig, SlowFastGenerator
+
+    lm_cfg, k = lm.config, gen_mod.FRAMES_PER_GRAPH
+    out = {"frames_per_replay": k}
+    log(f"  generation: {k} frames a replay of the captured frame step")
+
+    # (a) no host sync in a frame step
+    for b, fast_kv_cache in ((SERVE_BATCH, False), (1, True)):
+        gen = SlowFastGenerator(lm, InferenceConfig(cache_dtype="bfloat16", fast_kv_cache=fast_kv_cache))
+        loop, g = gen._new_loop(b), torch.Generator(device=dev).manual_seed(0)
+        text_b, audio_b = (torch.as_tensor(np.stack([x] * b), device=dev) for x in grid)
+        gen._prefill(loop, text_b, audio_b, g, gen._fast_decode_growing)
+        gen._step(loop, g, gen._fast_decode)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gen._step(loop, g, gen._fast_decode)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        log(f"  one eager frame step at B = {b} ({'KV-cached' if fast_kv_cache else 'fixed'} fast decode) under "
+            f"set_sync_debug_mode('error'): no synchronizing call")
+        del gen, loop
+
+    # (b) the graph against the eager step
+    lm32 = copy.deepcopy(lm).float()
+    many = infer_prompts(lm_cfg, SERVE_BATCH)
+    out["graph_vs_eager"] = {}
+    for label, model, kw, seed in (("greedy float32", lm32, dict(top_k=1), None),
+                                   ("seeded bf16", lm, dict(cache_dtype="bfloat16"), 5)):
+        gen = SlowFastGenerator(model, InferenceConfig(max_new_tokens=GEN_CHECK_FRAMES, **kw))
+
+        def rng():
+            return None if seed is None else torch.Generator(device=dev).manual_seed(seed)
+
+        for b in (1, SERVE_BATCH):
+            if b == 1:
+                graph = [gen.generate(*grid, rng())]
+                eager = [gen._generate_one(*grid, rng(), gen._fast_decode_growing, gen._fast_decode, graphed=False)]
+            else:
+                graph = list(zip(*gen.generate_batched(*many, rng())))
+                texts, audios, lengths = gen._generate(*many, rng(), gen._fast_decode_fixed, gen._fast_decode_fixed,
+                                                       graphed=False)
+                eager = [(audios[i, : lengths[i]], texts[i, : lengths[i]]) for i in range(b)]
+            same = all(np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1]) for x, y in zip(graph, eager))
+            frames = [len(t) for _, t in graph]
+            log(f"  {label}, B = {b}, {GEN_CHECK_FRAMES} frames: captured graph vs eager step, same tokens: {same} "
+                f"(frames per row {sorted(set(frames))})")
+            assert same, (label, b)
+            out["graph_vs_eager"][f"{label} B={b}"] = {"same_tokens": same, "frames": frames}
+        del gen
+    del lm32
+    torch.cuda.empty_cache()
+
+    # (c) frames/s, the steady frame, the device's idle share
+    icfg = InferenceConfig(max_new_tokens=LM_FRAMES, cache_dtype="bfloat16")
+    for b in GEN_BATCHES:
+        gen = SlowFastGenerator(lm, icfg)
+        first_only = SlowFastGenerator(lm, dataclasses.replace(icfg, max_new_tokens=1))
+        text_b, audio_b = np.stack([grid[0]] * b), np.stack([grid[1]] * b)
+        g = torch.Generator(device=dev).manual_seed(3)
+
+        def run(gen_):
+            return gen_.generate(*grid, g) if b == 1 else gen_.generate_batched(text_b, audio_b, g)
+
+        first_ms = cuda_ms(lambda: run(gen), 1, warm=False)
+        capture_s = gen.stats["capture_s"]
+        prefill_ms = cuda_ms(lambda: run(first_only), 3)
+        got = []
+        total_ms = cuda_ms(lambda: got.append(run(gen)), 2, warm=False)
+        n = got[-1][0].shape[0] if b == 1 else max(len(a) for a in got[-1][0])
+        assert 2 <= n <= LM_FRAMES and gen.stats["graphed"], (n, gen.stats)
+        fps = (n - 1) / ((total_ms - prefill_ms) / 1e3)
+        (entry,) = gen._graphs.values()
+        frame_ms = cuda_ms(entry.graph.replay, 8) / k
+        eager_ms = cuda_ms(lambda: gen._step(entry.loop, g, gen._fast_decode), 3)
+        totals, kernels = {}, {}
+        profile_once(f"two replays ({2 * k} frames) at B = {b}", lambda: [entry.graph.replay() for _ in range(2)],
+                     kernels=kernels, totals=totals)
+        top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
+        log(f"  B = {b}: first call {first_ms:.2f} ms with the capture ({capture_s:.2f} s); prefill + first frame "
+            f"({len(grid[0])} positions) {prefill_ms:.2f} ms; {n} frames in {total_ms:.2f} ms: {fps:.2f} frames/s "
+            f"per row, {b * fps:.2f} aggregate; steady frame {frame_ms:.3f} ms (replays back to back), one eager "
+            f"frame step {eager_ms:.2f} ms; host reads per generation {gen.stats['host_reads']}")
+        out[f"B={b}"] = {"frames": n, "frames_per_s": fps, "generation_ms": total_ms, "prefill_ms": prefill_ms,
+                         "frame_ms": frame_ms, "eager_frame_ms": eager_ms, "first_call_ms": first_ms,
+                         "capture_s": capture_s, "host_reads": gen.stats["host_reads"],
+                         "device_idle": totals.get("idle"), "top_kernels_ms": top}
+        del gen, first_only, entry
+        torch.cuda.empty_cache()
+
+    # (d) greedy: the three generation forms give the same tokens (float32, so
+    # that batch shape cannot move an argmax among near-uniform logits)
+    lm32 = copy.deepcopy(lm).float()
+    greedy = SlowFastGenerator(lm32, InferenceConfig(max_new_tokens=16, top_k=1))
+    a1, t1 = greedy.generate(*grid, None)
+    a2, t2 = greedy.generate_stepwise(*grid, None)
+    a3, t3 = greedy.generate_batched(np.stack([grid[0]] * 2), np.stack([grid[1]] * 2), None)
+    same = all(np.array_equal(a1, a) and np.array_equal(t1, t) for a, t in ((a2, t2), (a3[0], t3[0]), (a3[1], t3[1])))
+    log(f"  greedy generate / generate_stepwise / generate_batched: {len(t1)} frames, same tokens: {same}")
+    assert same and len(t1) == 16
+    out["three_forms_same"] = same
+    return out
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1987,52 +2130,8 @@ def main() -> None:
     assert (audio_ids >= 0).all() and (audio_ids < lm_cfg.audio_vocab).all() and text_ids.shape == (n_frames,)
     assert serve_launches == {"K1": want_k1, "K2": want_k2, "FA": 0}, serve_launches
 
-    first_only = SlowFastGenerator(lm, dataclasses.replace(icfg, max_new_tokens=1))
-    for b in (1, SERVE_BATCH):
-        text_b, audio_b = np.stack([grid[0]] * b), np.stack([grid[1]] * b)
-        g = torch.Generator(device=dev).manual_seed(seed)
-        run = ((lambda gen_: gen_.generate(*grid, g)) if b == 1
-               else (lambda gen_: gen_.generate_batched(text_b, audio_b, g)))
-        prefill_ms = cuda_ms(lambda: run(first_only), 1)
-        got_frames = []
-        total_ms = cuda_ms(lambda: got_frames.append(run(generator_)[0]), 1, warm=False)
-        n = got_frames[0].shape[0] if b == 1 else max(len(a) for a in got_frames[0])
-        fps = (n - 1) / ((total_ms - prefill_ms) / 1e3)
-        log(f"  B = {b}: prefill + first frame ({len(grid[0])} positions) {prefill_ms:.2f} ms; {n} frames in "
-            f"{total_ms:.2f} ms; {fps:.2f} frames/s per row, {b * fps:.2f} aggregate")
-        assert 2 <= n <= LM_FRAMES, n  # fewer than LM_FRAMES only if every row sampled <EOM>
-
-        # one steady-state frame: a slow step at position ~84 and ten fixed-shape fast decodes
-        with torch.no_grad():
-            cache = lm.init_slow_cache(b, icfg.max_seq_len, dtype=torch.bfloat16)
-            emb = lm.embed_inputs(torch.as_tensor(text_b, device=dev), torch.as_tensor(audio_b, device=dev))
-            window = torch.zeros((b, icfg.windows_length, 10), dtype=torch.long, device=dev)
-            valid = torch.ones((b, icfg.windows_length), dtype=torch.bool, device=dev)
-            cache, text, frame = generator_._frame(cache, emb, window, valid, g, generator_._fast_decode_fixed)
-            state = {"cache": cache}
-
-            def one_frame():
-                e = lm.embed_inputs(text[:, None], frame[:, None, :])
-                state["cache"], _, _ = generator_._frame(state["cache"], e, window, valid, g,
-                                                         generator_._fast_decode_fixed)
-
-            for _ in range(64):
-                one_frame()
-            frame_ms = cuda_ms(one_frame, 10)
-            log(f"  B = {b}: one steady-state frame {frame_ms:.2f} ms (CUDA events, 10 frames)")
-            profile_once(f"one frame at B = {b}", one_frame)
-
-    # greedy: the three generation forms give the same tokens (float32, so
-    # that batch shape cannot move an argmax among near-uniform logits)
-    lm32 = copy.deepcopy(lm).float()
-    greedy = SlowFastGenerator(lm32, InferenceConfig(max_new_tokens=16, top_k=1))
-    a1, t1 = greedy.generate(*grid, None)
-    a2, t2 = greedy.generate_stepwise(*grid, None)
-    a3, t3 = greedy.generate_batched(np.stack([grid[0]] * 2), np.stack([grid[1]] * 2), None)
-    same = all(np.array_equal(a1, a) and np.array_equal(t1, t) for a, t in ((a2, t2), (a3[0], t3[0]), (a3[1], t3[1])))
-    log(f"  greedy generate / generate_stepwise / generate_batched: {len(t1)} frames, same tokens: {same}")
-    assert same and len(t1) == 16
-    del lm32, greedy
+    del generator_
+    generation = generation_phase(dev, lm, grid)
 
     # ---- 10. FA, plain and the library call at the main-path shape; bounds
     hd, heads, kv_heads = lm_cfg.slow.head_dim, lm_cfg.slow.num_heads, lm_cfg.slow.num_kv_heads
@@ -2251,7 +2350,7 @@ def main() -> None:
             raise AssertionError("the chunked vocoder disagrees with its one-shot run")
     # free what the earlier phases hold, so that peak memory below is the streaming path's
     del codec32, mel_one, idx_one
-    lm = generator_ = first_only = cache = state = emb = batch = None  # noqa: F841
+    lm = batch = None  # noqa: F841
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3465,7 +3564,7 @@ def main() -> None:
     codec_train_step["overfit"] = {"steps": overfit_steps, "seconds": overfit_s, "val_loss": curve}
     print(json.dumps({"kernels": kernels, "train_step": train_step, "codec_train_step": codec_train_step,
                       "evaluation": evaluation, "host_path": host_path, "parallel": parallel,
-                      "public_modules": public_modules}))
+                      "public_modules": public_modules, "generation": generation}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 

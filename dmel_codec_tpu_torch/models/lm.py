@@ -244,7 +244,8 @@ class ChatMusicLM(nn.Module):
     ) -> Tuple[torch.Tensor, dict]:
         """One depth position through the fast decoder with a KV cache
         (same maths as `forward_generate_audio_fixed` position by position:
-        RoPE position = cache index, attention over the cached prefix). x
+        RoPE position = the cache's device index, attention over the cache's
+        positions up to this one, the rest masked). x
         [B, 1, h_fast] is `fast_depth_pos0` for position 0 and
         `fast_embed_tokens(token)[:, None]` after. Returns (audio logits
         [B, V_audio] for this position, cache)."""

@@ -7,10 +7,14 @@ projection, SiLU gated MLP, final RMSNorm. Parameter names are HF Qwen2's
 loads into `Decoder` directly.
 
   * The KV cache is a dict of static-shape tensors
-    ([L, B, max_len, kv_heads, head_dim]) and a host integer `index`; a
-    cached call writes the new keys and values into it IN PLACE and attends
-    over the filled prefix `[: index + s]` (the masked tail the JAX package
-    attends over contributes exact zeros).
+    ([L, B, max_len, kv_heads, head_dim]) and the number of filled positions
+    `index`, a 0-d int64 tensor on the cache's device. A cached call writes
+    the new keys and values IN PLACE at `index + arange(S)` (the start
+    clamped so that the S rows fit, as `dynamic_update_slice` clamps it),
+    builds RoPE from those device positions and attends over all max_len
+    positions under the mask `key_pos <= position`, as the JAX package does.
+    Nothing on the cached path reads the index on the host, so a frame step
+    over the cache can be captured in a CUDA graph.
   * Attention outside the flash kernel is einsum-based with a float32
     softmax; GQA goes through a group axis, K/V are never repeated.
   * With `flash_attention=True`, the cache-less causal path at
@@ -34,6 +38,7 @@ is an XLA device and has no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -102,12 +107,19 @@ class RMSNorm(nn.Module):
         return (self.weight * (xf * torch.rsqrt(var + self.eps))).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_freq(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """RoPE's frequencies on `device`, made once: a copy from the host would
+    break a CUDA graph that captures the cached path."""
+    inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+    return torch.from_numpy(inv_freq.astype(np.float32)).to(device)
+
+
 def rope_cos_sin(
     positions: torch.Tensor, head_dim: int, theta: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions [..., S] -> float32 cos/sin [..., S, head_dim] (HF half-duplicated)."""
-    inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
-    inv_freq = torch.from_numpy(inv_freq.astype(np.float32)).to(positions.device)
+    inv_freq = _inv_freq(head_dim, theta, positions.device)
     angles = positions[..., None].float() * inv_freq  # [..., S, hd/2]
     angles = torch.cat([angles, angles], dim=-1)
     return torch.cos(angles), torch.sin(angles)
@@ -125,12 +137,12 @@ def init_kv_cache(
     config: TransformerConfig, batch: int, max_len: int, dtype=torch.float32, device=None
 ) -> dict:
     """Static-shape cache: per-layer K/V [L, B, max_len, kv_heads, head_dim]
-    and the number of filled positions (a host integer)."""
+    and the number of filled positions (a 0-d int64 tensor on `device`)."""
     shape = (config.num_layers, batch, max_len, config.num_kv_heads, config.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "index": 0,
+        "index": torch.zeros((), dtype=torch.int64, device=device),
     }
 
 
@@ -152,12 +164,13 @@ class Attention(nn.Module):
         sin: torch.Tensor,
         mask: Optional[torch.Tensor],
         cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-        cache_index: int = 0,
+        cache_rows: Optional[torch.Tensor] = None,
         mask_is_causal: bool = False,
     ) -> torch.Tensor:
         """x [B, S, H]; mask [B, S, T] bool (None only on the flash path).
         With `cache_kv` ([B, max_len, kh, hd] each) the new keys and values
-        are written at `cache_index` in place and T = cache_index + S."""
+        are written in place at the positions `cache_rows` [S] (a device
+        tensor) and T = max_len."""
         cfg = self.config
         b, s, _ = x.shape
         hd = cfg.head_dim
@@ -171,10 +184,9 @@ class Attention(nn.Module):
 
         if cache_kv is not None:
             ck, cv = cache_kv
-            t = cache_index + s
-            ck[:, cache_index:t] = k.to(ck.dtype)
-            cv[:, cache_index:t] = v.to(cv.dtype)
-            k, v = ck[:, :t], cv[:, :t]
+            ck.index_copy_(1, cache_rows, k.to(ck.dtype))
+            cv.index_copy_(1, cache_rows, v.to(cv.dtype))
+            k, v = ck, cv
         elif cfg.flash_attention and s >= cfg.flash_min_seq and mask_is_causal:
             # a caller-supplied mask must use the einsum path
             out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
@@ -214,9 +226,9 @@ class Block(nn.Module):
         self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps)
 
-    def forward(self, x, cos, sin, mask, cache_kv=None, cache_index=0, mask_is_causal=False):
+    def forward(self, x, cos, sin, mask, cache_kv=None, cache_rows=None, mask_is_causal=False):
         x = x + self.self_attn(
-            self.input_layernorm(x), cos, sin, mask, cache_kv, cache_index, mask_is_causal
+            self.input_layernorm(x), cos, sin, mask, cache_kv, cache_rows, mask_is_causal
         )
         return x + self.mlp(self.post_attention_layernorm(x))
 
@@ -241,14 +253,19 @@ class Decoder(nn.Module):
         """inputs_embeds [B, S, H]. Without cache: causal self-attention.
         With cache: S new tokens appended at cache['index'] (the cache
         tensors are updated in place); attention over all cached positions
-        <= current. Returns (hidden, cache)."""
+        <= current. Returns (hidden, cache), the returned cache's index
+        advanced by S (a new tensor; the input cache's index is left as it
+        was). Past max_len the rows' start is clamped, as in the JAX
+        package; generation checks index + S <= max_len where it starts, and
+        only S <= max_len is checked here, since the index lives on the
+        device."""
         cfg = self.config
         b, s, _ = inputs_embeds.shape
         dev = inputs_embeds.device
 
         mask_is_causal = False
+        rows = None
         if cache is None:
-            index = 0
             if positions is None:
                 positions = torch.arange(s, device=dev).expand(b, s)
             if attn_mask is None:
@@ -256,12 +273,15 @@ class Decoder(nn.Module):
                 if not (cfg.flash_attention and s >= cfg.flash_min_seq):
                     attn_mask = torch.ones(s, s, dtype=torch.bool, device=dev).tril().expand(b, s, s)
         else:
-            index = cache["index"]
-            if index + s > cache["k"].shape[2]:
-                raise ValueError(f"KV cache of {cache['k'].shape[2]} positions cannot take {index} + {s}")
+            index, max_len = cache["index"], cache["k"].shape[2]
+            if s > max_len:
+                raise ValueError(f"KV cache of {max_len} positions cannot take {s}")
+            steps = torch.arange(s, device=dev)
             if positions is None:
-                positions = (index + torch.arange(s, device=dev)).expand(b, s)
-            key_pos = torch.arange(index + s, device=dev)[None, None, :]  # [1, 1, T]
+                positions = (index + steps).expand(b, s)
+            # dynamic_update_slice's rows: the start clamped so that all S fit
+            rows = index.clamp(max=max_len - s) + steps
+            key_pos = torch.arange(max_len, device=dev)[None, None, :]  # [1, 1, T]
             attn_mask = key_pos <= positions[:, :, None]  # [B, S, T]
 
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
@@ -269,13 +289,13 @@ class Decoder(nn.Module):
         x = inputs_embeds
         for i, layer in enumerate(self.layers):
             if cache is not None:
-                x = layer(x, cos, sin, attn_mask, (cache["k"][i], cache["v"][i]), index, mask_is_causal)
+                x = layer(x, cos, sin, attn_mask, (cache["k"][i], cache["v"][i]), rows, mask_is_causal)
             elif cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, cos, sin, attn_mask, None, 0, mask_is_causal, use_reentrant=False)
+                x = checkpoint(layer, x, cos, sin, attn_mask, None, None, mask_is_causal, use_reentrant=False)
             else:
-                x = layer(x, cos, sin, attn_mask, None, 0, mask_is_causal)
+                x = layer(x, cos, sin, attn_mask, None, None, mask_is_causal)
         x = self.norm(x)
 
         if cache is not None:
-            cache = {"k": cache["k"], "v": cache["v"], "index": index + s}
+            cache = {"k": cache["k"], "v": cache["v"], "index": cache["index"] + s}
         return x, cache

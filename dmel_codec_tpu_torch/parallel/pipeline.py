@@ -177,7 +177,7 @@ def pipelined_decoder(decoder, group, n_microbatches: int) -> Callable[[torch.Te
 
         def run_blocks(x: torch.Tensor) -> torch.Tensor:
             for block in blocks:
-                x = block(x, cos, sin, mask, None, 0, True)
+                x = block(x, cos, sin, mask, None, None, True)
             return x
 
         schedule = _Schedule(blocks, group, n_stages, n_microbatches, run_blocks)

@@ -312,8 +312,10 @@ def test_decoder_flash_on_equals_off(decoder):
 @pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
 def test_decoder_cached_matches_jax_and_full_forward(decoder, cache_dtype):
     """Prefill s - 3 then token by token: every step equals the JAX cached
-    call (same cache dtype), and in float32 the full forward too. The port
-    attends over the filled prefix, JAX over all max_len masked positions."""
+    call (same cache dtype), and in float32 the full forward too. Both keep
+    the index on the device and attend over all max_len masked positions;
+    past the cache's end both clamp the rows' start as
+    `dynamic_update_slice` does, and only S > max_len is refused."""
     jm, params, pm = decoder
     b, s, max_len = 2, 10, 16
     x = _embeds(b, s, 32, seed=11)
@@ -337,8 +339,16 @@ def test_decoder_cached_matches_jax_and_full_forward(decoder, cache_dtype):
         with torch.no_grad():
             full, _ = pm(torch.from_numpy(x))
         np.testing.assert_allclose(to_np(torch.cat(outs, 1)), to_np(full), **TOL)
+    # 10 + 10 > 16: the rows written are the cache's last 10, on both sides
+    want, jcache = step(jnp.asarray(x), jcache)
+    with torch.no_grad():
+        got, pcache = pm(torch.from_numpy(x), cache=pcache)
+    assert pcache["index"] == int(jcache["index"]) == 2 * s
+    np.testing.assert_allclose(to_np(got), np.asarray(want), **tol)
+    np.testing.assert_allclose(to_np(pcache["k"].float()), np.asarray(jcache["k"].astype(jnp.float32)),
+                               atol=1e-5 if cache_dtype == "float32" else 2.0**-6)
     with pytest.raises(ValueError):
-        pm(torch.from_numpy(x), cache=pcache)  # 10 + 10 > 16
+        pm(torch.from_numpy(_embeds(b, max_len + 1, 32, seed=12)), cache=pcache)  # 17 > 16 positions
 
 
 def test_qwen2_state_dict_loads_directly():
