@@ -1,0 +1,7 @@
+"""idle_share.train: the share of the traced micro-steps' slice in which no
+operation ran on the device (the union of kernel, memcpy and memset
+intervals); Run.idle_percent."""
+
+
+def read(run):
+    return run.idle_percent
