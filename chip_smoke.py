@@ -3188,8 +3188,8 @@ def main() -> None:
 
     codec_stats = {}
     codec_stats["float32"] = time_codec_steps(ctrainer, cstate, cbatches, f"{CODEC_TRAIN_BATCH} x {SECONDS} s, float32 (TF32 off)")
-    # the step by kernel and part by part (the trainer's record_function ranges)
-    parts = profile_once("one codec train step, float32", lambda: ctrainer.train_step(cstate, cbatches[1]), parts="codec/")
+    # the step by kernel and part by part (the trainer's codec.train.* spans)
+    parts = profile_once("one codec train step, float32", lambda: ctrainer.train_step(cstate, cbatches[1]), parts="codec.train.")
     # the preamble's few kernels come first, where the device tracing has at times recorded no range
     if "preamble" not in parts:
         log("  one codec train step by part: no range was recorded on the device for the preamble in this run")

@@ -21,6 +21,7 @@ from dmel_codec_tpu_torch.models.bigvgan import BigVGAN, FusedBigVGAN
 from dmel_codec_tpu_torch.models.codec import DMelCodec
 from dmel_codec_tpu_torch.models.firefly import FireflyArchitecture, FireflyArchitectureConfig
 from dmel_codec_tpu_torch.models.seanet import SEANetConfig, SpeechTokenizer, load_speechtokenizer
+from dmel_codec_tpu_torch.utils.trace import span
 
 
 def _seeded(build: Callable[[], torch.nn.Module], seed: int) -> torch.nn.Module:
@@ -64,7 +65,9 @@ class DMelCodecAdapter:
 
     def _mels(self, audio: np.ndarray, audio_lengths=None) -> Tuple[torch.Tensor, torch.Tensor]:
         audio = np.atleast_2d(np.asarray(audio, np.float32))
-        mels = self.mel_tf(torch.from_numpy(audio).to(self.device)).to(self.dtype)
+        wav = torch.from_numpy(audio).to(self.device)
+        with span("codec.mel"):  # the front end alone: the upload stays in the caller's span
+            mels = self.mel_tf(wav).to(self.dtype)
         f = self.config.downsample_total
         t = (mels.shape[1] // f) * f
         if audio_lengths is None:

@@ -35,6 +35,7 @@ import torch
 
 from dmel_codec_tpu_torch.lm.sampling import sample_token
 from dmel_codec_tpu_torch.models.lm import ChatMusicLM, SlowFastLMConfig
+from dmel_codec_tpu_torch.utils.trace import span
 
 # Frames a captured graph runs per replay, and eager frames before capture.
 FRAMES_PER_GRAPH = 4
@@ -351,9 +352,12 @@ class SlowFastGenerator:
         entry = self._graph(b, step_decode) if graphed else None
         capture_s = time.perf_counter() - t0  # a first call's capture; a lookup after
         loop = entry.loop if graphed else self._new_loop(b)
-        prompt_t = torch.as_tensor(np.asarray(text_tokens), dtype=torch.long, device=dev)
-        prompt_a = torch.as_tensor(np.asarray(audio_tokens), dtype=torch.long, device=dev)
-        self._prefill(loop, prompt_t, prompt_a, generator, prefill_decode)
+        # closed before the replays: a replay runs none of the host code it captured, and a
+        # profiler may stop between two of them
+        with span("lm.prefill"):
+            prompt_t = torch.as_tensor(np.asarray(text_tokens), dtype=torch.long, device=dev)
+            prompt_a = torch.as_tensor(np.asarray(audio_tokens), dtype=torch.long, device=dev)
+            self._prefill(loop, prompt_t, prompt_a, generator, prefill_decode)
         if graphed:
             reads = self._replay(entry, generator)
         else:

@@ -42,6 +42,7 @@ from dmel_codec_tpu_torch.ops.stage_fused import (
     amp_stage_v1,
     pack_stage,
 )
+from dmel_codec_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,7 +198,8 @@ class FusedBigVGAN:
     K1), "K2" (v2), and with `use_v2=False` (the JAX v1 contract at every
     fused stage) "K2-v1" for stages of at most V1_MAX_CHANNELS channels and
     "K2/v1" (K2's launches in v1 mode) for wider ones. The routes are fixed
-    here and no run changes them.
+    here and no run changes them. A call marks its parts with the spans
+    `vocoder.pre`, `vocoder.s<i>` and `vocoder.post` (`utils/trace.py`).
     """
 
     @torch.no_grad()
@@ -268,10 +270,13 @@ class FusedBigVGAN:
         return m._finish(x[:, 0])
 
     def __call__(self, mel: torch.Tensor) -> torch.Tensor:
-        x = self.pre(mel)
+        with span("vocoder.pre"):
+            x = self.pre(mel)
         for i in range(len(self.stages)):
-            x = self.stage(i, x)
-        return self.post(x)
+            with span(f"vocoder.s{i}"):
+                x = self.stage(i, x)
+        with span("vocoder.post"):
+            return self.post(x)
 
 
 # ---- the reference's checkpoint format ---------------------------------------

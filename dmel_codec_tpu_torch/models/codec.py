@@ -22,6 +22,7 @@ from torch import nn
 from dmel_codec_tpu_torch.nn.wavenet import WaveNet
 from dmel_codec_tpu_torch.quantize.downsample_fsq import DownsampleFiniteScalarQuantize, FSQResult
 from dmel_codec_tpu_torch.utils.masks import sequence_mask
+from dmel_codec_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,8 +160,11 @@ class DMelCodec(nn.Module):
         self, mels: torch.Tensor, mel_lengths: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """mels [B, T, M] + frame lengths -> (indices [B, G*R, L], index lengths)."""
-        features, mel_lengths = self.encode_unquantized(mels, mel_lengths)
-        return self.get_indices_from_unquantized_features(features, mel_lengths)
+        with span("codec.encode"):
+            with span("codec.encode.wavenet"):
+                features, mel_lengths = self.encode_unquantized(mels, mel_lengths)
+            with span("codec.encode.fsq"):
+                return self.get_indices_from_unquantized_features(features, mel_lengths)
 
     def get_quantized_features_from_indices(
         self, indices: torch.Tensor, feature_lengths: torch.Tensor
@@ -186,12 +190,15 @@ class DMelCodec(nn.Module):
         """indices [B, G*R, L] -> gen_mel [B, T, M] (vocoder applied outside).
 
         noise [B, T, concat]; when absent it is drawn from `generator`."""
-        z, mel_masks = self.get_quantized_features_from_indices(indices, feature_lengths)
-        if noise is None:
-            noise = torch.randn(
-                z.shape, generator=generator, device=z.device, dtype=z.dtype
-            )
-        return self.decode_mel(z, mel_masks, noise)
+        with span("codec.decode"):
+            with span("codec.decode.fsq"):
+                z, mel_masks = self.get_quantized_features_from_indices(indices, feature_lengths)
+                if noise is None:
+                    noise = torch.randn(
+                        z.shape, generator=generator, device=z.device, dtype=z.dtype
+                    )
+            with span("codec.decode.wavenet"):
+                return self.decode_mel(z, mel_masks, noise)
 
 
 def quality_from_gt_mels(gt_mels: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,11 @@ ranks before the clip, the non-finite guard and the update.
 Both optimizers are `train/optim.AccumulatingAdamW` (optax's chain): the
 accumulator keeps the MEAN of the micro-step gradients, so the losses are
 not divided by `accumulate_grad`; every parameter is decayed.
+
+A step's parts are spans `codec.train.<part>` on the port's one span
+helper, `utils/trace.span`: preamble, generator_forward,
+discriminator_forward, discriminator_backward, discriminator_optimizer,
+generator_losses, generator_backward, generator_optimizer.
 """
 
 from __future__ import annotations
@@ -28,7 +33,6 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from dmel_codec_tpu_torch.dsp.spectrogram import LogMelSpectrogram
 from dmel_codec_tpu_torch.models.codec import DMelCodec, DMelCodecConfig, quality_from_gt_mels
@@ -43,6 +47,7 @@ from dmel_codec_tpu_torch.train.losses import (
 from dmel_codec_tpu_torch.train.optim import AccumulatingAdamW, copy_into, detached, global_norm
 from dmel_codec_tpu_torch.train.schedule import cosine_schedule_with_warmup
 from dmel_codec_tpu_torch.utils.masks import avg_with_mask, sequence_mask
+from dmel_codec_tpu_torch.utils.trace import span
 
 FROZEN_WITH_ENCODER = ("encoder.", "quantizer.")  # subtrees `freeze_encoder` leaves alone
 
@@ -219,48 +224,48 @@ class CodecTrainer:
         'audio_lengths' [B], optional 'noise' [B, T, concat_dim]}. The state
         is advanced in place and returned. `generator` (on the trainer's
         device) draws the decoder's noise when the batch has none. Each part
-        runs under a `torch.profiler.record_function("codec/<part>")`, which
-        costs nothing unless a profiler is active."""
+        runs under its span `codec.train.<part>`; the optimizers' own spans
+        nest in the two `codec.train.*_optimizer` parts."""
         cfg = self.config
         dp = self.data_parallel
         self._check_own(state)
-        with record_function("codec/preamble"):
+        with span("codec.train.preamble"):
             encode_mels, gt_mels, mel_masks, quality = self._prepare(batch["audios"].float(), batch["audio_lengths"])
             noise = self._noise(batch, encode_mels, generator)
 
         # the single generator forward; its graph serves the generator's update below
-        with record_function("codec/generator forward"):
+        with span("codec.train.generator_forward"):
             gen_mel, _ = self.codec(encode_mels, mel_masks, quality, noise)
 
         # discriminator update on (real, detached fake)
-        with record_function("codec/discriminator forward, real and fake"), global_batch(dp):
+        with span("codec.train.discriminator_forward"), global_batch(dp):
             real = self.discriminator(gt_mels)
             fake = self.discriminator(gen_mel.detach())
             d_mask = resample_mask_nearest(mel_masks, real.shape[2])
             loss_d, loss_real, loss_fake = discriminator_loss(real, fake, d_mask)
-        with record_function("codec/discriminator backward"):
+        with span("codec.train.discriminator_backward"):
             d_grads = torch.autograd.grad(loss_d, list(state.disc_params.values()))
             if dp is not None:
                 dp.sum_(d_grads)
             d_norm = global_norm(d_grads)
             del real, fake
-        with record_function("codec/discriminator optimizer"):
+        with span("codec.train.discriminator_optimizer"):
             state.disc_opt_state.update(d_grads)
 
         # generator losses against the UPDATED critic; the gradient is taken
         # with respect to the generator's parameters only, so none lands on
         # the critic's
-        with record_function("codec/generator losses, discriminator forward on the fake"), global_batch(dp):
+        with span("codec.train.generator_losses"), global_batch(dp):
             loss_mel = weighted_mel_loss(gen_mel, gt_mels, mel_masks)
             loss_adv = adversarial_loss(self.discriminator(gen_mel), d_mask)
             loss_g = cfg.weight_mel * loss_mel + cfg.weight_adv * loss_adv
         names = list(state.gen_params)
-        with record_function("codec/generator backward, through the discriminator"):
+        with span("codec.train.generator_backward"):
             g_grads = torch.autograd.grad(loss_g, [state.gen_params[n] for n in names])
             if dp is not None:
                 dp.sum_(g_grads)
             g_norm = global_norm(g_grads)  # over every subtree, frozen ones too
-        with record_function("codec/generator optimizer"):
+        with span("codec.train.generator_optimizer"):
             state.gen_opt_state.update(
                 [g for n, g in zip(names, g_grads) if self.trained(n)],
                 watch=[g for n, g in zip(names, g_grads) if not self.trained(n)],

@@ -59,6 +59,7 @@ from dmel_codec_tpu_torch.train.lora import (
 )
 from dmel_codec_tpu_torch.train.optim import AccumulatingAdamW, copy_into, detached
 from dmel_codec_tpu_torch.train.schedule import cosine_schedule_with_warmup
+from dmel_codec_tpu_torch.utils.trace import span
 
 BATCH_KEYS = ("text_tokens", "audio_tokens", "text_labels", "audio_labels", "valid")
 
@@ -333,13 +334,18 @@ class LMTrainer:
     def train_step(self, state: LMTrainState, batch) -> Tuple[LMTrainState, Dict[str, Any]]:
         """One micro-step on a device batch. The state is advanced in
         place and returned. `train/grad_norm` is the norm of this
-        micro-step's own gradient, before averaging and clipping."""
-        with global_batch(self.data_parallel):
+        micro-step's own gradient, before averaging and clipping. Its parts
+        run under the spans `train.loss_and_grads`, `train.metrics` and
+        `train.update`."""
+        with span("train.loss_and_grads"), global_batch(self.data_parallel):
             (loss, out), grads = self.loss_fn(state.params, batch, wrt=list(state.params.values()))
-            accuracy = self._audio_accuracy(out, batch, "train")
-        metrics = self._train_metrics(state.step, loss, out, grads, state.opt_state, accuracy)
+        with span("train.metrics"):
+            with global_batch(self.data_parallel):
+                accuracy = self._audio_accuracy(out, batch, "train")
+            metrics = self._train_metrics(state.step, loss, out, grads, state.opt_state, accuracy)
         del out
-        state.opt_state.update(grads)
+        with span("train.update"):
+            state.opt_state.update(grads)
         state.step += 1
         return state, metrics
 

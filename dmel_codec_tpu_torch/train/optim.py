@@ -12,6 +12,8 @@ from typing import Dict, Sequence
 
 import torch
 
+from dmel_codec_tpu_torch.utils.trace import span
+
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
@@ -67,14 +69,17 @@ class AccumulatingAdamW:
         """One micro-step; `grads` (in the order of the parameters) are
         consumed: the accumulation and the clip work in place on them.
         `watch`: gradients of parameters this optimizer does not train (a
-        frozen subtree), which the non-finite guard tests with the rest."""
+        frozen subtree), which the non-finite guard tests with the rest.
+        The guard and the clip, each with its host read, run under the
+        spans `train.update.guard` and `train.update.clip`."""
         grads = list(grads)
         limit = self.config.skip_nonfinite_updates
         if limit > 0:
-            if self.layout is not None:
-                finite = self.layout.all_finite([*grads, *watch])
-            else:
-                finite = bool(torch.stack([torch.isfinite(g).all() for g in (*grads, *watch)]).all())
+            with span("train.update.guard"):  # its host read of the flag
+                if self.layout is not None:
+                    finite = self.layout.all_finite([*grads, *watch])
+                else:
+                    finite = bool(torch.stack([torch.isfinite(g).all() for g in (*grads, *watch)]).all())
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
             self.total_notfinite += 0 if finite else 1
             if not (finite or self.notfinite_count > limit):
@@ -89,10 +94,11 @@ class AccumulatingAdamW:
             if not emit:
                 return
             grads = self.acc_grads
-        norm = float(self.global_norm(grads))
-        if not norm < self.config.grad_clip:
-            torch._foreach_div_(grads, norm)
-            torch._foreach_mul_(grads, self.config.grad_clip)
+        with span("train.update.clip"):  # its host read of the norm
+            norm = float(self.global_norm(grads))
+            if not norm < self.config.grad_clip:
+                torch._foreach_div_(grads, norm)
+                torch._foreach_mul_(grads, self.config.grad_clip)
         lr = self.schedule(self.gradient_step)
         for group in self.adamw.param_groups:
             group["lr"] = lr
