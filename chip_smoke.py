@@ -25,7 +25,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      float32 and bfloat16; then launch by launch against
      act_conv_reference: every (k, d) of the widest fused stage and of a
      ragged C = 40 under both bf16 contracts, alone, onto a residual and as
-     a block's last launch, and in float32;
+     a block's last launch, and in float32; then K3 (the float32
+     per-block stages' convs, split-TF32 on the tensor cores) against its
+     plain version at s0 / s1 widths, B 1 and 16, T = 375, 2,240, 36,000
+     and under the conv's reach, with the residual, the running sum and the
+     mean;
   5. the main path at the flagship width with seeded random bf16 weights:
      three requests of 16 clips x 4 s through log-mel -> DMelCodec.encode ->
      DMelCodec.decode -> serving BigVGAN, with output checks and kernel
@@ -38,9 +42,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      floor counted from its SASS (probes/k1_floor.py);
   6. the float32 serving path, which a released (float32) checkpoint
      takes: stage-wise kernel-vs-plain error of the float32 vocoder, each
-     stage fed the same input (every K2 launch on the split-TF32 kernel);
-     then one codec request of 16 clips x 4 s through a float32 DMelCodec
-     and vocoder, as `cli.stream_codec` builds them: launch counts, output
+     stage fed the same input (every K2 launch on the split-TF32 kernel,
+     s0 / s1 on K1 and K3); then one codec request of 16 clips x 4 s
+     through a float32 DMelCodec and vocoder, as `cli.stream_codec` builds
+     them: launch counts (36 K3 launches a vocoder call; none in phase 5's
+     bf16 requests), output
      checks, xRT with its per-part split, the vocoder stage by stage, a
      profile that must name the split-TF32 kernel;
   7. FA (causal GQA flash attention) against its plain version at the slow
@@ -532,18 +538,22 @@ def plain_kernels():
     """Route the vocoder's kernel calls to their plain versions."""
     from dmel_codec_tpu_torch.models import bigvgan
     from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation_reference
+    from dmel_codec_tpu_torch.ops.stage_conv import stage_conv_reference
     from dmel_codec_tpu_torch.ops.stage_fused import stage_reference, stage_reference_v1
 
     def plain_stage(x, packed, spec, v1=False):
         return (stage_reference_v1 if v1 else stage_reference)(x, packed, spec)
 
-    saved = bigvgan.anti_alias_activation, bigvgan.amp_stage, bigvgan.amp_stage_v1
+    def plain_conv(a, w, bias, dilation, packed=None, **kw):
+        return stage_conv_reference(a, w, bias, dilation, **kw)
+
+    saved = bigvgan.anti_alias_activation, bigvgan.amp_stage, bigvgan.amp_stage_v1, bigvgan.stage_conv
     bigvgan.anti_alias_activation, bigvgan.amp_stage = anti_alias_activation_reference, plain_stage
-    bigvgan.amp_stage_v1 = stage_reference_v1
+    bigvgan.amp_stage_v1, bigvgan.stage_conv = stage_reference_v1, plain_conv
     try:
         yield
     finally:
-        bigvgan.anti_alias_activation, bigvgan.amp_stage, bigvgan.amp_stage_v1 = saved
+        bigvgan.anti_alias_activation, bigvgan.amp_stage, bigvgan.amp_stage_v1, bigvgan.stage_conv = saved
 
 
 # Phase 24, evaluation. Tolerances, absolute in each column's unit:
@@ -1612,6 +1622,7 @@ def main() -> None:
     from dmel_codec_tpu_torch.models import streaming
     from dmel_codec_tpu_torch.ops import anti_alias, library
     from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation, anti_alias_activation_reference
+    from dmel_codec_tpu_torch.ops.stage_conv import stage_conv, stage_conv_reference
     from dmel_codec_tpu_torch.ops.stage_fused import (
         V1_MAX_CHANNELS, StageSpec, act_conv, act_conv_reference, amp_stage, amp_stage_v1, conv_site, pack_stage,
         stage_reference, stage_reference_v1, v1_launch_config,
@@ -1797,6 +1808,27 @@ def main() -> None:
                 f"{e:.3e} of max(1, max|plain|) (tol {TOL[('K2 launch', torch.bfloat16)]:.2e})")
             errs["K2 launch"] = max(errs["K2 launch"], e)
 
+    # K3 (the float32 per-block stages' convs) vs plain: s0 / s1 widths, B 1
+    # and 16, T = 375 (not a multiple of 4), 2,240 (a streaming window's s0)
+    # and 36,000, T under the reach (24 at k = 11, d = 5), with the residual,
+    # the running sum and the mean; within K2's float32 tolerance: split-TF32
+    # and cuDNN's float32 sums each stand ~2e-6 of max(1, max |out|) from
+    # float64 (probes/conv_times.py), one TF32 product ~7e-4
+    log("K3 per-block conv vs plain:")
+    errs["K3"] = 0.0
+    for b_, c_, t_, k_, d_ in [(b_, c_, t_, k_, d_) for b_ in (1, 16) for c_, t_ in ((768, 375), (768, 2240), (384, 36000))
+                               for k_, d_ in ((11, 5), (3, 1))] + [(1, 768, 24, 11, 5)]:
+        a = torch.randn((b_, c_, t_), device=dev, generator=gen)
+        w = torch.randn((c_, c_, k_), device=dev, generator=gen) / math.sqrt(c_ * k_)
+        bias = 0.05 * torch.randn((c_,), device=dev, generator=gen)
+        kw = {"res": torch.randn_like(a), "acc_in": torch.randn_like(a), "mean_of": 3}
+        got = stage_conv(a, w, bias, d_, **kw)
+        torch.cuda.synchronize()
+        e = check_close(f"[{b_}, {c_}, {t_}] k {k_} d {d_}", got, stage_conv_reference(a, w, bias, d_, **kw),
+                        TOL[("K2", torch.float32)])
+        errs["K3"] = max(errs["K3"], e)
+        del a, got, kw
+
     # ---- 5. the main path
     log("main path: flagship DMelCodec + BigVGAN, seeded random weights, bf16")
     torch.manual_seed(0)
@@ -1827,7 +1859,7 @@ def main() -> None:
     def mid(idx, ilen):
         return codec.decode(idx, ilen, generator=gen)
 
-    anti_alias_activation.launches = amp_stage.launches = 0
+    anti_alias_activation.launches = amp_stage.launches = stage_conv.launches = 0
     amp_stage.launches_by_kernel.update(act_conv_tc_kernel=0, act_conv_tf32_kernel=0)
     with torch.no_grad():
         outs = []
@@ -1840,8 +1872,9 @@ def main() -> None:
     k2_by_kernel = dict(amp_stage.launches_by_kernel)
     log(f"  launches over 3 requests: K1 {launches['K1']}, K2 {launches['K2']} "
         f"(expected {3 * want_k1} and {3 * want_k2}); K2 by kernel {k2_by_kernel}")
-    # every bf16 K2 launch runs on the bf16 tensor-core kernel
+    # every bf16 K2 launch runs on the bf16 tensor-core kernel; bf16 s0 / s1 keep cuDNN, no K3
     assert k2_by_kernel == {"act_conv_tc_kernel": 3 * want_k2, "act_conv_tf32_kernel": 0}, k2_by_kernel
+    assert stage_conv.launches == 0, stage_conv.launches
     for r, (idx, wav) in enumerate(outs):
         assert idx.shape == (BATCH, ccfg.dmel_groups * ccfg.n_codebooks, frames // 4), idx.shape
         assert 0 <= int(idx.min()) and int(idx.max()) < ccfg.codebook_size, (idx.min(), idx.max())
@@ -1940,7 +1973,7 @@ def main() -> None:
         torch.cuda.synchronize()
         with plain_kernels():
             want = fused32.stage(i, x)
-        kind = "K2" if fused32.stages[i][0] is not None else "K1"
+        kind = "K2" if fused32.stages[i][0] is not None else "K1 + K3"
         e = check_close(f"s{i} ({kind}) {list(got.shape)}", got, want, TOL[("K2", torch.float32)])
         if kind == "K2":
             errs["K2"] = max(errs["K2"], e)
@@ -1966,17 +1999,20 @@ def main() -> None:
     def mid32(idx_, ilen_):
         return codec32.decode(idx_, ilen_, generator=gen)
 
-    anti_alias_activation.launches = amp_stage.launches = 0
+    anti_alias_activation.launches = amp_stage.launches = stage_conv.launches = 0
     amp_stage.launches_by_kernel.update(act_conv_tc_kernel=0, act_conv_tf32_kernel=0)
     with torch.no_grad():
         idx32, ilen32 = front32(audio)
         wav32 = fused32(mid32(idx32, ilen32))
         torch.cuda.synchronize()
-    f32_launches = {"K1": anti_alias_activation.launches, "K2": amp_stage.launches, **amp_stage.launches_by_kernel}
+    f32_launches = {"K1": anti_alias_activation.launches, "K2": amp_stage.launches, **amp_stage.launches_by_kernel,
+                    "K3": stage_conv.launches}
     log(f"  launches: {f32_launches}; indices {list(idx32.shape)}, wave {list(wav32.shape)} {wav32.dtype} rms "
         f"{wav32.square().mean().sqrt().item():.4f}")
-    assert f32_launches == {"K1": want_k1, "K2": want_k2, "act_conv_tc_kernel": 0, "act_conv_tf32_kernel": want_k2}, \
-        f32_launches
+    # the float32 per-block stages' convs on K3: 18 a stage
+    want_k3 = (want_k1 - 1)
+    assert f32_launches == {"K1": want_k1, "K2": want_k2, "act_conv_tc_kernel": 0, "act_conv_tf32_kernel": want_k2,
+                            "K3": want_k3}, f32_launches
     assert idx32.shape == (BATCH, ccfg.dmel_groups * ccfg.n_codebooks, frames // 4)
     assert wav32.shape == (BATCH, samples) and wav32.dtype == torch.float32
     assert torch.isfinite(wav32).all() and wav32.abs().max() <= 1.0

@@ -16,7 +16,8 @@ Two forwards on the same weights:
     weight norm materialised once, and every stage with
     C <= fuse_max_channels runs its three resblocks as one fused stage
     (ops/stage_fused: kernel K2, or K2-v1 with `use_v2=False` where it
-    holds the stage).
+    holds the stage); the wider AMPBlock1 stages run per block, in float32
+    on K1 and K3 (ops/stage_conv).
 Input mel [B, T, num_mels], output waveform [B, T * prod(upsample_rates)].
 """
 
@@ -35,11 +36,14 @@ import torch.nn.functional as F
 from dmel_codec_tpu_torch.nn.snake import SnakeBeta
 from dmel_codec_tpu_torch.nn.weight_norm import WNConv1d, WNConvTranspose1d
 from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation
+from dmel_codec_tpu_torch.ops.stage_conv import conv_weights, stage_conv
 from dmel_codec_tpu_torch.ops.stage_fused import (
     V1_MAX_CHANNELS,
     StageSpec,
     amp_stage,
     amp_stage_v1,
+    conv_site,
+    launch_plan,
     pack_stage,
 )
 from dmel_codec_tpu_torch.utils.trace import span
@@ -212,17 +216,19 @@ class FusedBigVGAN:
         self.ups = [up[0].weight() for up in model.ups]
         self.routes = []
         self.stages = []  # per stage: (spec, packed) fused, or (None, weights) per-block
+        self.block_specs = {}  # per-block AMPBlock1 stage -> its StageSpec (K3's launch plan)
+        self._k3_packed = {}  # (stage, device) -> each conv's K3 weights, made at the first float32 call
         for i in range(len(cfg.upsample_rates)):
             ch = cfg.stage_channels(i)
             blocks = model.stage_blocks(i)
+            spec = StageSpec(
+                channels=ch,
+                kernel_sizes=tuple(cfg.resblock_kernel_sizes),
+                dilations=tuple(tuple(d) for d in cfg.resblock_dilation_sizes),
+                activation=cfg.activation,
+                logscale=cfg.snake_logscale,
+            )
             if cfg.resblock == "1" and ch <= fuse_max_channels:
-                spec = StageSpec(
-                    channels=ch,
-                    kernel_sizes=tuple(cfg.resblock_kernel_sizes),
-                    dilations=tuple(tuple(d) for d in cfg.resblock_dilation_sizes),
-                    activation=cfg.activation,
-                    logscale=cfg.snake_logscale,
-                )
                 packed = pack_stage(blocks, spec)
                 packed["w"] = [w.to(dtype) for w in packed["w"]]
                 self.stages.append((spec, packed))
@@ -231,6 +237,8 @@ class FusedBigVGAN:
                 weights = [[conv.weight() for conv in _block_convs(b)] for b in blocks]
                 self.stages.append((None, weights))
                 self.routes.append("block")
+                if cfg.resblock == "1":
+                    self.block_specs[i] = spec
 
     @property
     def device(self) -> torch.device:
@@ -260,8 +268,31 @@ class FusedBigVGAN:
             if self.routes[i] == "K2-v1":
                 return amp_stage_v1(x, arg, spec)
             return amp_stage(x, arg, spec, v1=self.routes[i] == "K2/v1")
+        if i in self.block_specs and x.dtype == torch.float32:
+            return self._k1_k3(i, x)
         blocks = self.model.stage_blocks(i)
         return sum(b(x, w) for b, w in zip(blocks, arg)) / len(blocks)
+
+    def _k1_k3(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Float32 "block" stage i along K2's `launch_plan`: per launch the
+        conv's activation (K1) on the source plane, then the conv (K3) with
+        the launch's residual, running sum and mean; the same additions in
+        the same order as `AMPBlock1.forward` and the mean over the blocks."""
+        spec, blocks = self.block_specs[i], self.model.stage_blocks(i)
+        weights = [w for ws in self.stages[i][1] for w in ws]
+        convs = [conv for b in blocks for conv in _block_convs(b)]
+        acts = [act for b in blocks for act in b.activations]
+        key = (i, x.device)
+        if x.device.type != "cpu" and key not in self._k3_packed:
+            self._k3_packed[key] = [conv_weights(w.to(device=x.device, dtype=torch.float32)) for w in weights]
+        packed = self._k3_packed.get(key, [None] * len(weights))
+        planes = {"x": x}
+        for n, src, out, res, acc_in, mean_of in launch_plan(spec):
+            planes[out] = stage_conv(
+                acts[n](planes[src]), weights[n], convs[n].bias, conv_site(spec, n)[1], res=planes.get(res),
+                acc_in=planes.get(acc_in), mean_of=mean_of, packed=packed[n],
+            )
+        return planes["y"]
 
     @torch.no_grad()
     def post(self, x: torch.Tensor) -> torch.Tensor:
