@@ -19,7 +19,7 @@ import torch
 from dmel_codec_tpu_torch.eval.codecs import DMelCodecAdapter
 from dmel_codec_tpu_torch.models.bigvgan import BigVGANConfig, load_torch_checkpoint
 from dmel_codec_tpu_torch.models.codec import DMelCodec, DMelCodecConfig
-from dmel_codec_tpu_torch.models.lm import SlowFastLMConfig
+from dmel_codec_tpu_torch.models.lm import ChatMusicLM, SlowFastLMConfig
 from dmel_codec_tpu_torch.train.checkpoint import CheckpointManager
 from dmel_codec_tpu_torch.utils.logging import RankedLogger
 
@@ -54,6 +54,17 @@ def load_module(module: torch.nn.Module, sd: dict, device) -> torch.nn.Module:
     return module.to(device).eval()
 
 
+def load_lm(config: SlowFastLMConfig, sd: dict, device) -> ChatMusicLM:
+    """A ChatMusicLM of `config` holding the state_dict's tensors (in their
+    dtype), on `device`. Built on the meta device and given the tensors
+    themselves: no float32 model is made on the host first, which for a
+    16 B decoder would take 64 GB."""
+    with torch.device("meta"):
+        model = ChatMusicLM(config)
+    model.load_state_dict(sd, strict=True, assign=True)
+    return model.to(device).eval()
+
+
 def load_codec_adapter(
     ckpt_dir: str,
     codec_cfg: Optional[DMelCodecConfig] = None,
@@ -77,7 +88,10 @@ def load_codec_adapter(
 def build_lm_config(cfg: dict) -> SlowFastLMConfig:
     """SlowFastLMConfig from a CLI YAML: optional `slow_lm:` / `fast_lm:`
     sections override the flagship TransformerConfigs (testing, smaller
-    deployments); text/audio loss weights come from the top level."""
+    deployments; `kind: deepseek_v3` with its latent-attention and expert
+    keys makes a DeepSeek-V3 decoder, configs/lm_infer_moonlight.yaml);
+    text/audio loss weights come from the top level. A key that is no
+    TransformerConfig field raises TypeError."""
     kwargs = dict(
         text_weight=cfg.get("text_weight", 0.01),
         audio_weight=cfg.get("audio_weight", 1.0),

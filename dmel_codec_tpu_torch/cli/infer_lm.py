@@ -12,7 +12,8 @@ text+audio (the audio prompt is tokenized through the codec).
 (cli/common.py). Optional
 YAML sections `model:` (DMelCodecConfig), `vocoder:` (BigVGANConfig) and
 `slow_lm:` / `fast_lm:` size the models; without them they are the
-flagship ones. Runs on `--device` (default cuda).
+flagship ones (`configs/lm_infer_moonlight.yaml`: a DeepSeek-V3 slow
+decoder at Moonlight-16B-A3B's sizes). Runs on `--device` (default cuda).
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ from scipy.io import wavfile
 from dmel_codec_tpu_torch.cli.common import (
     build_lm_config,
     load_codec_adapter,
+    load_lm,
     load_lm_params,
-    load_module,
 )
 from dmel_codec_tpu_torch.data.audio import load_audio
 from dmel_codec_tpu_torch.lm.generate import InferenceConfig, SlowFastGenerator
@@ -35,7 +36,6 @@ from dmel_codec_tpu_torch.lm.inputs import TokenGridBuilder
 from dmel_codec_tpu_torch.lm.tokenizer import load_text_tokenizer
 from dmel_codec_tpu_torch.models.bigvgan import BigVGANConfig
 from dmel_codec_tpu_torch.models.codec import DMelCodecConfig
-from dmel_codec_tpu_torch.models.lm import ChatMusicLM
 from dmel_codec_tpu_torch.utils.config import dataclass_from_dict, load_yaml
 from dmel_codec_tpu_torch.utils.logging import RankedLogger
 from dmel_codec_tpu_torch.utils.precision import strict_float32
@@ -67,7 +67,7 @@ def main(argv=None):
         prompt = "who are you?"
 
     lm_cfg = build_lm_config(cfg)
-    model = load_module(ChatMusicLM(lm_cfg), load_lm_params(cfg["lm_ckpt_dir"]), device)
+    model = load_lm(lm_cfg, load_lm_params(cfg["lm_ckpt_dir"]), device)
 
     vocoder_cfg = cfg.get("vocoder")
     codec = load_codec_adapter(

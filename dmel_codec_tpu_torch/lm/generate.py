@@ -102,7 +102,10 @@ class SlowFastGenerator:
         self.cfg: SlowFastLMConfig = model.config
         self.icfg = inference_config
         self._graphs: Dict[tuple, _Graph] = {}
-        self.stats: dict = {}  # the last generation's: graphed, frames_per_replay, host_reads, capture_s
+        # the last generation's: graphed, frames_per_replay, host_reads, capture_s, replay_s, and with
+        # experts in the slow decoder pairs_prefill / pairs_decode ([moe layers, experts] routed pairs)
+        self.stats: dict = {}
+        self._pairs = model.slow_decoder.track_pairs()
 
     @property
     def device(self) -> torch.device:
@@ -167,10 +170,12 @@ class SlowFastGenerator:
     # ---- one frame over fixed-shape buffers ------------------------------
     def _frame(self, cache, embeds, window, window_valid, generator, fast_decode: Callable):
         """One frame: slow step -> text tokens [B]; the fast decode -> audio
-        tokens [B, C]. The cache's index advances in place."""
-        text_logits, slow_hidden, stepped = self.model.forward_generate_text(embeds, cache)
+        tokens [B, C]. The cache's index advances in place. The text head
+        runs on the last position only (a prefill's [B, S, V] logits of a
+        long prompt would take gigabytes)."""
+        slow_hidden, stepped = self.model.slow_decoder(embeds, cache=cache)
         cache["index"].copy_(stepped["index"])
-        text_tokens = self._sample(generator, text_logits[:, -1, :])
+        text_tokens = self._sample(generator, self.model.text_head(slow_hidden[:, -1, :]))
         frame = fast_decode(slow_hidden[:, -1:, :], window, window_valid, generator)
         return text_tokens, frame
 
@@ -201,11 +206,13 @@ class SlowFastGenerator:
         loop.window_valid[:, -1] = True
 
     def _prefill(self, loop: _Loop, prompt_t, prompt_a, generator, fast_decode: Callable) -> None:
-        """Reset `loop` and run the prompt [B, S] / [B, S, C] as frame 0."""
+        """Reset `loop` (and the routed-pair counter) and run the prompt
+        [B, S] / [B, S, C] as frame 0."""
         icfg, n = self.icfg, self.icfg.max_new_tokens
-        for t in (loop.cache["k"], loop.cache["v"], loop.cache["index"], loop.window, loop.window_valid,
-                  loop.out_text, loop.out_audio):
+        for t in (*loop.cache.values(), loop.window, loop.window_valid, loop.out_text, loop.out_audio):
             t.zero_()
+        if self._pairs is not None:
+            self._pairs.zero_()
         # rolling penalty window primed with the prompt's last audio rows
         n_hist = min(prompt_t.shape[1], icfg.windows_length)
         if n_hist:
@@ -358,17 +365,23 @@ class SlowFastGenerator:
             prompt_t = torch.as_tensor(np.asarray(text_tokens), dtype=torch.long, device=dev)
             prompt_a = torch.as_tensor(np.asarray(audio_tokens), dtype=torch.long, device=dev)
             self._prefill(loop, prompt_t, prompt_a, generator, prefill_decode)
+        t1 = time.perf_counter()
         if graphed:
             reads = self._replay(entry, generator)
         else:
             reads = self._run_eager(loop, generator, step_decode)
+        replay_s = time.perf_counter() - t1  # from the prefill's last launch to the loop's end
         out = self._fetch(loop)
         self.stats = {
             "graphed": graphed,
             "frames_per_replay": FRAMES_PER_GRAPH if graphed else 1,
             "host_reads": reads + 1,  # and the one fetch
             "capture_s": capture_s,
+            "replay_s": replay_s,
         }
+        if self._pairs is not None:  # after the fetch: the device has finished
+            pairs = self._pairs.to("cpu", copy=True).numpy()
+            self.stats.update(pairs_prefill=pairs[:, 0], pairs_decode=pairs[:, 1])
         return out
 
     def _generate_one(self, text_tokens, audio_tokens, generator, prefill_decode, step_decode, graphed=True):

@@ -2,7 +2,8 @@
 (port of `dmel_codec_tpu/models/lm.py`).
 
   * slow model: Qwen2-0.5B-shaped decoder over summed embeddings
-    text_emb(ids) + projector(concat of 10 shifted-codebook audio embs)
+    text_emb(ids) + projector(concat of 10 shifted-codebook audio embs), or
+    any `TransformerConfig` kind (a DeepSeek-V3 decoder: MLA and experts)
   * fast model: small depth decoder over per-frame windows
     [slow_hidden, cb0..cb9] (11 tokens), pre-RMSNorm on the slow hidden +
     896->480 projection
@@ -37,6 +38,7 @@ from dmel_codec_tpu_torch.models.transformer import (
     TransformerConfig,
     init_kv_cache,
 )
+from dmel_codec_tpu_torch.models.deepseek_v3 import Experts, TopkRouter
 from dmel_codec_tpu_torch.parallel.mesh import global_count
 from dmel_codec_tpu_torch.parallel.tensor import copy_to_model, vocab_parallel_cross_entropy
 
@@ -127,12 +129,18 @@ class ChatMusicLM(nn.Module):
     def reset_parameters(
         self, std: float = 0.02, generator: Optional[torch.Generator] = None
     ) -> None:
-        """HF Qwen2's scheme: N(0, std) weights, zero biases, unit norms."""
+        """HF Qwen2's scheme: N(0, std) weights, zero biases, unit norms;
+        experts and routers as HF DeepseekV3's (N(0, std), a zero
+        correction bias)."""
         for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Embedding)):
+            if isinstance(m, (nn.Linear, nn.Embedding, TopkRouter)):
                 m.weight.normal_(0.0, std, generator=generator)
-                if getattr(m, "bias", None) is not None:
-                    m.bias.zero_()
+                for bias in ("bias", "e_score_correction_bias"):
+                    if getattr(m, bias, None) is not None:
+                        getattr(m, bias).zero_()
+            elif isinstance(m, Experts):
+                m.gate_up_proj.normal_(0.0, std, generator=generator)
+                m.down_proj.normal_(0.0, std, generator=generator)
             elif isinstance(m, RMSNorm):
                 m.weight.fill_(1.0)
 

@@ -31,6 +31,12 @@ loads into `Decoder` directly.
     attention or MLP block holds its rank's whole heads or MLP columns and
     takes its head counts from its projections' widths; Megatron's copy
     and reduce over `model_group` bracket it (None: one process).
+  * `kind="deepseek_v3"` builds DeepSeek-V3 blocks instead
+    (`models/deepseek_v3.py`, HF `DeepseekV3DecoderLayer`, no JAX
+    counterpart): multi-head latent attention with its latent cache, and
+    from layer `first_k_dense_replace` on a mixture of experts in place of
+    the MLP. The kind is fixed when the decoder is built; the cache's
+    layout follows it (`init_kv_cache`).
 `scan_layers` of the JAX config (one compiled layer body under `nn.scan`)
 is an XLA device and has no counterpart here.
 """
@@ -70,10 +76,46 @@ class TransformerConfig:
     # remat: recompute each block's activations in the backward pass instead
     # of keeping them (training memory; cache-less path only).
     remat: bool = False
+    # kind: "qwen2" (the blocks below) or "deepseek_v3" (models/deepseek_v3.py, HF DeepseekV3's
+    # names): latent attention of rank kv_lora_rank, query / key heads of
+    # qk_nope_head_dim + qk_rope_head_dim, value heads of v_head_dim, no
+    # query compression; `first_k_dense_replace` dense layers of
+    # intermediate_size, then mixtures of n_routed_experts SwiGLU experts of
+    # moe_intermediate_size, num_experts_per_tok a token (sigmoid scores,
+    # top-k by score + correction bias, weights normalised and scaled by
+    # routed_scaling_factor), plus n_shared_experts experts' width of shared
+    # SwiGLU. RoPE on the rope part only, in DeepSeek's interleaved pairs.
+    kind: str = "qwen2"
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    n_routed_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    n_shared_experts: int = 0
+    first_k_dense_replace: int = 0
+    routed_scaling_factor: float = 1.0
+
+    def __post_init__(self):
+        if self.kind not in CACHE_KEYS:
+            raise ValueError(f"unknown decoder kind {self.kind!r}: one of {sorted(CACHE_KEYS)}")
+        if self.kind == "deepseek_v3" and self.flash_attention:
+            raise ValueError("flash_attention runs the qwen2 kind's equal q / v head sizes; deepseek_v3 attends by einsum")
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    @property
+    def rope_dim(self) -> int:
+        """The width RoPE rotates: the whole head, or MLA's rope part."""
+        return self.qk_rope_head_dim if self.kind == "deepseek_v3" else self.head_dim
+
+
+# The cache's per-layer tensors of each kind: per-head keys and values; or
+# MLA's normalised latent and rotated shared rope key side by side.
+CACHE_KEYS = {"qwen2": ("k", "v"), "deepseek_v3": ("kv",)}
 
 
 # Flagship sizes (Qwen2-0.5B slow decoder, 12-layer fast depth decoder).
@@ -136,14 +178,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def init_kv_cache(
     config: TransformerConfig, batch: int, max_len: int, dtype=torch.float32, device=None
 ) -> dict:
-    """Static-shape cache: per-layer K/V [L, B, max_len, kv_heads, head_dim]
-    and the number of filled positions (a 0-d int64 tensor on `device`)."""
-    shape = (config.num_layers, batch, max_len, config.num_kv_heads, config.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "index": torch.zeros((), dtype=torch.int64, device=device),
-    }
+    """Static-shape cache and the number of filled positions `index` (a 0-d
+    int64 tensor on `device`). qwen2: per-layer K/V [L, B, max_len,
+    kv_heads, head_dim]; deepseek_v3: per-layer "kv" [L, B, max_len,
+    kv_lora_rank + qk_rope_head_dim], each position's normalised latent
+    then its rotated rope key (shared by the heads)."""
+    if config.kind == "deepseek_v3":
+        shape = (config.num_layers, batch, max_len, config.kv_lora_rank + config.qk_rope_head_dim)
+        cache = {"kv": torch.zeros(shape, dtype=dtype, device=device)}
+    else:
+        shape = (config.num_layers, batch, max_len, config.num_kv_heads, config.head_dim)
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache["index"] = torch.zeros((), dtype=torch.int64, device=device)
+    return cache
 
 
 class Attention(nn.Module):
@@ -205,9 +252,9 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, config: TransformerConfig):
+    def __init__(self, config: TransformerConfig, intermediate_size: Optional[int] = None):
         super().__init__()
-        h, i = config.hidden_size, config.intermediate_size
+        h, i = config.hidden_size, intermediate_size or config.intermediate_size
         self.gate_proj = nn.Linear(h, i, bias=False)
         self.up_proj = nn.Linear(h, i, bias=False)
         self.down_proj = nn.Linear(i, h, bias=False)
@@ -240,8 +287,60 @@ class Decoder(nn.Module):
     def __init__(self, config: TransformerConfig):
         super().__init__()
         self.config = config
-        self.layers = nn.ModuleList(Block(config) for _ in range(config.num_layers))
+        if config.kind == "deepseek_v3":
+            from dmel_codec_tpu_torch.models import deepseek_v3  # it builds on this module's norm, RoPE and MLP
+
+            self.layers = nn.ModuleList(deepseek_v3.Block(config, i) for i in range(config.num_layers))
+        else:
+            self.layers = nn.ModuleList(Block(config) for _ in range(config.num_layers))
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+        self.cache_keys = CACHE_KEYS[config.kind]
+        self.pair_counts: Optional[torch.Tensor] = None  # see track_pairs
+        self.route_log: Optional[torch.Tensor] = None  # see track_routes
+
+    def _moe_layers(self) -> list:
+        return [layer.mlp for layer in self.layers if hasattr(layer.mlp, "pair_counts")]
+
+    def track_pairs(self) -> Optional[torch.Tensor]:
+        """The MoE layers' routed-pair counter, int64 [moe layers, 2,
+        experts] on the decoder's device: each layer adds its (token, expert)
+        pairs in place, under [:, 0] in a call over several positions (a
+        prefill, a teacher-forced forward) and under [:, 1] in a
+        one-position step (a decode, also inside a captured graph). Made at
+        the first call and shared by later callers; whoever reads it zeroes
+        it. None for a decoder without experts."""
+        moe = self._moe_layers()
+        if not moe:
+            return None
+        device = self.norm.weight.device
+        if self.pair_counts is None or self.pair_counts.device != device:
+            e = self.config.n_routed_experts
+            self.pair_counts = torch.zeros((len(moe), 2, e), dtype=torch.int64, device=device)
+            for m, counts in zip(moe, self.pair_counts):
+                m.pair_counts = counts
+        return self.pair_counts
+
+    def track_routes(self, batch: int, max_len: int) -> Optional[torch.Tensor]:
+        """The MoE layers' routing log, int16 [moe layers, batch, max_len,
+        num_experts_per_tok] on the decoder's device: in every call over a
+        cache of `batch` rows each layer writes the experts it chose for
+        each position at the position's cache row (also inside a captured
+        graph, so ask before the capture). Made once, at the first call; a
+        later call over the cache overwrites its rows. None for a decoder
+        without experts; nothing is logged until someone asks."""
+        moe = self._moe_layers()
+        if not moe:
+            return None
+        if self.route_log is None:
+            k = self.config.num_experts_per_tok
+            self.route_log = torch.zeros((len(moe), batch, max_len, k), dtype=torch.int16,
+                                         device=self.norm.weight.device)
+            for m, log in zip(moe, self.route_log):
+                m.route_log = log
+        elif self.route_log.shape[1:3] != (batch, max_len):
+            raise ValueError(f"the routing log is kept for {tuple(self.route_log.shape[1:3])} (a captured graph "
+                             f"may write to it), not {(batch, max_len)}")
+        return self.route_log
 
     def forward(
         self,
@@ -273,7 +372,7 @@ class Decoder(nn.Module):
                 if not (cfg.flash_attention and s >= cfg.flash_min_seq):
                     attn_mask = torch.ones(s, s, dtype=torch.bool, device=dev).tril().expand(b, s, s)
         else:
-            index, max_len = cache["index"], cache["k"].shape[2]
+            index, max_len = cache["index"], cache[self.cache_keys[0]].shape[2]
             if s > max_len:
                 raise ValueError(f"KV cache of {max_len} positions cannot take {s}")
             steps = torch.arange(s, device=dev)
@@ -284,12 +383,12 @@ class Decoder(nn.Module):
             key_pos = torch.arange(max_len, device=dev)[None, None, :]  # [1, 1, T]
             attn_mask = key_pos <= positions[:, :, None]  # [B, S, T]
 
-        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        cos, sin = rope_cos_sin(positions, cfg.rope_dim, cfg.rope_theta)
 
         x = inputs_embeds
         for i, layer in enumerate(self.layers):
             if cache is not None:
-                x = layer(x, cos, sin, attn_mask, (cache["k"][i], cache["v"][i]), rows, mask_is_causal)
+                x = layer(x, cos, sin, attn_mask, [cache[k][i] for k in self.cache_keys], rows, mask_is_causal)
             elif cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(layer, x, cos, sin, attn_mask, None, None, mask_is_causal, use_reentrant=False)
             else:
@@ -297,5 +396,5 @@ class Decoder(nn.Module):
         x = self.norm(x)
 
         if cache is not None:
-            cache = {"k": cache["k"], "v": cache["v"], "index": cache["index"] + s}
+            cache = dict(cache, index=cache["index"] + s)
         return x, cache

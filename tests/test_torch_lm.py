@@ -129,14 +129,25 @@ def _apply(model, params, *args, method=None):
 # ---- configs ---------------------------------------------------------------
 
 
+# The port's decoder kind beyond the JAX package's one
+# (models/deepseek_v3.py): fields the JAX TransformerConfig has not, whose
+# defaults leave the qwen2 kind.
+PORT_ONLY = {"kind": "qwen2", "kv_lora_rank": 0, "qk_nope_head_dim": 0, "qk_rope_head_dim": 0, "v_head_dim": 0,
+             "n_routed_experts": 0, "num_experts_per_tok": 0, "moe_intermediate_size": 0, "n_shared_experts": 0,
+             "first_k_dense_replace": 0, "routed_scaling_factor": 1.0}
+
+
 def test_configs_mirror_the_jax_defaults():
-    """Every field of the port's configs has the JAX default; the JAX
-    TransformerConfig's one extra field (`scan_layers`) is an XLA device."""
+    """Every field of the port's configs has the JAX default, but the
+    DeepSeek-V3 kind's fields, which the JAX package has not (PORT_ONLY, at
+    the defaults that make the qwen2 kind); the JAX TransformerConfig's one
+    extra field (`scan_layers`) is an XLA device."""
     jt = dataclasses.asdict(jax_tf.SLOW_LM_CONFIG)
-    assert {k: jt[k] for k in dataclasses.asdict(port_tf.SLOW_LM_CONFIG)} == dataclasses.asdict(port_tf.SLOW_LM_CONFIG)
+    for port_cfg, jax_cfg in ((port_tf.SLOW_LM_CONFIG, jt), (port_tf.FAST_LM_CONFIG, dataclasses.asdict(jax_tf.FAST_LM_CONFIG))):
+        pt = dataclasses.asdict(port_cfg)
+        assert {k: pt[k] for k in PORT_ONLY} == PORT_ONLY and not set(PORT_ONLY) & set(jax_cfg)
+        assert {k: jax_cfg[k] for k in pt if k not in PORT_ONLY} == {k: v for k, v in pt.items() if k not in PORT_ONLY}
     assert set(jt) - set(dataclasses.asdict(port_tf.SLOW_LM_CONFIG)) == {"scan_layers"}
-    jf = dataclasses.asdict(jax_tf.FAST_LM_CONFIG)
-    assert {k: jf[k] for k in dataclasses.asdict(port_tf.FAST_LM_CONFIG)} == dataclasses.asdict(port_tf.FAST_LM_CONFIG)
     jl, pl_ = dataclasses.asdict(jax_lm.SlowFastLMConfig()), dataclasses.asdict(port_lm.SlowFastLMConfig())
     for k, v in pl_.items():
         if k not in ("slow", "fast"):
