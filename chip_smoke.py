@@ -61,15 +61,20 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
   9. LM serving through the entry point: `cli.infer_lm.main` on checkpoints
      written to a temporary directory, text prompt -> 128 frames (replays
      of the captured frame step) -> codec decode -> vocoder -> WAV, with
-     output checks and K1 / K2 / FA launch counts; then one eager frame
+     output checks and K1 / K2 / FA launch counts; then K4 (a fast depth
+     decoder block step in bf16) against its plain version on each of the
+     LM's 12 fast blocks at B = 1, 16 and 64 x [11, 480] (and a captured
+     graph's replay against the eager call), and one block step timed
+     beside the modules' (probes/fast_block_times.py); then one eager frame
      step with each fast decode under set_sync_debug_mode("error"), the
      captured graph against the eager step (the same tokens, greedy float32
      and seeded bf16, B = 1 and 16), `generate` (B = 1) and
      `generate_batched` (B = 16 and 64) over 128 frames: frames/s, the
      steady frame's ms beside one eager frame step's, the device's idle
-     share and top kernels over two replays, the capture's seconds and the
-     host's reads per generation; and greedy agreement of the three
-     generation forms;
+     share and top kernels over two replays, the capture's seconds, the
+     host's reads per generation and K4's launches (4 for each fast block
+     call whose host code ran; every one at B = 16 and 64); and greedy
+     agreement of the three generation forms;
  10. FA, its plain version and PyTorch's scaled_dot_product_attention (a
      yardstick only: nothing in the port calls it) at the main-path shape,
      with FA's launch (grid, threads and shared memory per block);
@@ -242,6 +247,7 @@ K2_TC_SOURCE = "dmel_codec_tpu_torch/csrc/stage_fused_tc.cu"
 FA_SOURCE = "dmel_codec_tpu_torch/csrc/flash_attention.cu"
 FA_BWD_SOURCE = "dmel_codec_tpu_torch/csrc/flash_attention_bwd.cu"
 V1_SOURCE = "dmel_codec_tpu_torch/csrc/stage_fused_v1.cu"
+K4_SOURCE = "dmel_codec_tpu_torch/csrc/fast_block.cu"
 PROBES_SOURCE = "dmel_codec_tpu_torch/csrc/probes.cu"
 CODEC_TRAIN_BATCH, CODEC_TRAIN_BIG_BATCH, OVERFIT_SECONDS, OVERFIT_STEPS, OVERFIT_LR = 16, 52, 60.0, 250, 3e-3
 LONG_MINUTES, CHAIN_SECONDS, CLI_SECONDS, EXACT_SECONDS = 10, 60, 20, 8
@@ -535,8 +541,9 @@ def jitter_snake(module: torch.nn.Module) -> torch.nn.Module:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the vocoder's kernel calls to their plain versions."""
-    from dmel_codec_tpu_torch.models import bigvgan
+    """Route the vocoder's and the fast depth decoder's kernel calls to their plain versions."""
+    from dmel_codec_tpu_torch.models import bigvgan, transformer
+    from dmel_codec_tpu_torch.ops.fast_block import fast_block_reference
     from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation_reference
     from dmel_codec_tpu_torch.ops.stage_conv import stage_conv_reference
     from dmel_codec_tpu_torch.ops.stage_fused import stage_reference, stage_reference_v1
@@ -548,12 +555,15 @@ def plain_kernels():
         return stage_conv_reference(a, w, bias, dilation, **kw)
 
     saved = bigvgan.anti_alias_activation, bigvgan.amp_stage, bigvgan.amp_stage_v1, bigvgan.stage_conv
+    saved_k4 = transformer.fast_block
     bigvgan.anti_alias_activation, bigvgan.amp_stage = anti_alias_activation_reference, plain_stage
     bigvgan.amp_stage_v1, bigvgan.stage_conv = stage_reference_v1, plain_conv
+    transformer.fast_block = fast_block_reference
     try:
         yield
     finally:
         bigvgan.anti_alias_activation, bigvgan.amp_stage, bigvgan.amp_stage_v1, bigvgan.stage_conv = saved
+        transformer.fast_block = saved_k4
 
 
 # Phase 24, evaluation. Tolerances, absolute in each column's unit:
@@ -1490,6 +1500,93 @@ def infer_prompts(cfg, b: int):
     return text, audio
 
 
+# K4 against its plain version (the block's module maths, op for op, on the card): K4 keeps float32 where
+# the module rounds to bf16 inside a launch (q / k / v before RoPE, the projections before the residuals,
+# the norms' scale before the products, the MLP's gate and up), a few bf16 ulps of a block's output: 3e-2
+# of max(1, max |plain|), tests/test_torch_fast_block.py's CARD_TOL.
+TOL_K4 = 3e-2
+
+
+@torch.no_grad()
+def fast_block_phase(dev, lm) -> dict:
+    """Phase 9 after the entry point, K4: the fast depth decoder's input as the main path makes it (the
+    projected slow hidden state and 10 codebooks' embeddings, [B, 11, 480] bf16) through each of the LM's
+    12 fast blocks on K4 and on its plain version, each block fed the plain version's output, at B = 1,
+    16 and 64; 4 launches a call; at B = 16 a captured graph of the 12 calls replays the eager calls' bits.
+    Then one block step timed on K4 and on the modules at [16, 11, 480] (probes/fast_block_times.py)."""
+    from dmel_codec_tpu_torch.models.transformer import rope_cos_sin
+    from dmel_codec_tpu_torch.ops.fast_block import BlockWeights, fast_block, fast_block_reference
+    from dmel_codec_tpu_torch.probes import fast_block_times
+
+    cfg, dec = lm.config, lm.fast_decoder
+    fcfg, c = cfg.fast, cfg.audio_codebook_count
+    assert dec.fusable(c + 1), "the phase's bf16 LM must run its fast blocks on K4"
+    weights = [BlockWeights.of(layer) for layer in dec.layers]
+    cos, sin = rope_cos_sin(torch.arange(c + 1, device=dev), fcfg.head_dim, fcfg.rope_theta)
+    eps = fcfg.rms_norm_eps
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {"max_rel_err": {}}
+    for b in (1, SERVE_BATCH, 64):
+        slow_hidden = torch.randn((b, 1, cfg.slow.hidden_size), device=dev, generator=gen).to(torch.bfloat16)
+        ids = torch.randint(0, cfg.audio_vocab, (b, c), device=dev, generator=gen)
+        x = torch.cat([lm.fast_depth_pos0(slow_hidden), lm.fast_audio_embed(ids)], dim=1)
+        x0, worst = x, 0.0
+        before = fast_block.launches
+        for w in weights:
+            want = fast_block_reference(x, w, cos, sin, eps)
+            got = fast_block(x, w, cos, sin, eps)
+            worst = max(worst, max_err(got, want) / max(1.0, want.float().abs().max().item()))
+            x = want
+        torch.cuda.synchronize()
+        launched = fast_block.launches - before
+        log(f"  K4 vs plain, B = {b} x [{c + 1}, {fcfg.hidden_size}] bf16, {len(weights)} blocks: largest error "
+            f"{worst:.3e} of max(1, max |plain|) (tol {TOL_K4:.0e}); {launched} launches")
+        assert worst <= TOL_K4 and launched == 4 * len(weights), (b, worst, launched)
+        out["max_rel_err"][b] = worst
+        if b == SERVE_BATCH:
+            def chain(y):
+                for w in weights:
+                    y = fast_block(y, w, cos, sin, eps)
+                return y
+
+            eager = chain(x0)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                chain(x0)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = chain(x0)
+            graph.replay()
+            torch.cuda.synchronize()
+            same = torch.equal(replayed, eager)
+            log(f"  K4, 12 blocks at B = {b}: a captured graph's replay against the eager calls, same bits: {same}")
+            assert same
+            del graph
+    (out["step"],) = fast_block_times.steps(dev, 50, batches=(SERVE_BATCH,))
+    return out
+
+
+def k4_entry(k4: dict, generation: dict) -> dict:
+    """K4's entry of the kernels line, from `fast_block_phase` and `generation_phase`."""
+    step = k4["step"]
+    return {"name": "fast_block (K4)", "route": "cuda", "source": K4_SOURCE,
+            "replaces": "dmel_codec_tpu/models/transformer.py Block (no Pallas kernel: XLA fuses the block)",
+            "launches": generation[f"B={SERVE_BATCH}"]["k4_launches"],
+            "launches_in": f"phase 9's first generate_batched call at B = {SERVE_BATCH} (its host-run frames)",
+            "max_abs_err": max(k4["max_rel_err"].values()), "max_rel_err_by_batch": k4["max_rel_err"],
+            "ms": step["k4_us"] / 1e3, "plain_ms": step["modules_us"] / 1e3,
+            "bound_ms": step["bound_us"] / 1e3, "bound_by": "bytes", "library_ms": None,
+            "per": f"one block step at {list(step['shape'])} bf16 ({step['launches_k4']:.0f} launches; plain: the "
+                   f"modules' {step['launches_modules']} kernels), in a captured graph of 12 steps",
+            "kernels_us": step["k4_kernels_us"],
+            "design": "four launches a block step, no grid-wide sync inside one: RMSNorm + q / k / v + RoPE; "
+                      "causal GQA over the S <= 16 positions of one sequence + o_proj + residual; RMSNorm + gate / "
+                      "up + SiLU x up; down + residual over a cluster of 6 CTAs summed in rank order through "
+                      "DSMEM. mma.sync bf16 with float32 sums, weight tiles fetched before griddepcontrol.wait"}
+
+
 @torch.no_grad()
 def generation_phase(dev, lm, grid) -> dict:
     """Phase 9 after the entry point. (a) The frame step reads nothing on the host: one eager frame with
@@ -1497,10 +1594,11 @@ def generation_phase(dev, lm, grid) -> dict:
     eager step on the card: the same tokens, greedy float32 and seeded bf16, B = 1 and 16. (c) frames/s
     over LM_FRAMES frames at B = 1, 16 and 64 (bf16 weights and cache, the default sampler), the steady
     frame's ms (replays back to back) beside one eager frame step's, the device's idle share and top
-    kernels over two replays, the capture's seconds and the host's reads per generation. (d) Greedy
-    agreement of the three generation forms."""
+    kernels over two replays, the capture's seconds, the host's reads per generation and K4's launches in
+    the first call. (d) Greedy agreement of the three generation forms."""
     from dmel_codec_tpu_torch.lm import generate as gen_mod
     from dmel_codec_tpu_torch.lm.generate import InferenceConfig, SlowFastGenerator
+    from dmel_codec_tpu_torch.ops.fast_block import K4_LAUNCHES, fast_block
 
     lm_cfg, k = lm.config, gen_mod.FRAMES_PER_GRAPH
     out = {"frames_per_replay": k}
@@ -1565,8 +1663,14 @@ def generation_phase(dev, lm, grid) -> dict:
         def run(gen_):
             return gen_.generate(*grid, g) if b == 1 else gen_.generate_batched(text_b, audio_b, g)
 
+        fast_block.launches = 0
         first_ms = cuda_ms(lambda: run(gen), 1, warm=False)
         capture_s = gen.stats["capture_s"]
+        # K4: 4 launches for each fast block call whose host code ran (the prefill, the warm-up and the
+        # captured frames); generate's prefill (B = 1) takes the growing fast decode, on the modules
+        k4_launches, k4_share = fast_block.launches, gen.stats["fast_block_fused"]
+        assert k4_launches == K4_LAUNCHES * lm.fast_block_calls["fused"] > 0, (k4_launches, lm.fast_block_calls)
+        assert k4_share == 1.0 if b > 1 else 0 < k4_share < 1, k4_share
         prefill_ms = cuda_ms(lambda: run(first_only), 3)
         got = []
         total_ms = cuda_ms(lambda: got.append(run(gen)), 2, warm=False)
@@ -1583,10 +1687,12 @@ def generation_phase(dev, lm, grid) -> dict:
         log(f"  B = {b}: first call {first_ms:.2f} ms with the capture ({capture_s:.2f} s); prefill + first frame "
             f"({len(grid[0])} positions) {prefill_ms:.2f} ms; {n} frames in {total_ms:.2f} ms: {fps:.2f} frames/s "
             f"per row, {b * fps:.2f} aggregate; steady frame {frame_ms:.3f} ms (replays back to back), one eager "
-            f"frame step {eager_ms:.2f} ms; host reads per generation {gen.stats['host_reads']}")
+            f"frame step {eager_ms:.2f} ms; host reads per generation {gen.stats['host_reads']}; K4 launches in "
+            f"the first call {k4_launches} (fast_block_fused {k4_share:.3f})")
         out[f"B={b}"] = {"frames": n, "frames_per_s": fps, "generation_ms": total_ms, "prefill_ms": prefill_ms,
                          "frame_ms": frame_ms, "eager_frame_ms": eager_ms, "first_call_ms": first_ms,
                          "capture_s": capture_s, "host_reads": gen.stats["host_reads"],
+                         "k4_launches": k4_launches, "fast_block_fused": k4_share,
                          "device_idle": totals.get("idle"), "top_kernels_ms": top}
         del gen, first_only, entry
         torch.cuda.empty_cache()
@@ -2167,6 +2273,7 @@ def main() -> None:
     assert serve_launches == {"K1": want_k1, "K2": want_k2, "FA": 0}, serve_launches
 
     del generator_
+    k4 = fast_block_phase(dev, lm)
     generation = generation_phase(dev, lm, grid)
 
     # ---- 10. FA, plain and the library call at the main-path shape; bounds
@@ -3582,6 +3689,7 @@ def main() -> None:
          "wide": {"C": 192, "ms": rows_table[1]["matmul 192"], "fill_ms": rows_table[fill]["matmul 192"],
                   "fill_plain_ms": mm_plain[fill, 192], "fill_bound_ms": max(mm_bound[fill, 192].values()),
                   "fill_library_ms": mm_library[fill, 192]}},
+        k4_entry(k4, generation),
     ]
     # phase 26's own paths: each kernel's launches in the laid-out train steps and the GPipe decoder, and its
     # error at one rank's head layout under 2-way tensor parallelism

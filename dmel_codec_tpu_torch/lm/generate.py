@@ -102,8 +102,10 @@ class SlowFastGenerator:
         self.cfg: SlowFastLMConfig = model.config
         self.icfg = inference_config
         self._graphs: Dict[tuple, _Graph] = {}
-        # the last generation's: graphed, frames_per_replay, host_reads, capture_s, replay_s, and with
-        # experts in the slow decoder pairs_prefill / pairs_decode ([moe layers, experts] routed pairs)
+        # the last generation's: graphed, frames_per_replay, host_reads, capture_s, replay_s,
+        # fast_block_fused (the share of the fast decoder's block calls in its eager and captured
+        # frames that ran as kernel K4), and with experts in the slow decoder pairs_prefill /
+        # pairs_decode ([moe layers, experts] routed pairs)
         self.stats: dict = {}
         self._pairs = model.slow_decoder.track_pairs()
 
@@ -355,6 +357,8 @@ class SlowFastGenerator:
             raise ValueError(f"prompt {s} + max_new_tokens {n} exceeds max_seq_len {icfg.max_seq_len}")
         dev = self.device
         graphed = graphed and dev.type == "cuda" and n > 1
+        calls = self.model.fast_block_calls
+        calls.update(fused=0, module=0)  # counted as the frames' host code runs: eager, warm-up and captured
         t0 = time.perf_counter()
         entry = self._graph(b, step_decode) if graphed else None
         capture_s = time.perf_counter() - t0  # a first call's capture; a lookup after
@@ -378,6 +382,7 @@ class SlowFastGenerator:
             "host_reads": reads + 1,  # and the one fetch
             "capture_s": capture_s,
             "replay_s": replay_s,
+            "fast_block_fused": calls["fused"] / max(1, calls["fused"] + calls["module"]),
         }
         if self._pairs is not None:  # after the fetch: the device has finished
             pairs = self._pairs.to("cpu", copy=True).numpy()

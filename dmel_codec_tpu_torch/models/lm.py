@@ -12,7 +12,12 @@
     label column-concatenated so depth position i predicts codebook i;
     NaN/Inf losses zeroed; weighted sum
   * generation forwards: slow step with explicit KV cache; fast per-frame
-    decode over <= 11 tokens, with or without a cache
+    decode over <= 11 tokens, with or without a cache. The fixed-shape one
+    (`forward_generate_audio_fixed`) runs each fast block as kernel K4
+    (`ops/fast_block.py`) where the fast decoder's `fusable` holds: sizes
+    K4 takes, bf16 weights off the CPU, no gradient taken, no block cut for
+    tensor parallelism; everywhere else (the CPU, float32, training, tensor
+    parallelism, other sizes) the modules run
 
 Logits come out in the activations' dtype; the cross entropy is float32.
 Under tensor parallelism a head cut over its vocabulary
@@ -123,6 +128,8 @@ class ChatMusicLM(nn.Module):
         self.audio_head = nn.Linear(hf, cfg.audio_vocab, bias=False)
         # tensor parallel: the model group of a head cut over its vocabulary
         self.vocab_groups = {"text_head": None, "audio_head": None}
+        # fast-decoder block calls of the generation forwards, through K4 or the modules
+        self.fast_block_calls = {"fused": 0, "module": 0}
         self.reset_parameters()
 
     @torch.no_grad()
@@ -226,6 +233,7 @@ class ChatMusicLM(nn.Module):
         if fast_ids is not None:
             h = torch.cat([h, self.fast_audio_embed(fast_ids)], dim=1)
         fast_hidden, _ = self.fast_decoder(h)
+        self.fast_block_calls["module"] += len(self.fast_decoder.layers)
         return self.audio_head(fast_hidden[:, -1, :])
 
     def forward_generate_audio_fixed(
@@ -234,9 +242,12 @@ class ChatMusicLM(nn.Module):
         """Fixed-shape depth decode: slow_hidden [B, 1, H] + fast_ids [B, C]
         (later entries not yet decided: causal masking hides them) ->
         logits for ALL depth positions [B, C+1, V]. Position i predicts
-        codebook i."""
+        codebook i. Each fast block runs as K4 where the fast decoder's
+        `fusable` holds, else the decoder's modules run."""
         x = torch.cat([self.fast_depth_pos0(slow_hidden), self.fast_audio_embed(fast_ids)], dim=1)
-        fast_hidden, _ = self.fast_decoder(x)
+        fused = self.fast_decoder.fusable(x.shape[1])
+        fast_hidden, _ = self.fast_decoder(x, fused=fused)
+        self.fast_block_calls["fused" if fused else "module"] += len(self.fast_decoder.layers)
         return self.audio_head(fast_hidden)
 
     def fast_depth_pos0(self, slow_hidden: torch.Tensor) -> torch.Tensor:
@@ -258,6 +269,7 @@ class ChatMusicLM(nn.Module):
         `fast_embed_tokens(token)[:, None]` after. Returns (audio logits
         [B, V_audio] for this position, cache)."""
         fast_hidden, cache = self.fast_decoder(x, cache=cache)
+        self.fast_block_calls["module"] += len(self.fast_decoder.layers)
         return self.audio_head(fast_hidden[:, -1, :]), cache
 
     def init_slow_cache(self, batch: int, max_len: int, dtype=torch.float32) -> dict:

@@ -54,6 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from dmel_codec_tpu_torch.ops.fast_block import BlockWeights, fast_block, shape_fault
 from dmel_codec_tpu_torch.ops.flash_attention import flash_attention
 from dmel_codec_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
 
@@ -342,12 +343,26 @@ class Decoder(nn.Module):
                              f"may write to it), not {(batch, max_len)}")
         return self.route_log
 
+    def fusable(self, s: int) -> bool:
+        """Whether a cache-less causal call over S positions may run its
+        blocks as kernel K4 (`forward(fused=True)`): Qwen2 blocks of sizes K4
+        takes (ops/fast_block.shape_fault), every parameter bf16 off the CPU,
+        no gradient taken, no block cut for tensor parallelism."""
+        cfg = self.config
+        return (cfg.kind == "qwen2" and not torch.is_grad_enabled()
+                and not shape_fault(s, cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                                    cfg.intermediate_size)
+                and all(p.dtype == torch.bfloat16 and p.device.type != "cpu" for p in self.parameters())
+                and all(layer.self_attn.model_group is None and layer.mlp.model_group is None
+                        for layer in self.layers))
+
     def forward(
         self,
         inputs_embeds: torch.Tensor,
         positions: Optional[torch.Tensor] = None,
         cache: Optional[dict] = None,
         attn_mask: Optional[torch.Tensor] = None,
+        fused: bool = False,
     ) -> Tuple[torch.Tensor, Optional[dict]]:
         """inputs_embeds [B, S, H]. Without cache: causal self-attention.
         With cache: S new tokens appended at cache['index'] (the cache
@@ -357,10 +372,14 @@ class Decoder(nn.Module):
         was). Past max_len the rows' start is clamped, as in the JAX
         package; generation checks index + S <= max_len where it starts, and
         only S <= max_len is checked here, since the index lives on the
-        device."""
+        device. `fused` (cache-less and causal only; see `fusable`) runs each
+        block through `ops/fast_block.fast_block`: kernel K4 on the card, the
+        blocks' own maths on the CPU."""
         cfg = self.config
         b, s, _ = inputs_embeds.shape
         dev = inputs_embeds.device
+        if fused and (cache is not None or positions is not None or attn_mask is not None):
+            raise ValueError("a fused call is cache-less and causal over positions 0..S-1")
 
         mask_is_causal = False
         rows = None
@@ -369,7 +388,7 @@ class Decoder(nn.Module):
                 positions = torch.arange(s, device=dev).expand(b, s)
             if attn_mask is None:
                 mask_is_causal = True
-                if not (cfg.flash_attention and s >= cfg.flash_min_seq):
+                if not (fused or cfg.flash_attention and s >= cfg.flash_min_seq):
                     attn_mask = torch.ones(s, s, dtype=torch.bool, device=dev).tril().expand(b, s, s)
         else:
             index, max_len = cache["index"], cache[self.cache_keys[0]].shape[2]
@@ -387,7 +406,9 @@ class Decoder(nn.Module):
 
         x = inputs_embeds
         for i, layer in enumerate(self.layers):
-            if cache is not None:
+            if fused:  # every row's positions are 0..S-1: one [S, head_dim] table
+                x = fast_block(x, BlockWeights.of(layer), cos[0], sin[0], cfg.rms_norm_eps)
+            elif cache is not None:
                 x = layer(x, cos, sin, attn_mask, [cache[k][i] for k in self.cache_keys], rows, mask_is_causal)
             elif cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(layer, x, cos, sin, attn_mask, None, None, mask_is_causal, use_reentrant=False)
