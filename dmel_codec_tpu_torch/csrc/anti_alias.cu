@@ -25,8 +25,9 @@
 // card holds at once (3 of 256 threads per SM, 80 registers a thread). A
 // block computes every channel's coefficients once, into shared memory; no
 // block barrier after them. Every output has the bits of the earlier design
-// (checked on the card against it, and sin_reduced against sinf over every
-// float, by chip_smoke.py).
+// (checked on the card against it when this one was built);
+// tests/test_torch_card_vocoder.py checks sin_reduced against sinf over
+// every float.
 //
 // Arithmetic in float32, output in the input dtype (float32 or bfloat16);
 // on bf16 input the taps come rounded to bf16 from the wrapper and v is
@@ -76,7 +77,7 @@ anti_alias_kernel(const void* __restrict__ x, void* __restrict__ y, const float*
 
 template <int V, bool BF16>
 int launch(const void* x, void* y, const float* alpha, const float* beta, int logscale, int param_bf16, int B,
-           int C, int T, const float* taps, void* stream, int* config) {
+           int C, int T, const float* taps, void* stream) {
   dmel::Taps tp;
   for (int i = 0; i < 12; ++i) tp.f[i] = taps[i];
   Plan pl = make_plan(x, y, T, BF16 ? 2 : 4);
@@ -89,15 +90,6 @@ int launch(const void* x, void* y, const float* alpha, const float* beta, int lo
   const long long per_warp = n_work / (2 * cap * WARPS);
   pl.segu = static_cast<int>(per_warp < 1 ? 1 : (per_warp > MAX_SEGU ? MAX_SEGU : per_warp));
   const int grid = grid_of(pl, n_rows, cap);
-  if (config != nullptr) {
-    config[0] = grid;
-    config[1] = THREADS;
-    config[2] = (V == FULL || V == NO_FIR) ? 8 * C : 0;
-    config[3] = pl.n_units;
-    config[4] = pl.lead;
-    config[5] = pl.vec;
-    config[6] = pl.segu;
-  }
   const size_t smem = (V == FULL || V == NO_FIR) ? 8 * static_cast<size_t>(C) : 0;  // the coefficients
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   anti_alias_kernel<V, BF16><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -107,9 +99,9 @@ int launch(const void* x, void* y, const float* alpha, const float* beta, int lo
 
 template <int V>
 int launch_v(const void* x, void* y, const float* alpha, const float* beta, int logscale, int param_bf16, int B,
-             int C, int T, int bf16, const float* taps, void* stream, int* config) {
-  return bf16 ? launch<V, true>(x, y, alpha, beta, logscale, param_bf16, B, C, T, taps, stream, config)
-              : launch<V, false>(x, y, alpha, beta, logscale, param_bf16, B, C, T, taps, stream, config);
+             int C, int T, int bf16, const float* taps, void* stream) {
+  return bf16 ? launch<V, true>(x, y, alpha, beta, logscale, param_bf16, B, C, T, taps, stream)
+              : launch<V, false>(x, y, alpha, beta, logscale, param_bf16, B, C, T, taps, stream);
 }
 
 }  // namespace
@@ -136,13 +128,11 @@ extern "C" const char* dmel_error_string(int code) {
 // ones when param_bf16 = 1); beta == nullptr selects snake.
 // taps: 12 host floats (bf16 values when bf16 = 1; the kernel rounds v
 // then). The kernel uses 16-byte accesses where x and y share their
-// 16-byte phase, element by element throughout otherwise. config, if not
-// null, receives 7 ints: grid, threads, shared memory per block, units per
-// row, lead, vec and units per task as launched. Returns cudaGetLastError() after the launch.
+// 16-byte phase, element by element throughout otherwise. Returns
+// cudaGetLastError() after the launch.
 extern "C" int dmel_anti_alias(const void* x, void* y, const float* alpha, const float* beta, int logscale,
-                               int param_bf16, int B, int C, int T, int bf16, const float* taps, int* config,
-                               void* stream) {
-  return launch_v<FULL>(x, y, alpha, beta, logscale, param_bf16, B, C, T, bf16, taps, stream, config);
+                               int param_bf16, int B, int C, int T, int bf16, const float* taps, void* stream) {
+  return launch_v<FULL>(x, y, alpha, beta, logscale, param_bf16, B, C, T, bf16, taps, stream);
 }
 
 // bad: one zeroed unsigned 64-bit count on the device; receives the
@@ -159,10 +149,10 @@ extern "C" int dmel_anti_alias_variant(const void* x, void* y, const float* alph
                                        void* stream) {
   const int pb = param_bf16;
   switch (variant) {
-    case FULL: return launch_v<FULL>(x, y, alpha, beta, logscale, pb, B, C, T, bf16, taps, stream, nullptr);
-    case COPY: return launch_v<COPY>(x, y, alpha, beta, logscale, pb, B, C, T, bf16, taps, stream, nullptr);
-    case NO_SNAKE: return launch_v<NO_SNAKE>(x, y, alpha, beta, logscale, pb, B, C, T, bf16, taps, stream, nullptr);
-    case NO_FIR: return launch_v<NO_FIR>(x, y, alpha, beta, logscale, pb, B, C, T, bf16, taps, stream, nullptr);
+    case FULL: return launch_v<FULL>(x, y, alpha, beta, logscale, pb, B, C, T, bf16, taps, stream);
+    case COPY: return launch_v<COPY>(x, y, alpha, beta, logscale, pb, B, C, T, bf16, taps, stream);
+    case NO_SNAKE: return launch_v<NO_SNAKE>(x, y, alpha, beta, logscale, pb, B, C, T, bf16, taps, stream);
+    case NO_FIR: return launch_v<NO_FIR>(x, y, alpha, beta, logscale, pb, B, C, T, bf16, taps, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -554,7 +554,7 @@ stage_v1_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w, c
 template <int N>
 int launch_v1(const void* x, const void* w, const float* bias, const float* alpha, const float* inv_beta, void* out,
               float* acc, int B, int C, int T, int W, int R, int KP, int G, int slots, int parts, const V1Spec& spec,
-              const dmel::Taps& tp, cudaStream_t stream, int* config) {
+              const dmel::Taps& tp, cudaStream_t stream) {
   const bool f32 = slots > 0;
   int kmax = 0;
   for (int b = 0; b < spec.n_blk; ++b) kmax = spec.k[b] > kmax ? spec.k[b] : kmax;
@@ -581,14 +581,6 @@ int launch_v1(const void* x, const void* w, const float* bias, const float* alph
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if (config != nullptr) {
-    config[0] = static_cast<int>(cfg.gridDim.x);
-    config[1] = static_cast<int>(cfg.gridDim.y);
-    config[2] = TC_NT;
-    config[3] = static_cast<int>(l.total);
-    config[4] = G;
-    config[5] = W;
-  }
   if (f32) {
     err = cudaLaunchKernelEx(&cfg, stage_v1_tf32_kernel<N>, static_cast<const float*>(x),
                              static_cast<const float*>(w), bias, alpha, inv_beta, static_cast<float*>(out), acc, C, T,
@@ -633,13 +625,11 @@ extern "C" int dmel_stage_v1_smem_bytes() { return SMEM; }
 // stage's reach per side; G: CTAs per cluster (at most 8); every conv's
 // reach at most 32. parts: 3 the stage; the breakdown probe
 // (probes/stage_parts.py) drops the activations (2), the convs (1) or both
-// (0). config, if not null, receives 6 ints: grid x, grid y, threads,
-// shared memory per block, cluster size, W. Returns the first CUDA error (0
-// = launched).
+// (0). Returns the first CUDA error (0 = launched).
 extern "C" int dmel_stage_v1_tc(const void* x, const void* w, const float* bias, const float* alpha,
                                 const float* inv_beta, void* out, float* acc, int N, int KP, int B, int C, int T,
                                 int W, int R, int G, int slots, int n_blk, const int* ks, const int* n_dils,
-                                const int* dils, int max_d, const float* taps, int parts, int* config, void* stream) {
+                                const int* dils, int max_d, const float* taps, int parts, void* stream) {
   V1Spec spec;
   const int kp_step = slots > 0 ? 8 : 16;
   if (make_spec(spec, n_blk, ks, n_dils, dils, max_d) || C < 1 || C > N || KP < C || KP % kp_step ||
@@ -657,9 +647,9 @@ extern "C" int dmel_stage_v1_tc(const void* x, const void* w, const float* bias,
   for (int i = 0; i < 12; ++i) tp.f[i] = taps[i];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (N) {
-    case 24: return launch_v1<24>(x, w, bias, alpha, inv_beta, out, acc, B, C, T, W, R, KP, G, slots, parts, spec, tp, s, config);
-    case 32: return launch_v1<32>(x, w, bias, alpha, inv_beta, out, acc, B, C, T, W, R, KP, G, slots, parts, spec, tp, s, config);
-    case 48: return launch_v1<48>(x, w, bias, alpha, inv_beta, out, acc, B, C, T, W, R, KP, G, slots, parts, spec, tp, s, config);
+    case 24: return launch_v1<24>(x, w, bias, alpha, inv_beta, out, acc, B, C, T, W, R, KP, G, slots, parts, spec, tp, s);
+    case 32: return launch_v1<32>(x, w, bias, alpha, inv_beta, out, acc, B, C, T, W, R, KP, G, slots, parts, spec, tp, s);
+    case 48: return launch_v1<48>(x, w, bias, alpha, inv_beta, out, acc, B, C, T, W, R, KP, G, slots, parts, spec, tp, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -21,7 +21,6 @@ VJP differentiates its oracle.
 
 from __future__ import annotations
 
-import ctypes
 from typing import List, Optional, Tuple
 
 import torch
@@ -91,7 +90,7 @@ def k1_row_units(t: int, itemsize: int, x0: int, row: int, vec: bool = True) -> 
     return out
 
 
-def _launch(x, alpha, beta, logscale: bool, config=None) -> torch.Tensor:
+def _launch(x, alpha, beta, logscale: bool) -> torch.Tensor:
     lib = library.load()
     library.check_plane(x)
     b, c, t = x.shape
@@ -100,22 +99,12 @@ def _launch(x, alpha, beta, logscale: bool, config=None) -> torch.Tensor:
     y = torch.empty_like(x)
     rc = lib.dmel_anti_alias(
         x.data_ptr(), y.data_ptr(), a.data_ptr(), None if bt is None else bt.data_ptr(),
-        int(logscale), param_bf16, b, c, t, int(bf16), library.taps(FILT_BF16 if bf16 else FILT), config,
+        int(logscale), param_bf16, b, c, t, int(bf16), library.taps(FILT_BF16 if bf16 else FILT),
         library.stream(x),
     )
     library.check(lib, rc, "dmel_anti_alias")
     anti_alias_activation.launches += 1
     return y
-
-
-def launch_config(x: torch.Tensor, alpha: torch.Tensor, beta: Optional[torch.Tensor] = None) -> dict:
-    """One K1 launch on x, and what it ran as: grid, threads, shared memory
-    per block, units per row, lead, whether it used 16-byte vectors, and
-    units per warp task."""
-    cfg = (ctypes.c_int * 7)()
-    _launch(x, alpha, beta, True, cfg)
-    keys = ("grid", "threads", "smem_bytes", "units_per_row", "lead", "vec", "units_per_task")
-    return dict(zip(keys, list(cfg)))
 
 
 def sin_replica_mismatches(device: str = "cuda") -> int:

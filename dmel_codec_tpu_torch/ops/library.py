@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "dmel_anti_alias": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "dmel_anti_alias": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "dmel_act_conv_tf32": [
         _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _I, _P,
     ],
@@ -51,7 +51,7 @@ _SIGNATURES = {
     "dmel_sin_check": [_P, _P],
     "dmel_anti_alias_variant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "dmel_stage_v1_tc": [
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P,
     ],
     "dmel_cf_act": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "dmel_rows_slice": [_P, _P, _I, _I, _I, _I, _P],

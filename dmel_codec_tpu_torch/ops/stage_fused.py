@@ -638,7 +638,7 @@ def _v1_args(x: torch.Tensor, packed: dict, spec: StageSpec, lib) -> dict:
     return packed[key]
 
 
-def _run_kernel_v1(x: torch.Tensor, packed: dict, spec: StageSpec, parts: int = 3, config=None) -> torch.Tensor:
+def _run_kernel_v1(x: torch.Tensor, packed: dict, spec: StageSpec, parts: int = 3) -> torch.Tensor:
     """One K2-v1 launch (bf16, or float32 on split-TF32 products). `parts`
     < 3 drops parts of it (probes/stage_parts.py)."""
     if x.dim() == 3 and x.shape[1] > V1_MAX_CHANNELS:
@@ -657,21 +657,13 @@ def _run_kernel_v1(x: torch.Tensor, packed: dict, spec: StageSpec, parts: int = 
     rc = lib.dmel_stage_v1_tc(
         x.data_ptr(), a["w"].data_ptr(), a["b"].data_ptr(), a["a"].data_ptr(), a["ib"].data_ptr(), y.data_ptr(),
         acc.data_ptr(), a["n"], a["kp"], bsz, c, t, a["tile"], spec.receptive, V1_CLUSTER, a["slots"],
-        len(spec.kernel_sizes), a["ks"], a["n_dils"], a["dils"], a["max_d"], a["taps"], parts, config,
+        len(spec.kernel_sizes), a["ks"], a["n_dils"], a["dils"], a["max_d"], a["taps"], parts,
         library.stream(x),
     )
     library.check(lib, rc, "dmel_stage_v1_tc")
     amp_stage_v1.launches += 1
     amp_stage_v1.launches_by_kernel["stage_v1_tf32_kernel" if a["slots"] else "stage_v1_tc_kernel"] += 1
     return y
-
-
-def v1_launch_config(x: torch.Tensor, packed: dict, spec: StageSpec) -> dict:
-    """One K2-v1 launch on x, and what it ran as: grid, threads, shared
-    memory per block, cluster size and W."""
-    cfg = (ctypes.c_int * 6)()
-    _run_kernel_v1(x, packed, spec, config=cfg)
-    return {"grid": (cfg[0], cfg[1]), "threads": cfg[2], "smem_bytes": cfg[3], "cluster": cfg[4], "tile": cfg[5]}
 
 
 def amp_stage_v1(x: torch.Tensor, packed: dict, spec: StageSpec) -> torch.Tensor:

@@ -37,7 +37,7 @@ from dmel_codec_tpu_torch.probes.timing import PEAK_F32, PEAK_TF32, cuda_ms, req
 FRAMES = 560  # a 6 s clip: the padded length of codec.batch16.f32's longest requests
 STAGES = ((0, 768, 4 * FRAMES), (1, 384, 16 * FRAMES))
 KD = ((3, 1), (3, 3), (3, 5), (7, 1), (7, 3), (7, 5), (11, 1), (11, 3), (11, 5))
-TOL = 2e-5  # of max(1, max |float64|): K2's float32 tolerance (chip_smoke.py)
+TOL = 2e-5  # of max(1, max |float64|): K2's float32 tolerance (tests/card.py)
 
 
 def _conv(gen, c: int, k: int, dev):

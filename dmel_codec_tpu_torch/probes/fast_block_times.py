@@ -10,8 +10,7 @@ in turns (K4, modules, modules, K4); per block step: us, weight bytes over
 the time (GB/s, against 3.35 TB/s), kernel launches (K4's count; the
 modules' from a profiler over one eager step) and K4's device time by
 kernel. The bound is 9.4 MB / 3.35 TB/s = 2.8 us a step. K4's check
-against its plain version is chip_smoke.py's (phase 9), which also calls
-`steps` for its kernels line.
+against its plain version is tests/test_torch_card_lm.py's.
 
     python -m dmel_codec_tpu_torch.probes.fast_block_times
 

@@ -11,14 +11,12 @@ for) a bf16 forward asks K4 for each block with the decoder's shapes, and
 float32, a gradient, a block cut for tensor parallelism or sizes K4 does
 not take keep the modules; `_check` refuses what K4 does not take.
 
-Marked `card` (they skip without a GPU): K4 against its plain version at B
-1, 16 and 64, inside and outside a captured graph; the launch count; the
+On the card: tests/test_torch_card_lm.py (K4 against its plain version at
+B 1, 16 and 64, inside and outside a captured graph; the launch count; the
 refusals on CUDA tensors; `generate_batched` at B = 16 through K4, and on
 the modules for a fast decoder K4 does not take; greedy tokens against the
-module path. This file imports nothing of JAX; on the
-card, run them without the tests' conftest (which imports JAX):
-
-    python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_fast_block.py -m card
+module path). This file imports nothing of JAX: that one imports its
+helpers.
 """
 
 from __future__ import annotations
@@ -43,11 +41,6 @@ FAST = FAST_LM_CONFIG
 TINY_SLOW = TransformerConfig(vocab_size=151936, hidden_size=64, intermediate_size=128, num_layers=1, num_heads=4,
                               num_kv_heads=2)
 LM = SlowFastLMConfig(slow=TINY_SLOW, fast=FAST)
-# bf16 against the module path on the card: K4 keeps float32 where the
-# module rounds to bf16 inside a launch (q / k / v before RoPE, the
-# projections before the residuals, the norms' scale before the products,
-# the MLP's gate and up), a few bf16 ulps of the block's output
-CARD_TOL = 3e-2  # of max(1, max |plain|)
 
 
 def _block(cfg: TransformerConfig = FAST, seed: int = 0, dtype=torch.float32, device="cpu") -> Block:
@@ -301,141 +294,3 @@ def test_check_refuses_what_k4_does_not_take(case):
     assert "CUDA" not in str(err.value)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         k4_ops._check(base["x"], base["w"], base["cos"], base["sin"])
-
-
-# ---- on the card -----------------------------------------------------------
-
-
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: K4 runs only on the card")
-    return torch.device("cuda")
-
-
-def _err(got: torch.Tensor, want: torch.Tensor) -> float:
-    return (got.float() - want.float()).abs().max().item() / max(1.0, want.float().abs().max().item())
-
-
-@pytest.mark.card
-@pytest.mark.parametrize("b", [1, 16, 64])
-def test_k4_matches_plain_on_the_card(b):
-    """K4 against its plain version (the module's maths on the card) at the
-    flagship fast widths, bf16, B 1, 16 and 64: within CARD_TOL of
-    max(1, max |plain|), the same bits from a second call and from a replay
-    of a captured graph, and 4 launches a call."""
-    dev = _card()
-    block = _block(seed=b, dtype=torch.bfloat16, device=dev)
-    w = BlockWeights.of(block)
-    x = torch.randn((b, S, FAST.hidden_size), device=dev, generator=torch.Generator(dev).manual_seed(b))
-    x = x.bfloat16()
-    cos, sin = _cos_sin(S, dev)
-    eps = FAST.rms_norm_eps
-    with torch.no_grad():
-        want = fast_block_reference(x, w, cos, sin, eps)
-        before = fast_block.launches
-        got = fast_block(x, w, cos, sin, eps)
-        torch.cuda.synchronize()
-        assert fast_block.launches == before + 4
-        assert _err(got, want) <= CARD_TOL, _err(got, want)
-        assert torch.equal(fast_block(x, w, cos, sin, eps), got)
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            fast_block(x, w, cos, sin, eps)  # warm-up on a side stream, as generation captures
-        torch.cuda.current_stream().wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = fast_block(fast_block(x, w, cos, sin, eps), w, cos, sin, eps)
-        graph.replay()
-        torch.cuda.synchronize()
-        assert torch.equal(out, fast_block(got, w, cos, sin, eps))
-        with torch.no_grad():  # the graph reads the weights where they lie
-            w.down.mul_(0.5)
-        graph.replay()
-        torch.cuda.synchronize()
-        assert torch.equal(out, fast_block(fast_block(x, w, cos, sin, eps), w, cos, sin, eps))
-
-
-@pytest.mark.card
-@pytest.mark.parametrize("case", sorted(REFUSED) + ["misaligned weight"])
-def test_k4_refuses_on_the_card(case):
-    """fast_block raises on a CUDA tensor K4 does not take, and launches
-    nothing."""
-    dev = _card()
-    block = _block(dtype=torch.bfloat16, device=dev)
-    base = {"x": torch.randn((4, S, 480), device=dev).bfloat16(), "w": BlockWeights.of(block)}
-    base["cos"], base["sin"] = _cos_sin(S, dev)
-    if case == "misaligned weight":
-        flat = torch.empty(480 * 480 + 1, device=dev, dtype=torch.bfloat16)
-        bad = dict(base, w=base["w"]._replace(o=flat[1:].view(480, 480)))
-    else:
-        bad = dict(base, **REFUSED[case](base))
-    before = fast_block.launches
-    with pytest.raises(ValueError):
-        fast_block(bad["x"], bad["w"], bad["cos"], bad["sin"], FAST.rms_norm_eps)
-    assert fast_block.launches == before
-
-
-def _serve_prompts(b: int):
-    rng = np.random.default_rng(b)
-    text = np.full((b, 12), LM.text_pad_id, np.int64)
-    for i in range(b):
-        n = 3 + i % 8
-        text[i, -n:] = rng.integers(0, 1000, n)
-    return text, np.full((b, 12, C), LM.slow_audio_pad_id, np.int64)
-
-
-@pytest.mark.card
-def test_a_fast_decoder_k4_does_not_take_keeps_the_modules_on_the_card():
-    """generate_batched on a bf16 model on the card whose fast heads are of
-    size 40 runs the modules (stats["fast_block_fused"] 0, no K4 launch)
-    instead of raising."""
-    dev = _card()
-    torch.manual_seed(0)
-    with torch.device(dev):
-        model = ChatMusicLM(dataclasses.replace(LM, **UNFUSABLE["head size 40"]))
-    model = model.to(torch.bfloat16).eval()
-    gen = SlowFastGenerator(model, InferenceConfig(max_new_tokens=6, max_seq_len=64, top_k=1, cache_dtype="bfloat16"))
-    before = fast_block.launches
-    audio_ids, _ = gen.generate_batched(*_serve_prompts(4), torch.Generator(device=dev).manual_seed(0))
-    assert len(audio_ids) == 4 and gen.stats["graphed"] and gen.stats["fast_block_fused"] == 0.0
-    assert fast_block.launches == before
-
-
-@pytest.mark.card
-def test_generate_batched_runs_k4_on_the_card():
-    """generate_batched at B = 16 on a bf16 model runs every fast block
-    through K4 in its eager and captured frames (stats["fast_block_fused"]
-    1.0, 4 launches a block call), and a greedy batch's tokens match the
-    module path's (the same model with K4 switched off) wherever the module
-    path's top two logits are further apart than bf16's rounding."""
-    dev = _card()
-    model = _lm(torch.bfloat16, device=dev)
-    icfg = InferenceConfig(max_new_tokens=6, max_seq_len=64, top_k=1, cache_dtype="bfloat16")
-    text, audio = _serve_prompts(16)
-    gen = SlowFastGenerator(model, icfg)
-    before = fast_block.launches
-    seeded = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731  (bf16 logits tie at the top)
-    audio_k4, text_k4 = gen.generate_batched(text, audio, seeded())
-    assert gen.stats["graphed"] and gen.stats["fast_block_fused"] == 1.0
-    assert fast_block.launches - before == 4 * model.fast_block_calls["fused"] > 0
-    again = gen.generate_batched(text, audio, seeded())  # the captured graph, no new capture
-    assert gen.stats["fast_block_fused"] == 1.0
-    assert all(np.array_equal(a, b) for a, b in zip(again[0], audio_k4))
-
-    # the module path on the same weights: the first frame's fast decode, codebook by codebook
-    with torch.no_grad():
-        hidden = torch.randn((16, 1, TINY_SLOW.hidden_size), device=dev, generator=torch.Generator(dev).manual_seed(3))
-        hidden = hidden.bfloat16()
-        tokens = torch.zeros((16, C), dtype=torch.long, device=dev)
-        for i in range(C):
-            fused = model.forward_generate_audio_fixed(hidden, tokens)[:, i].float()
-            model.fast_decoder.fusable = lambda s: False  # the module path
-            plain = model.forward_generate_audio_fixed(hidden, tokens)[:, i].float()
-            del model.fast_decoder.fusable
-            top2 = plain.topk(2, dim=-1).values
-            decided = (top2[:, 0] - top2[:, 1]) > 2 ** -7 * top2[:, 0].abs().clamp(min=1.0) * 4
-            assert torch.equal(fused.argmax(-1)[decided], plain.argmax(-1)[decided])
-            assert decided.float().mean().item() > 0.5
-            tokens[:, i] = plain.argmax(-1)
-    assert len(audio_k4) == 16 and all(len(a) == len(t) for a, t in zip(audio_k4, text_k4))

@@ -8,8 +8,8 @@ operation's halo taken from the neighbour tile, the cluster window's ends
 as the signal's) against `stage_reference_v1` and the JAX v1 kernel in
 interpret mode.
 
-The kernels themselves run only on the card; chip_smoke.py holds them to
-their plain versions there.
+The kernels themselves run only on the card;
+tests/test_torch_card_vocoder.py holds them to their plain versions there.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 oracles, and the dispatch rule (plain version only for CPU tensors; any
 other tensor goes to the CUDA kernel or raises).
 
-The CUDA kernels themselves run only on the card; chip_smoke.py holds each
-against these plain versions there.
+The CUDA kernels themselves run only on the card; the card suite
+(tests/test_torch_card_*.py) holds each against these plain versions there.
 """
 
 from __future__ import annotations

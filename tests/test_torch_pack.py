@@ -132,8 +132,8 @@ def test_k1_coefficients_bf16_match_jax(monkeypatch, with_beta, logscale):
     them (`snake_coefficients`), against what the JAX op hands its Pallas
     kernel (`_fused_forward`'s a_l and invb_l): the same bits. The kernel
     computes the same in-kernel from the parameters' values (it rounds each
-    step to bf16 when told they are bf16; chip_smoke.py holds it to the plain
-    version there): its wrapper hands it the bf16 values as float32 and
+    step to bf16 when told they are bf16; tests/test_torch_card_vocoder.py
+    holds it to the plain version there): its wrapper hands it the bf16 values as float32 and
     the flag, recorded here with the launch stood in for."""
     c = 24
     x, alpha, beta = _k1_inputs(c, 9)

@@ -359,16 +359,18 @@ def test_bounds_count_this_shape():
 
 # ---- the port's standing rules ----------------------------------------------------
 
-PORT_FILES = (sorted((ROOT / "dmel_codec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "dmel_codec_tpu_torch").rglob("*.py")) + [ROOT / "tests" / "card.py"]
+              + sorted((ROOT / "tests").glob("test_torch_card_*.py"))
               + sorted((ROOT / "tests").glob("torch_*_worker.py")))
 FORBIDDEN = ("jax", "flax", "optax", "dmel_codec_tpu", "scripts")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_no_jax(path):
-    """No module of the port, not `chip_smoke.py` and no test worker
-    (`tests/torch_*_worker.py`) imports jax, flax, optax, the JAX package or
-    `scripts/` (anywhere: function bodies too)."""
+    """No module of the port, no file of the card suite (`tests/card.py`,
+    `tests/test_torch_card_*.py`, which run on a card without JAX) and no
+    test worker (`tests/torch_*_worker.py`) imports jax, flax, optax, the
+    JAX package or `scripts/` (anywhere: function bodies too)."""
     for node in ast.walk(ast.parse(path.read_text())):
         names = []
         if isinstance(node, ast.Import):

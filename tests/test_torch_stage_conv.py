@@ -9,12 +9,9 @@ shared memory, cover the plane and fill the SMs on a short input; and
 which kernel each launch of a stage asks for (a stand-in library: the
 kernels run only on the card).
 
-Marked `card` (they skip without a GPU): K3 against its plain version at
-s0 / s1 shapes, and the launch counts of a float32 and a bf16 vocoder call.
-This file imports nothing of JAX; on the card, run them without the tests'
-conftest (which imports JAX):
-
-    python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_stage_conv.py -m card
+On the card: tests/test_torch_card_vocoder.py (K3 against its plain
+version at s0 / s1 shapes, and the launch counts of a float32 and a bf16
+vocoder call).
 """
 
 from __future__ import annotations
@@ -26,7 +23,6 @@ import torch
 import torch.nn.functional as F
 
 import dmel_codec_tpu_torch.ops.stage_conv as k3_ops
-from dmel_codec_tpu_torch.models import bigvgan
 from dmel_codec_tpu_torch.models.bigvgan import AMPBlock1, BigVGAN, BigVGANConfig, FusedBigVGAN
 from dmel_codec_tpu_torch.ops import library
 from dmel_codec_tpu_torch.ops.stage_conv import (
@@ -44,7 +40,6 @@ from dmel_codec_tpu_torch.utils.precision import strict_float32
 
 # a two-stage vocoder whose first stage (C = 32) runs per block at fuse_max_channels 16
 SMALL = BigVGANConfig(num_mels=8, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4), upsample_initial_channel=64)
-CARD_TOL = 2e-5  # of max(1, max |plain|): K2's float32 tolerance; K3 read <= 4.7e-6 (PERF.md, PR 21)
 
 
 @pytest.fixture
@@ -215,64 +210,3 @@ def test_block_stage_dispatch(monkeypatch):
     with torch.no_grad():
         cpu.resblocks(0, torch.randn(1, 32, 20))
     assert lib.calls == [] and stage_conv.launches == before[0] + 36
-
-
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: K3 runs only on the card")
-    strict_float32()
-    return torch.device("cuda")
-
-
-CARD_SHAPES = [(b, c, t, k, d) for b in (1, 16) for c, t in ((768, 375), (768, 2240), (384, 2240), (384, 36000))
-               for k, d in ((11, 5), (3, 1))] + [(1, 768, 24, 11, 5), (2, 384, 20, 7, 3)]
-
-
-@pytest.mark.card
-@pytest.mark.parametrize("b,c,t,k,d", CARD_SHAPES)
-def test_k3_matches_plain_on_the_card(b, c, t, k, d):
-    """K3 against stage_conv_reference (cuDNN's float32 conv, TF32 off) at
-    s0 / s1 widths, B 1 and 16, T = 375 (not a multiple of 4), 2,240 and
-    36,000, and T under the conv's reach, with the residual, the running
-    sum and the mean: within CARD_TOL of max(1, max |plain|). Both stand
-    about 2e-6 from float64 (split-TF32 drops lo lo and the split's
-    remainder, 2^-22 of each operand; cuDNN rounds its float32 sums), so
-    2e-5 leaves room; one TF32 product misses it by 30x. The same bits come
-    back from a second launch."""
-    dev = _card()
-    gen = torch.Generator(device=dev).manual_seed(b * 7 + c + t + k)
-    a = torch.randn((b, c, t), device=dev, generator=gen)
-    w = torch.randn((c, c, k), device=dev, generator=gen) / math.sqrt(c * k)
-    bias = 0.05 * torch.randn((c,), device=dev, generator=gen)
-    kw = {"res": torch.randn_like(a), "acc_in": torch.randn_like(a), "mean_of": 3}
-    got = stage_conv(a, w, bias, d, **kw)
-    want = stage_conv_reference(a, w, bias, d, **kw)
-    assert (got - want).abs().max().item() <= CARD_TOL * max(1.0, want.abs().max().item())
-    assert torch.equal(stage_conv(a, w, bias, d, **kw), got)
-
-
-@pytest.mark.card
-def test_vocoder_launch_counts_on_the_card():
-    """One float32 vocoder call at the released widths and the default cap
-    (fuse_max_channels 192) launches K3 36 times (18 a stage, s0 and s1),
-    and matches the call with K3's plain version; a bf16 call launches it
-    0 times."""
-    dev = _card()
-    model = BigVGAN(BigVGANConfig()).eval().to(dev)
-    fused = FusedBigVGAN(model)
-    mel = torch.randn((2, 94, 100), device=dev)  # [B, frames, num_mels]: 1 s
-    before = stage_conv.launches
-    with torch.no_grad():
-        wav = fused(mel)
-        assert stage_conv.launches - before == 36
-        saved = bigvgan.stage_conv
-        bigvgan.stage_conv = lambda a, w, b, d, packed=None, **kw: stage_conv_reference(a, w, b, d, **kw)
-        try:
-            plain = fused(mel)
-        finally:
-            bigvgan.stage_conv = saved
-        assert (wav - plain).abs().max().item() <= 1e-4
-        fused16 = FusedBigVGAN(model.to(torch.bfloat16))
-        before = stage_conv.launches
-        fused16(mel.bfloat16())
-        assert stage_conv.launches == before

@@ -4,7 +4,7 @@ plain version (`act_conv_reference`) chained 18 times into the stage's, the
 bf16 kernel's weight layout (`tc_weights`) and its cache in `packed`, and
 which kernel each launch of `amp_stage` / `act_conv` takes, with which
 arguments (a stand-in library: the kernels run only on the card, where
-chip_smoke.py holds them against these plain versions).
+tests/test_torch_card_vocoder.py holds them against these plain versions).
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ fit shared memory and their tiles cover T once, the split hi / lo weight
 layout unpacks to the weights, the split-TF32 arithmetic of the stage stays
 within the kernels' tolerance of the JAX package's float32 oracle, and
 every float32 launch goes to the new kernels and their counters (a
-stand-in library: the kernels run only on the card, where chip_smoke.py
-holds them against the plain versions).
+stand-in library: the kernels run only on the card, where
+tests/test_torch_card_vocoder.py holds them against the plain versions).
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from tests.test_torch_support import strict_f32, to_np  # noqa: F401  (strict_f3
 pytestmark = pytest.mark.usefixtures("strict_f32")
 
 SMEM = 227 * 1024  # what the library reports on sm_90
-WIDTHS = (5, 7, 24, 40, 48, 96, 192)  # the vocoder's fused widths and the ragged ones chip_smoke.py runs
+WIDTHS = (5, 7, 24, 40, 48, 96, 192)  # the vocoder's fused widths and the ragged ones the card tests run
 
 
 @pytest.mark.parametrize("c", WIDTHS)
@@ -124,7 +124,7 @@ def test_split_tf32_stage_within_tolerance_of_jax_oracle(monkeypatch, c, t):
     (split-TF32, three products; emulated here in plain float32, where each
     product is exact) against the JAX package's `stage_reference` in float32
     (Precision.HIGHEST): within 2e-5 of max(1, max |out|), the tolerance
-    chip_smoke.py holds the kernels to against their plain versions. One
+    the card tests hold the kernels to against their plain versions. One
     TF32 product alone is held to it too, and misses it."""
     jp, tp = _packed(c, seed=40 + c)
     x = np.random.default_rng(t).standard_normal((2, t, c)).astype(np.float32)

@@ -5,8 +5,8 @@ width rules of `amp_stage_v1`, the routes of `FusedBigVGAN`, `AMPBlock2`
 and `resblock="2"` against JAX, the reference-checkpoint loaders, and the
 K1 ablation probe's plain versions.
 
-The CUDA kernels run only on the card; chip_smoke.py holds K2-v1 and the
-probe against these plain versions there.
+The CUDA kernels run only on the card; tests/test_torch_card_vocoder.py
+holds K2-v1 and the probe against these plain versions there.
 """
 
 from __future__ import annotations

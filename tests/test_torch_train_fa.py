@@ -174,9 +174,9 @@ def test_launch_config_reports_the_library(monkeypatch, kernel, dtype):
     """`launch_config` asks the library for the launch this kernel makes at
     q's shape and dtype (FA-dQ: which = 1, the bf16 flag picking the
     tensor-core kernel of that dtype) and returns its grid, threads and
-    shared bytes; the library itself answers only on the card
-    (chip_smoke.py phase 19 holds its float32 answers to
-    `fa.tf32_smem_bytes`)."""
+    shared bytes; the library itself answers only on the card (where
+    tests/test_torch_card_attention.py holds the kernels to their plain
+    versions)."""
     seen = []
     threads, smem = LAUNCHES[kernel, dtype]
 
