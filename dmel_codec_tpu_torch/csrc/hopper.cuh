@@ -1,12 +1,13 @@
 // Hopper building blocks shared by the kernels that feed the tensor cores
 // through shared memory: mbarriers, TMA (tensor-map boxes and 1-D bulk
-// copies), wgmma's shared-memory matrix descriptors and the asynchronous
-// warpgroup product wgmma.mma_async (m64nNk16 on bf16 operands, m64nNk8 on
-// TF32 operands with A from registers and the split of a float32 value into
-// two TF32 parts; float32 sums) for the widths the kernels use, and cluster
-// barriers and peer reads. Used by P4 (probes.cu), K2's kernels
-// (stage_fused_tc.cu, stage_fused_tf32.cu), K2-v1's (stage_fused_v1.cu) and
-// K3 (stage_conv_tf32.cu).
+// copies), wgmma's shared-memory matrix descriptors (no swizzle, 64- and
+// 128-byte swizzles) and the asynchronous warpgroup product wgmma.mma_async
+// (m64nNk16 on bf16 operands, A from shared memory or, at N = 128, from
+// registers; m64nNk8 on TF32 operands with A from registers and the split of
+// a float32 value into two TF32 parts; float32 sums) for the widths the
+// kernels use, and cluster barriers and peer reads. Used by P4 (probes.cu),
+// K2's kernels (stage_fused_tc.cu, stage_fused_tf32.cu), K2-v1's
+// (stage_fused_v1.cu), K3 (stage_conv_tf32.cu) and K5 (mla_attention.cu).
 // sm_90a only.
 #pragma once
 
@@ -53,6 +54,25 @@ __device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo, uint3
          static_cast<uint64_t>(sbo >> 4) << 32 | 2ull << 62;
 }
 
+// A box of a 4-D tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
+                                          int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor for the 128-byte swizzle (layout
+// type 1): rows of 128 bytes, 8 rows a 1,024-byte atom. K-major: sbo =
+// bytes between 8-row groups, a k16 step moves the start by 32 bytes within
+// the row (lbo unused). MN-major: sbo = bytes between 8-row groups along K,
+// lbo = between 64-element blocks along MN.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
 // One contiguous run of `bytes` (a multiple of 16, both ends 16-byte
 // aligned) from global memory into shared memory by the TMA unit; completes
 // on `bar`.
@@ -67,7 +87,10 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 // 0: core matrices of 8 rows x 16 bytes, each row 16 bytes after the last;
 // lbo = bytes between core matrices along K, sbo = along M / N. A K-major
 // operand laid out as [K / 8][rows][8] has lbo = rows * 16 and sbo = 128,
-// and a shift by any number of rows moves only the start address.
+// and a shift by any number of rows moves only the start address. An
+// MN-major operand (a B with TRANS_B = 1) takes core matrices of 8 rows along
+// K x 16 bytes along MN: lbo = bytes between core matrices along K, sbo =
+// along MN (CUTLASS's canonical ((8,1,m),(8,k)):((1,8,SBO),(8,LBO))).
 __device__ __forceinline__ uint64_t plain_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
          static_cast<uint64_t>(sbo >> 4) << 32;
@@ -344,6 +367,26 @@ struct Wgmma<256> {
 template <int N, int TRANS_B>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
   Wgmma<N>::template run<TRANS_B>(d, a, b, scale_d);
+}
+
+// d (+)= A B for a 64 x 128 tile of the warpgroup, A bf16 from registers,
+// B bf16 in shared memory by descriptor, K-major (TRANS_B = 0) or MN-major
+// (TRANS_B = 1); d float32 in the m64nNk16 accumulator layout of Wgmma. A is
+// the m64nNk16 A fragment of 4 registers a thread (warp w of the group,
+// lane = 4 g + t: a[0] row 16 w + g, a[1] row 16 w + g + 8, columns 2 t,
+// 2 t + 1; a[2], a[3] the same rows at columns 2 t + 8, 2 t + 9; the lower
+// column in the low half), which is the accumulator's layout of columns
+// 16 k .. 16 k + 15 packed two to a register: a product's scores, rounded,
+// feed the next product as they lie. scale_d = 0 overwrites d.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_128(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
 }
 
 // d += A B for a 64 x N tile of the warpgroup with TF32 operands

@@ -17,7 +17,11 @@ tensor, "kv"; `transformer.init_kv_cache`). Two forms of the same
 product, chosen by shape when the call is made:
   * expanded (every call over several positions, and every call without a
     cache): k_nope and the values from `kv_b_proj` of the keys' latents,
-    the queries in chunks of at most SCORE_ELEMENTS scores;
+    then the attention core of `ops/mla_attention.py`: kernel K5 (one
+    launch) where `k5_takes` holds and the mask is the decoder's own causal
+    one (its positions passed down), else the plain chunked core, the
+    queries in chunks of at most SCORE_ELEMENTS scores (float32, training,
+    the CPU, a caller's mask);
   * absorbed (a one-position step over the cache, the decode): W_uk folded
     into the query, so the scores are taken against the latents directly,
     and W_uv applied after the weighted sum of latents. The cache is read
@@ -60,11 +64,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from dmel_codec_tpu_torch.models.transformer import MLP, RMSNorm, TransformerConfig, apply_rope
+from dmel_codec_tpu_torch.ops import mla_attention as k5
 from dmel_codec_tpu_torch.utils.trace import span
 
-# Largest score block of the expanded form ([B, heads, queries, keys] in
-# float32: 1 GiB); longer prefills take their queries in chunks.
-SCORE_ELEMENTS = 1 << 28
+# Largest score block of the expanded form's plain core ([B, heads, queries,
+# keys] in float32: 1 GiB); longer prefills take their queries in chunks.
+SCORE_ELEMENTS = k5.SCORE_ELEMENTS
 # HF DeepseekV3's kv_a_layernorm keeps DeepseekV3RMSNorm's default eps.
 LATENT_NORM_EPS = 1e-6
 
@@ -75,6 +80,10 @@ def deinterleave(x: torch.Tensor) -> torch.Tensor:
 
 
 class LatentAttention(nn.Module):
+    # expanded-form calls of every instance, by core: "fused" (K5) or "plain";
+    # `SlowFastGenerator` zeroes them and reports the fused share
+    calls = {"fused": 0, "plain": 0}
+
     def __init__(self, config: TransformerConfig):
         super().__init__()
         cfg = self.config = config
@@ -95,10 +104,13 @@ class LatentAttention(nn.Module):
         mask: torch.Tensor,
         cache: Optional[torch.Tensor] = None,
         cache_rows: Optional[torch.Tensor] = None,
+        mask_pos: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """x [B, S, H]; cos / sin [B, S, qk_rope_head_dim]; mask [B, S, T]
         bool. With `cache` ([B, max_len, latent + rope]) the new positions
-        are written in place at `cache_rows` and T = max_len."""
+        are written in place at `cache_rows` and T = max_len. `mask_pos`
+        [B, S]: where the mask is the decoder's own causal one, key t <=
+        mask_pos[b, s]; None for a caller's mask."""
         with span("lm.mla"):
             b, s, _ = x.shape
             nh, r = self.config.num_heads, self.config.kv_lora_rank
@@ -113,31 +125,33 @@ class LatentAttention(nn.Module):
                 kv = cache
                 if s == 1:
                     return self.o_proj(self._absorbed(q_nope, q_pe, kv, mask).reshape(b, s, -1).to(x.dtype))
-            out = self._expanded(q_nope, q_pe, kv, mask)
+            if s == 1 or not self.k5_takes(q_nope, kv):
+                mask_pos = None  # the plain core
+            out = self._expanded(q_nope, q_pe, kv, mask, mask_pos)
             return self.o_proj(out.reshape(b, s, -1).to(x.dtype))
 
-    def _expanded(self, q_nope, q_pe, kv, mask) -> torch.Tensor:
-        """Keys and values from `kv_b_proj` of every key's latent; the
-        queries in chunks. -> [B, S, heads, v]."""
-        b, s, nh, _ = q_nope.shape
+    def k5_takes(self, q_nope: torch.Tensor, kv: torch.Tensor) -> bool:
+        """Whether the expanded form's core may run as K5: bf16 queries,
+        latents and `kv_b_proj` off the CPU, no gradient taken, head sizes
+        K5 takes (`ops/mla_attention.shape_fault`)."""
+        return (not torch.is_grad_enabled() and q_nope.device.type != "cpu"
+                and q_nope.dtype == kv.dtype == self.kv_b_proj.weight.dtype == torch.bfloat16
+                and not k5.shape_fault(self.config.num_heads, self.nope, self.rope, self.v))
+
+    def _expanded(self, q_nope, q_pe, kv, mask, mask_pos) -> torch.Tensor:
+        """Keys and values from `kv_b_proj` of every key's latent, then the
+        attention core: K5 given the mask's positions, or the plain chunked
+        core given the mask where `mask_pos` is None. -> [B, S, heads, v]."""
+        b, nh = q_nope.shape[0], q_nope.shape[2]
         t, r = kv.shape[1], self.config.kv_lora_rank
         latent, k_pe = kv[..., :r], kv[..., r:]
-        dtype = torch.promote_types(q_nope.dtype, kv.dtype)
         k_nope, value = self.kv_b_proj(latent.to(self.kv_b_proj.weight.dtype)).view(b, t, nh, -1).split(
             [self.nope, self.v], dim=-1)
-        # heads first, once: [B, heads, T, d]
-        keys = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, t, nh, self.rope).to(k_nope.dtype)], dim=-1)
-        keys = keys.to(dtype).transpose(1, 2).contiguous()
-        value = value.to(dtype).transpose(1, 2).contiguous()
-        queries = torch.cat([q_nope, q_pe], dim=-1).to(dtype).transpose(1, 2)  # [B, heads, S, d]
-        step = max(1, SCORE_ELEMENTS // (b * nh * t))
-        out = []
-        for i in range(0, s, step):
-            scores = torch.matmul(queries[:, :, i:i + step], keys.transpose(-1, -2)).float() * self.scale
-            scores = torch.where(mask[:, None, i:i + step, :], scores, -1e30)
-            probs = torch.softmax(scores, dim=-1).to(dtype)
-            out.append(torch.matmul(probs, value))  # [B, heads, chunk, v]
-        return (out[0] if len(out) == 1 else torch.cat(out, dim=2)).transpose(1, 2)
+        LatentAttention.calls["plain" if mask_pos is None else "fused"] += 1
+        with span("lm.mla.attend"):
+            if mask_pos is not None:
+                return k5.mla_attention(q_nope, q_pe, k_nope, k_pe, value, mask_pos, self.scale)
+            return k5.expanded_attention(q_nope, q_pe, k_nope, k_pe, value, mask, self.scale, SCORE_ELEMENTS)
 
     def _absorbed(self, q_nope, q_pe, kv, mask) -> torch.Tensor:
         """One step against the cached latents: q_nope . (W_uk c) =
@@ -250,9 +264,11 @@ class Block(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps)
 
     def forward(self, x, cos, sin, mask, cache: Optional[Sequence[torch.Tensor]] = None, cache_rows=None,
-                mask_is_causal=False):
+                mask_pos: Optional[torch.Tensor] = None):
         """`transformer.Block`'s call; `cache` is the layer's ("kv",) of the
-        cache."""
-        x = x + self.self_attn(self.input_layernorm(x), cos, sin, mask, None if cache is None else cache[0], cache_rows)
+        cache; `mask_pos` the positions of the decoder's own causal mask
+        (`LatentAttention.forward`), in place of Qwen2's `mask_is_causal`."""
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin, mask, None if cache is None else cache[0], cache_rows,
+                               mask_pos)
         h = self.post_attention_layernorm(x)
         return x + (self.mlp(h, cache_rows) if isinstance(self.mlp, MoE) else self.mlp(h))

@@ -403,17 +403,25 @@ class Decoder(nn.Module):
             attn_mask = key_pos <= positions[:, :, None]  # [B, S, T]
 
         cos, sin = rope_cos_sin(positions, cfg.rope_dim, cfg.rope_theta)
+        # what a block is told of its mask: a Qwen2 block whether it is the causal one; latent
+        # attention, where it is the decoder's own, the positions p it is causal over (key t visible
+        # to query (b, s) iff t <= p[b, s]), else None
+        causal = mask_is_causal
+        if cfg.kind == "deepseek_v3" and cache is not None:
+            causal = positions
+        elif cfg.kind == "deepseek_v3":
+            causal = torch.arange(s, device=dev).expand(b, s) if mask_is_causal else None
 
         x = inputs_embeds
         for i, layer in enumerate(self.layers):
             if fused:  # every row's positions are 0..S-1: one [S, head_dim] table
                 x = fast_block(x, BlockWeights.of(layer), cos[0], sin[0], cfg.rms_norm_eps)
             elif cache is not None:
-                x = layer(x, cos, sin, attn_mask, [cache[k][i] for k in self.cache_keys], rows, mask_is_causal)
+                x = layer(x, cos, sin, attn_mask, [cache[k][i] for k in self.cache_keys], rows, causal)
             elif cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, cos, sin, attn_mask, None, None, mask_is_causal, use_reentrant=False)
+                x = checkpoint(layer, x, cos, sin, attn_mask, None, None, causal, use_reentrant=False)
             else:
-                x = layer(x, cos, sin, attn_mask, None, None, mask_is_causal)
+                x = layer(x, cos, sin, attn_mask, None, None, causal)
         x = self.norm(x)
 
         if cache is not None:

@@ -60,6 +60,7 @@ _SIGNATURES = {
     "dmel_stage_v1_smem_bytes": [],
     "dmel_stage_conv_tf32": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
     "dmel_fast_block": [_P] * 19 + [_I] * 7 + [_F, _P],
+    "dmel_mla_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
 }
 
 

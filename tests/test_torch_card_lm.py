@@ -1,6 +1,7 @@
 """The LM's serving side on the card: the forward with flash on and off,
-`cli.infer_lm`, K4 against its plain version, the captured frame step
-against the eager one, the generation forms (`card`: see tests/card.py)."""
+`cli.infer_lm`, K4 and K5 against their plain versions, the captured frame
+step against the eager one, the generation forms (`card`: see
+tests/card.py)."""
 
 from __future__ import annotations
 
@@ -17,15 +18,18 @@ from dmel_codec_tpu_torch.cli import infer_lm
 from dmel_codec_tpu_torch.lm.generate import InferenceConfig, SlowFastGenerator
 from dmel_codec_tpu_torch.lm.inputs import TokenGridBuilder, pad_grids_to_batch
 from dmel_codec_tpu_torch.lm.tokenizer import ByteTokenizer
+from dmel_codec_tpu_torch.models.deepseek_v3 import LatentAttention
 from dmel_codec_tpu_torch.models.lm import ChatMusicLM, SlowFastLMConfig
-from dmel_codec_tpu_torch.models.transformer import rope_cos_sin
+from dmel_codec_tpu_torch.models.transformer import Decoder, TransformerConfig, rope_cos_sin
 from dmel_codec_tpu_torch.ops.anti_alias import anti_alias_activation
 from dmel_codec_tpu_torch.ops.fast_block import K4_LAUNCHES, BlockWeights, fast_block, fast_block_reference
 from dmel_codec_tpu_torch.ops.flash_attention import flash_attention
+from dmel_codec_tpu_torch.ops.mla_attention import mla_attention, mla_attention_reference
 from dmel_codec_tpu_torch.ops.stage_fused import amp_stage
 from dmel_codec_tpu_torch.train.checkpoint import CheckpointManager
 from tests.card import (
-    HOP, SR, TOL_LM_MAX, TOL_LM_MEAN, codec_and_vocoder, free_card, on_card, rel_err, reset_launches, set_flash,
+    HOP, SR, TOL, TOL_LM_MAX, TOL_LM_MEAN, check_close, codec_and_vocoder, free_card, on_card, rel_err,
+    reset_launches, set_flash,
 )
 from tests.test_torch_fast_block import C, FAST, LM, REFUSED, S, TINY_SLOW, UNFUSABLE, _block, _cos_sin, _lm
 
@@ -307,6 +311,111 @@ def test_generate_batched_runs_k4_on_the_card():
             assert decided.float().mean().item() > 0.5
             tokens[:, i] = plain.argmax(-1)
     assert len(audio_k4) == 16 and all(len(a) == len(t) for a, t in zip(audio_k4, text_k4))
+
+
+# ---- K5: the core of latent attention's expanded form ----------------------------------
+
+# (B, S, T, index): the dialog cell's prefill (16 rows of 3,127 positions into a 4,096-position cache at index
+# 0), one row of it, a ragged chunk past index 0, and a cache-less call (T = S)
+K5_CASES = {"cell": (16, 3127, 4096, 0), "B 1": (1, 3127, 4096, 0), "ragged at 700": (3, 333, 1200, 700),
+            "cache-less": (2, 517, 517, 0)}
+K5_SCALE = 1 / 192**0.5
+# Moonlight's latent attention (16 heads of 128 + 64 / 128, latent 512) in a slow decoder of 2 layers at a small
+# width: a dense one, then 8 experts of which 2 a token
+K5_SLOW = TransformerConfig(vocab_size=151936, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=16,
+                            num_kv_heads=16, kind="deepseek_v3", kv_lora_rank=512, qk_nope_head_dim=128,
+                            qk_rope_head_dim=64, v_head_dim=128, n_routed_experts=8, num_experts_per_tok=2,
+                            moe_intermediate_size=64, n_shared_experts=1, first_k_dense_replace=1,
+                            routed_scaling_factor=2.446)
+
+
+def _k5_inputs(b: int, s: int, t: int, index: int, dev, seed: int = 0):
+    """The core's operands as LatentAttention hands them over (q_nope a view
+    of the query projection, k_nope and the values views of kv_b_proj's
+    output, k_pe the rope columns of the latent rows), N(0, 1), and the
+    positions index .. index + S - 1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, device=dev, generator=gen).bfloat16()
+
+    q, q_pe, kvb, kv = draw(b, s, 16, 192), draw(b, s, 16, 64), draw(b, t, 16, 256), draw(b, t, 576)
+    positions = (index + torch.arange(s, device=dev)).expand(b, s)
+    return q[..., :128], q_pe, kvb[..., :128], kv[..., 512:], kvb[..., 128:], positions
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_k5_matches_plain_on_the_card(case):
+    """K5 against its plain version in bf16 at the dialog prefill's shape, at
+    B = 1, ragged past index 0 and cache-less: one launch a call, and the
+    same bits on a second run."""
+    dev = on_card()
+    args = _k5_inputs(*K5_CASES[case], dev)
+    before = mla_attention.launches
+    got = mla_attention(*args, K5_SCALE)
+    assert mla_attention.launches == before + 1
+    want = mla_attention_reference(*args, K5_SCALE)
+    check_close(f"K5 {case}", got, want, TOL[("K5", torch.bfloat16)])
+    assert torch.equal(mla_attention(*args, K5_SCALE), got)
+
+
+def test_k5_refuses_negative_positions_on_the_card():
+    dev = on_card()
+    args = list(_k5_inputs(1, 70, 128, 0, dev))
+    args[-1] = args[-1] - 1
+    with pytest.raises(ValueError, match="positions >= 0"):
+        mla_attention(*args, K5_SCALE)
+
+
+@torch.no_grad()
+def test_k5_one_launch_a_layer_call():
+    """A bf16 decoder of Moonlight's latent attention runs one K5 launch a
+    layer in a cached call over several positions and in a cache-less causal
+    one, none in the one-position decode (the absorbed form) and none for a
+    caller's mask; its hidden states are finite and within K5's tolerance of
+    the plain core's, layer for layer."""
+    dev = on_card()
+    torch.manual_seed(0)
+    with torch.device(dev):
+        dec = Decoder(K5_SLOW).to(torch.bfloat16).eval()
+    x = torch.randn((2, 300, 256), device=dev).bfloat16()
+    cache = {"kv": torch.zeros((2, 2, 512, 576), device=dev, dtype=torch.bfloat16),
+             "index": torch.zeros((), dtype=torch.long, device=dev)}
+    before = mla_attention.launches
+    out, cache = dec(x, cache=cache)
+    assert mla_attention.launches == before + 2 and bool(torch.isfinite(out).all())
+    dec(x[:, :1], cache=cache)
+    assert mla_attention.launches == before + 2
+    fused, _ = dec(x)
+    assert mla_attention.launches == before + 4
+    causal = torch.ones(300, 300, dtype=torch.bool, device=dev).tril().expand(2, 300, 300)
+    plain, _ = dec(x, attn_mask=causal)  # a caller's mask: the plain core, the same function here
+    assert mla_attention.launches == before + 4
+    # the cores differ by at most K5's tolerance of their largest value; o_proj (N(0, 0.02^2) over 2,048
+    # columns) passes that on at about its size into a residual stream whose largest value, the N(0, 1)
+    # input's, is larger: the hidden states differ by less than K5's tolerance of theirs (6.8e-3 on an H100)
+    assert rel_err(fused, plain) <= TOL[("K5", torch.bfloat16)]
+
+
+def test_generation_runs_k5():
+    """generate_batched on a bf16 model whose slow decoder is Moonlight's
+    latent attention: its prefill runs the core as K5, one launch a layer
+    (stats["mla_fused"] 1.0, in the greedy and the sampled form), the
+    decode's captured frames launch none."""
+    dev = on_card()
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = ChatMusicLM(dataclasses.replace(LM, slow=K5_SLOW)).to(torch.bfloat16).eval()
+    text, audio = _serve_prompts(16)
+    for temperature in (1e-5, 0.7):
+        gen = SlowFastGenerator(model, InferenceConfig(max_new_tokens=6, max_seq_len=64, top_k=1 if temperature < 1e-3
+                                                       else 50, temperature=temperature, cache_dtype="bfloat16"))
+        before = mla_attention.launches
+        audio_ids, _ = gen.generate_batched(text, audio, torch.Generator(device=dev).manual_seed(0))
+        assert len(audio_ids) == 16 and gen.stats["graphed"]
+        assert gen.stats["mla_fused"] == 1.0 and LatentAttention.calls == {"fused": 2, "plain": 0}
+        assert mla_attention.launches == before + 2
 
 
 # ---- generation -----------------------------------------------------------------------

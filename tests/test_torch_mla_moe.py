@@ -11,10 +11,19 @@ add into a float32 sum by expert, its cache's decode takes the absorbed
 form; measured 1e-6); gradients 1e-4 of each leaf's largest (the backward
 adds the experts' and the heads' contributions in another order). The
 program in bf16 against the float32 reference misses the logits' 2e-5 by
-two orders of magnitude (the control)."""
+two orders of magnitude (the control).
+
+The expanded form's attention core (`ops/mla_attention.py`): its plain
+version given the positions returns the bits of the core under the mask
+`Decoder.forward` builds; off the CPU (`meta`, the library stood in for) a
+bf16 decoder of Moonlight's head sizes asks K5 for the core of each call
+over several positions, and a caller's mask, float32, a gradient, one
+position or other head sizes keep the plain core; a CPU generation reports
+stats["mla_fused"] 0. K5 itself on the card: tests/test_torch_card_lm.py."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 
@@ -345,3 +354,170 @@ def _vocoder_kw() -> dict:
     from tests.test_torch_support import VOCODER_KW
 
     return {k: list(v) if isinstance(v, tuple) else v for k, v in VOCODER_KW.items()}
+
+
+# ---- the attention core of the expanded form: the plain version given positions, and K5's dispatch ----
+
+def _core_inputs(b, s, t, dtype, seed=0, heads=4, nope=32, rope=16, v=32):
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen).to(dtype)
+
+    return draw(b, s, heads, nope), draw(b, s, heads, rope), draw(b, t, heads, nope), draw(b, t, rope), draw(b, t, heads, v)
+
+
+# (S, T, index): a cache-less causal call (T = S), cached calls over S > 1 at index 0 and past it; S is no
+# multiple of 64 but the first
+CORE_CASES = {"cache-less 64": (64, 64, None), "cache-less 70": (70, 70, None), "cached 70 at 0": (70, 96, 0),
+              "cached 5 at 0": (5, 16, 0), "cached 37 at 50": (37, 96, 50)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(CORE_CASES))
+@pytest.mark.parametrize("score_elements", [deepseek_v3.SCORE_ELEMENTS, 2000], ids=["one_block", "query_chunks"])
+def test_plain_core_given_positions_is_the_mask_path(case, dtype, score_elements):
+    """`mla_attention_reference` (and `mla_attention` on a CPU tensor) given
+    the positions returns the bits of the core under the mask
+    `Decoder.forward` builds: tril for a cache-less causal call, key_pos <=
+    positions over a cache."""
+    from dmel_codec_tpu_torch.ops import mla_attention as k5
+
+    s, t, index = CORE_CASES[case]
+    b = 2
+    args = _core_inputs(b, s, t, dtype, seed=s + t)
+    if index is None:
+        positions = torch.arange(s).expand(b, s)
+        mask = torch.ones(s, s, dtype=torch.bool).tril().expand(b, s, s)
+    else:
+        positions = (torch.tensor(index) + torch.arange(s)).expand(b, s)
+        mask = torch.arange(t)[None, None, :] <= positions[:, :, None]
+    scale = 1 / 48**0.5
+    want = k5.expanded_attention(*args, mask, scale, score_elements)
+    got = k5.mla_attention_reference(*args, positions, scale, score_elements)
+    assert got.shape == (b, s, 4, 32) and got.dtype == dtype
+    assert torch.equal(got, want)
+    if score_elements == k5.SCORE_ELEMENTS:
+        assert torch.equal(k5.mla_attention(*args, positions, scale), want)
+
+
+# Moonlight's head sizes (16 heads of 128 + 64 / 128, latent 512) in a two-layer dense decoder small enough for `meta`
+K5_SLOW = TransformerConfig(vocab_size=64, hidden_size=256, intermediate_size=128, num_layers=2, num_heads=16,
+                            num_kv_heads=16, kind="deepseek_v3", kv_lora_rank=512, qk_nope_head_dim=128,
+                            qk_rope_head_dim=64, v_head_dim=128, first_k_dense_replace=2)
+
+
+class _K5Lib:
+    """Records each K5 call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def dmel_mla_attention(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def _k5_stand_in(monkeypatch) -> _K5Lib:
+    from dmel_codec_tpu_torch.ops import library
+    from dmel_codec_tpu_torch.ops import mla_attention as k5
+
+    lib = _K5Lib()
+    real_check = k5._check
+
+    def check(*args):  # every check but the device's (meta tensors stand in for CUDA ones)
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            real_check(*args)
+
+    monkeypatch.setattr(k5, "_check", check)
+    monkeypatch.setattr(library, "load", lambda: lib)
+    monkeypatch.setattr(library, "stream", lambda x: 0)
+    return lib
+
+
+def _meta_decoder(cfg=K5_SLOW, dtype=torch.bfloat16) -> Decoder:
+    with torch.device("meta"):
+        return Decoder(cfg).to(dtype).eval()
+
+
+@torch.no_grad()
+def test_k5_dispatch(monkeypatch):
+    """Off the CPU (`meta`, the library stood in for), a bf16 decoder of
+    Moonlight's head sizes without gradients runs the core of every call
+    over several positions as one K5 launch a layer, cached (at S = 37 over
+    96 positions) or cache-less and causal, with the call's sizes and
+    positions; the one-position decode keeps the absorbed form; a caller's
+    mask, float32, a gradient, S = 1 without a cache and head sizes K5 does
+    not take keep the plain core and call nothing."""
+    from dmel_codec_tpu_torch.ops import mla_attention as k5
+
+    lib = _k5_stand_in(monkeypatch)
+    dec = _meta_decoder()
+    calls = deepseek_v3.LatentAttention.calls
+    calls.update(fused=0, plain=0)
+    launches = k5.mla_attention.launches
+    x = torch.empty((3, 37, 256), device="meta", dtype=torch.bfloat16)
+    cache = {"kv": torch.zeros((2, 3, 96, 576), device="meta", dtype=torch.bfloat16),
+             "index": torch.zeros((), dtype=torch.long, device="meta")}
+    out, cache = dec(x, cache=cache)
+    assert out.shape == x.shape and len(lib.calls) == 2 and calls == {"fused": 2, "plain": 0}
+    for args in lib.calls:
+        assert len(args) == 17 and args[8:15] == (3, 37, 96, 16, 128, 64, 128)
+        assert args[15] == pytest.approx(1 / 192**0.5)
+        assert tuple(args[7]) == (37 * 16 * 192, 16 * 192, 192, 37 * 16 * 64, 16 * 64, 64, 96 * 16 * 256, 16 * 256,
+                                  256, 96 * 576, 576, 96 * 16 * 256, 16 * 256, 256)
+    assert k5.mla_attention.launches == launches + 2
+    dec(x[:, :1], cache=cache)  # the decode: the absorbed form
+    dec(x)  # cache-less and causal
+    assert len(lib.calls) == 4 and calls == {"fused": 4, "plain": 0}
+    assert lib.calls[-1][8:11] == (3, 37, 37)
+
+    lib.calls.clear()
+    calls.update(fused=0, plain=0)
+    dec(x, attn_mask=torch.ones((3, 37, 37), dtype=torch.bool, device="meta"))  # a caller's mask
+    dec(x[:, :1])  # one position without a cache
+    with torch.enable_grad():
+        dec(x)
+    dec.float()(x.float())
+    _meta_decoder(dataclasses.replace(K5_SLOW, qk_nope_head_dim=96, qk_rope_head_dim=32))(x)  # 128 deep
+    assert lib.calls == [] and calls == {"fused": 0, "plain": 10}
+
+
+def test_k5_check_refuses_what_it_does_not_take():
+    """`_check` refuses (on `meta` tensors, before the device) float32
+    operands, another head size, a mismatched key, a row that is not
+    contiguous and float positions; a CPU tensor past those checks is not a
+    CUDA one."""
+    from dmel_codec_tpu_torch.ops import mla_attention as k5
+
+    def args(dtype=torch.bfloat16, nope=128, device="meta"):
+        q = torch.empty((2, 5, 16, nope + 64), device=device, dtype=dtype)
+        kvb = torch.empty((2, 9, 16, nope + 128), device=device, dtype=dtype)
+        kv = torch.empty((2, 9, 576), device=device, dtype=dtype)
+        return [q[..., :nope], torch.empty((2, 5, 16, 64), device=device, dtype=dtype), kvb[..., :nope], kv[..., 512:],
+                kvb[..., nope:], torch.zeros((2, 5), dtype=torch.long, device=device)]
+
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        k5._check(*args())
+    for bad, match in ((args(torch.float32), "must be bf16"), (args(nope=96), r"heads of 128 \+ 64"),
+                       (args()[:3] + [torch.empty((2, 8, 64), device="meta", dtype=torch.bfloat16)] + args()[4:],
+                        "k_pe must be"),
+                       (args()[:4] + [torch.empty((2, 9, 16, 136), device="meta", dtype=torch.bfloat16)[..., 4:132]]
+                        + args()[5:], "contiguous and start on 16 bytes"),
+                       (args()[:5] + [torch.zeros((2, 5), device="meta")], "positions must be integer"),
+                       (args(device="cpu"), "must be a CUDA tensor")):
+        with pytest.raises(ValueError, match=match):
+            k5._check(*bad)
+
+
+def test_generation_reports_no_fused_latent_attention_on_the_cpu():
+    """A CPU generation with the DeepSeek-V3 slow decoder reports
+    stats["mla_fused"] 0: its prefill's latent attention ran the plain
+    core."""
+    _, model = build()
+    gen = SlowFastGenerator(model, InferenceConfig(max_new_tokens=2, max_seq_len=16, top_k=1))
+    text, audio = grid(2, 6, seed=4)
+    with torch.no_grad():
+        gen.generate_batched(text.numpy(), audio.numpy(), torch.Generator().manual_seed(0))
+    assert gen.stats["mla_fused"] == 0.0
+    assert deepseek_v3.LatentAttention.calls["plain"] == 3 and deepseek_v3.LatentAttention.calls["fused"] == 0
