@@ -35,6 +35,7 @@ import torch
 
 from dmel_codec_tpu_torch.lm.sampling import sample_token
 from dmel_codec_tpu_torch.models.deepseek_v3 import LatentAttention
+from dmel_codec_tpu_torch.models.kimi_linear import KimiDeltaAttention
 from dmel_codec_tpu_torch.models.lm import ChatMusicLM, SlowFastLMConfig
 from dmel_codec_tpu_torch.utils.trace import span
 
@@ -106,8 +107,10 @@ class SlowFastGenerator:
         # the last generation's: graphed, frames_per_replay, host_reads, capture_s, replay_s,
         # fast_block_fused (the share of the fast decoder's block calls in its eager and captured
         # frames that ran as kernel K4), mla_fused (the share of the slow decoder's latent-attention
-        # calls over several positions that ran as kernel K5; 0 without latent attention), and with
-        # experts in the slow decoder pairs_prefill / pairs_decode ([moe layers, experts] routed pairs)
+        # calls over several positions that ran as kernel K5; 0 without latent attention),
+        # kda_positions (rows x positions the KDA layers' chunked form processed, every layer's call
+        # counted; 0 without KDA), and with experts in the slow decoder pairs_prefill / pairs_decode
+        # ([moe layers, router's experts] routed pairs)
         self.stats: dict = {}
         self._pairs = model.slow_decoder.track_pairs()
 
@@ -363,6 +366,7 @@ class SlowFastGenerator:
         calls.update(fused=0, module=0)  # counted as the frames' host code runs: eager, warm-up and captured
         mla = LatentAttention.calls
         mla.update(fused=0, plain=0)
+        KimiDeltaAttention.scanned["positions"] = 0
         t0 = time.perf_counter()
         entry = self._graph(b, step_decode) if graphed else None
         capture_s = time.perf_counter() - t0  # a first call's capture; a lookup after
@@ -388,6 +392,7 @@ class SlowFastGenerator:
             "replay_s": replay_s,
             "fast_block_fused": calls["fused"] / max(1, calls["fused"] + calls["module"]),
             "mla_fused": mla["fused"] / max(1, mla["fused"] + mla["plain"]),
+            "kda_positions": KimiDeltaAttention.scanned["positions"],
         }
         if self._pairs is not None:  # after the fetch: the device has finished
             pairs = self._pairs.to("cpu", copy=True).numpy()

@@ -52,6 +52,21 @@ Each layer adds its (token, expert) pairs to `Decoder.track_pairs`'
 counter, and over a cache writes its choices at the positions' rows of
 `Decoder.track_routes`' log (what the served tokens were computed with),
 where someone asked for them.
+
+The expert share (expert parallelism, `TransformerConfig.experts_held` /
+`expert_offset`): a layer may hold only the experts offset .. offset +
+held - 1 of its router's. The router keeps every output and its bias and
+routes over all of them; the counter and the log keep the router's expert
+ids. `routed` computes the pairs routed to held experts only, `dense` the
+held experts with the absent ones' weights dropped, and the shared experts
+run as before: the layer adds its own experts' part of the sum, and nothing
+stands in for the others. Holding every expert is the whole layer, on the
+same kernels.
+
+The latent attention of `kind="kimi_linear"` (Kimi Linear's MLA layers,
+`mla_use_nope` in its config): nothing is rotated (the rope parts of query and key
+are plain parts of the head, cached as they come), and `kv_a_layernorm`
+takes the configuration's rms_norm_eps.
 """
 
 from __future__ import annotations
@@ -91,7 +106,7 @@ class LatentAttention(nn.Module):
         self.nope, self.rope, self.v = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
         self.q_proj = nn.Linear(h, nh * (self.nope + self.rope), bias=False)
         self.kv_a_proj_with_mqa = nn.Linear(h, r + self.rope, bias=False)
-        self.kv_a_layernorm = RMSNorm(r, LATENT_NORM_EPS)
+        self.kv_a_layernorm = RMSNorm(r, cfg.rms_norm_eps if cfg.kind == "kimi_linear" else LATENT_NORM_EPS)
         self.kv_b_proj = nn.Linear(r, nh * (self.nope + self.v), bias=False)
         self.o_proj = nn.Linear(nh * self.v, h, bias=False)
         self.scale = 1.0 / math.sqrt(self.nope + self.rope)
@@ -116,9 +131,10 @@ class LatentAttention(nn.Module):
             nh, r = self.config.num_heads, self.config.kv_lora_rank
             q = self.q_proj(x).view(b, s, nh, self.nope + self.rope)
             q_nope, q_pe = q.split([self.nope, self.rope], dim=-1)
-            q_pe = apply_rope(deinterleave(q_pe), cos, sin)
             c, k_pe = self.kv_a_proj_with_mqa(x).split([r, self.rope], dim=-1)
-            k_pe = apply_rope(deinterleave(k_pe)[:, :, None, :], cos, sin)[:, :, 0]
+            if self.config.kind != "kimi_linear":
+                q_pe = apply_rope(deinterleave(q_pe), cos, sin)
+                k_pe = apply_rope(deinterleave(k_pe)[:, :, None, :], cos, sin)[:, :, 0]
             kv = torch.cat([self.kv_a_layernorm(c), k_pe], dim=-1)  # [B, S, r + rope]
             if cache is not None:
                 cache.index_copy_(1, cache_rows, kv.to(cache.dtype))
@@ -191,20 +207,31 @@ class TopkRouter(nn.Module):
 class Experts(nn.Module):
     def __init__(self, config: TransformerConfig):
         super().__init__()
-        e, h, i = config.n_routed_experts, config.hidden_size, config.moe_intermediate_size
+        e, h, i = config.held_experts, config.hidden_size, config.moe_intermediate_size
         self.gate_up_proj = nn.Parameter(torch.empty(e, 2 * i, h))
         self.down_proj = nn.Parameter(torch.empty(e, h, i))
+        self.offset, self.router_width = config.expert_offset, config.n_routed_experts
+
+    @property
+    def whole(self) -> bool:
+        """Whether the layer holds every expert of its router."""
+        return self.gate_up_proj.shape[0] == self.router_width
 
     def routed(self, x: torch.Tensor, chosen: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """Only the chosen (token, expert) pairs. x [N, H] -> float32 [N, H]."""
+        """Only the chosen (token, expert) pairs of held experts. x [N, H],
+        chosen [N, k] router ids -> float32 [N, H]."""
         k = chosen.shape[1]
         flat = chosen.flatten()
+        held = self.gate_up_proj.shape[0]
+        if not self.whole:  # the held experts' own ids; every absent one past them, sorted last and left out
+            flat = flat - self.offset
+            flat = torch.where((flat >= 0) & (flat < held), flat, held)
         order = torch.argsort(flat, stable=True)
         token = order // k
         weight = w.flatten()[order]
         out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
         start = 0
-        for e, n in enumerate(torch.bincount(flat, minlength=self.gate_up_proj.shape[0]).tolist()):
+        for e, n in enumerate(torch.bincount(flat, minlength=held).tolist()[:held]):
             if n:
                 rows = token[start:start + n]
                 gate, up = F.linear(x.index_select(0, rows), self.gate_up_proj[e]).chunk(2, dim=-1)
@@ -214,10 +241,12 @@ class Experts(nn.Module):
         return out
 
     def dense(self, x: torch.Tensor, chosen: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """Every expert over every token, weighted by zero where unchosen.
-        x [N, H] -> float32 [N, H]."""
+        """Every held expert over every token, weighted by zero where
+        unchosen. x [N, H], chosen [N, k] router ids -> float32 [N, H]."""
         e, two_i, h = self.gate_up_proj.shape
-        weights = torch.zeros((x.shape[0], e), dtype=torch.float32, device=x.device).scatter_(1, chosen, w)
+        weights = torch.zeros((x.shape[0], self.router_width), dtype=torch.float32, device=x.device).scatter_(1, chosen, w)
+        if not self.whole:
+            weights = weights[:, self.offset:self.offset + e]
         gate, up = F.linear(x, self.gate_up_proj.view(e * two_i, h)).view(-1, e, two_i).chunk(2, dim=-1)
         y = torch.bmm((F.silu(gate) * up).transpose(0, 1), self.down_proj.transpose(1, 2))  # [E, N, H]
         return torch.einsum("enh,ne->nh", y.float(), weights)

@@ -35,8 +35,12 @@ loads into `Decoder` directly.
     (`models/deepseek_v3.py`, HF `DeepseekV3DecoderLayer`, no JAX
     counterpart): multi-head latent attention with its latent cache, and
     from layer `first_k_dense_replace` on a mixture of experts in place of
-    the MLP. The kind is fixed when the decoder is built; the cache's
-    layout follows it (`init_kv_cache`).
+    the MLP. `kind="kimi_linear"` builds Kimi Linear's blocks
+    (`models/kimi_linear.py`): Kimi Delta Attention in the layers
+    `kda_layers`, NoPE latent attention in the others, the same MLP and
+    experts. The kind is fixed when the decoder is built; the cache's
+    layout follows it (`init_kv_cache`), and each layer is handed its own
+    slots of it (`Decoder.slots`).
 `scan_layers` of the JAX config (one compiled layer body under `nn.scan`)
 is an XLA device and has no counterpart here.
 """
@@ -97,12 +101,27 @@ class TransformerConfig:
     n_shared_experts: int = 0
     first_k_dense_replace: int = 0
     routed_scaling_factor: float = 1.0
+    # the expert share (expert parallelism): a MoE layer holds `experts_held` of the router's
+    # n_routed_experts, from `expert_offset` on, and adds only their part (0: every expert)
+    experts_held: int = 0
+    expert_offset: int = 0
+    # kind "kimi_linear" (models/kimi_linear.py): the deepseek_v3 kind's latent attention and
+    # experts, with the layers `kda_layers` (counted from 0) Kimi Delta Attention of kda_num_heads
+    # heads of kda_head_dim and causal depthwise convolutions of kda_conv_size taps; its latent
+    # attention rotates nothing (the rope part is a plain part of the head)
+    kda_layers: Tuple[int, ...] = ()
+    kda_num_heads: int = 0
+    kda_head_dim: int = 0
+    kda_conv_size: int = 0
 
     def __post_init__(self):
         if self.kind not in CACHE_KEYS:
             raise ValueError(f"unknown decoder kind {self.kind!r}: one of {sorted(CACHE_KEYS)}")
-        if self.kind == "deepseek_v3" and self.flash_attention:
-            raise ValueError("flash_attention runs the qwen2 kind's equal q / v head sizes; deepseek_v3 attends by einsum")
+        if self.kind != "qwen2" and self.flash_attention:
+            raise ValueError(f"flash_attention runs the qwen2 kind's equal q / v head sizes; {self.kind} attends by einsum")
+        if self.experts_held and not 0 <= self.expert_offset <= self.n_routed_experts - self.experts_held:
+            raise ValueError(f"experts {self.expert_offset}..{self.expert_offset + self.experts_held - 1} are not "
+                             f"among the router's {self.n_routed_experts}")
 
     @property
     def head_dim(self) -> int:
@@ -111,12 +130,18 @@ class TransformerConfig:
     @property
     def rope_dim(self) -> int:
         """The width RoPE rotates: the whole head, or MLA's rope part."""
-        return self.qk_rope_head_dim if self.kind == "deepseek_v3" else self.head_dim
+        return self.head_dim if self.kind == "qwen2" else self.qk_rope_head_dim
+
+    @property
+    def held_experts(self) -> int:
+        """The experts a MoE layer holds: `experts_held`, or all of them."""
+        return self.experts_held or self.n_routed_experts
 
 
-# The cache's per-layer tensors of each kind: per-head keys and values; or
-# MLA's normalised latent and rotated shared rope key side by side.
-CACHE_KEYS = {"qwen2": ("k", "v"), "deepseek_v3": ("kv",)}
+# The cache's tensors of each kind, the one indexed by position first: per-head
+# keys and values; MLA's normalised latent and rotated shared rope key side by
+# side; and beside MLA's, the KDA layers' recurrent state and convolution state.
+CACHE_KEYS = {"qwen2": ("k", "v"), "deepseek_v3": ("kv",), "kimi_linear": ("kv", "state", "conv")}
 
 
 # Flagship sizes (Qwen2-0.5B slow decoder, 12-layer fast depth decoder).
@@ -183,8 +208,20 @@ def init_kv_cache(
     int64 tensor on `device`). qwen2: per-layer K/V [L, B, max_len,
     kv_heads, head_dim]; deepseek_v3: per-layer "kv" [L, B, max_len,
     kv_lora_rank + qk_rope_head_dim], each position's normalised latent
-    then its rotated rope key (shared by the heads)."""
-    if config.kind == "deepseek_v3":
+    then its rope key (shared by the heads); kimi_linear: "kv" of the latent
+    attention layers, and of the KDA layers "state" [KDA layers, B, heads,
+    head_dim (key), head_dim (value)] in float32 whatever `dtype` says, and
+    "conv" [KDA layers, B, kda_conv_size - 1, 3 * heads * head_dim], the
+    last inputs of the q, k and v convolutions side by side."""
+    if config.kind == "kimi_linear":
+        kda = len(config.kda_layers)
+        width = config.kda_num_heads * config.kda_head_dim
+        cache = {"kv": torch.zeros((config.num_layers - kda, batch, max_len, config.kv_lora_rank + config.qk_rope_head_dim),
+                                   dtype=dtype, device=device),
+                 "state": torch.zeros((kda, batch, config.kda_num_heads, config.kda_head_dim, config.kda_head_dim),
+                                      dtype=torch.float32, device=device),
+                 "conv": torch.zeros((kda, batch, config.kda_conv_size - 1, 3 * width), dtype=dtype, device=device)}
+    elif config.kind == "deepseek_v3":
         shape = (config.num_layers, batch, max_len, config.kv_lora_rank + config.qk_rope_head_dim)
         cache = {"kv": torch.zeros(shape, dtype=dtype, device=device)}
     else:
@@ -192,6 +229,22 @@ def init_kv_cache(
         cache = {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
     cache["index"] = torch.zeros((), dtype=torch.int64, device=device)
     return cache
+
+
+def slots(config: TransformerConfig) -> list:
+    """Each layer's (cache keys, index into those tensors): every layer
+    takes its kind's keys at its own number, except kimi_linear's, whose KDA
+    layers take ("state", "conv") and latent attention layers ("kv",), each
+    numbered among its own kind."""
+    if config.kind != "kimi_linear":
+        return [(CACHE_KEYS[config.kind], i) for i in range(config.num_layers)]
+    kda = set(config.kda_layers)
+    seen = {True: 0, False: 0}
+    out = []
+    for i in range(config.num_layers):
+        out.append((("state", "conv") if i in kda else ("kv",), seen[i in kda]))
+        seen[i in kda] += 1
+    return out
 
 
 class Attention(nn.Module):
@@ -292,10 +345,15 @@ class Decoder(nn.Module):
             from dmel_codec_tpu_torch.models import deepseek_v3  # it builds on this module's norm, RoPE and MLP
 
             self.layers = nn.ModuleList(deepseek_v3.Block(config, i) for i in range(config.num_layers))
+        elif config.kind == "kimi_linear":
+            from dmel_codec_tpu_torch.models import kimi_linear
+
+            self.layers = nn.ModuleList(kimi_linear.Block(config, i) for i in range(config.num_layers))
         else:
             self.layers = nn.ModuleList(Block(config) for _ in range(config.num_layers))
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
         self.cache_keys = CACHE_KEYS[config.kind]
+        self.slots = slots(config)
         self.pair_counts: Optional[torch.Tensor] = None  # see track_pairs
         self.route_log: Optional[torch.Tensor] = None  # see track_routes
 
@@ -407,9 +465,9 @@ class Decoder(nn.Module):
         # attention, where it is the decoder's own, the positions p it is causal over (key t visible
         # to query (b, s) iff t <= p[b, s]), else None
         causal = mask_is_causal
-        if cfg.kind == "deepseek_v3" and cache is not None:
+        if cfg.kind != "qwen2" and cache is not None:
             causal = positions
-        elif cfg.kind == "deepseek_v3":
+        elif cfg.kind != "qwen2":
             causal = torch.arange(s, device=dev).expand(b, s) if mask_is_causal else None
 
         x = inputs_embeds
@@ -417,7 +475,8 @@ class Decoder(nn.Module):
             if fused:  # every row's positions are 0..S-1: one [S, head_dim] table
                 x = fast_block(x, BlockWeights.of(layer), cos[0], sin[0], cfg.rms_norm_eps)
             elif cache is not None:
-                x = layer(x, cos, sin, attn_mask, [cache[k][i] for k in self.cache_keys], rows, causal)
+                keys, slot = self.slots[i]
+                x = layer(x, cos, sin, attn_mask, [cache[k][slot] for k in keys], rows, causal)
             elif cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(layer, x, cos, sin, attn_mask, None, None, causal, use_reentrant=False)
             else:

@@ -149,19 +149,20 @@ def set_model_groups(lm: nn.Module, specs: Dict[str, Spec], group) -> None:
     projections `specs` cut over the model axis the model `group`, and each
     head cut over its vocabulary the group in `lm.vocab_groups`. A block or
     head that fell back to replication keeps None: every rank runs it whole.
-    A DeepSeek-V3 block (latent attention, experts) has no cut here: it
-    raises NotImplementedError."""
+    A DeepSeek-V3 or Kimi Linear block (latent attention, Kimi delta
+    attention, experts) has no cut here: it raises NotImplementedError."""
     from dmel_codec_tpu_torch.models.deepseek_v3 import LatentAttention, MoE
+    from dmel_codec_tpu_torch.models.kimi_linear import KimiDeltaAttention
     from dmel_codec_tpu_torch.models.transformer import MLP, Attention
 
     def cut(name: str) -> bool:
         return MODEL_AXIS in specs[name]
 
     for prefix, m in lm.named_modules():
-        if isinstance(m, (LatentAttention, MoE)):
+        if isinstance(m, (LatentAttention, KimiDeltaAttention, MoE)):
             raise NotImplementedError(
-                f"tensor parallelism has no cut of {prefix} ({type(m).__name__}): latent attention and experts "
-                f"run on one rank whole; use data parallelism or a Qwen2 decoder"
+                f"tensor parallelism has no cut of {prefix} ({type(m).__name__}): Kimi delta attention, "
+                f"latent attention and experts run on one rank whole; use data parallelism or a Qwen2 decoder"
             )
         if isinstance(m, Attention):
             m.model_group = group if cut(f"{prefix}.q_proj.weight") else None
