@@ -109,7 +109,8 @@ class SlowFastGenerator:
         # frames that ran as kernel K4), mla_fused (the share of the slow decoder's latent-attention
         # calls over several positions that ran as kernel K5; 0 without latent attention),
         # kda_positions (rows x positions the KDA layers' chunked form processed, every layer's call
-        # counted; 0 without KDA), and with experts in the slow decoder pairs_prefill / pairs_decode
+        # counted; 0 without KDA), kda_fused (the share of those chunked calls that ran as kernel K6;
+        # 0 without KDA), and with experts in the slow decoder pairs_prefill / pairs_decode
         # ([moe layers, router's experts] routed pairs)
         self.stats: dict = {}
         self._pairs = model.slow_decoder.track_pairs()
@@ -367,6 +368,8 @@ class SlowFastGenerator:
         mla = LatentAttention.calls
         mla.update(fused=0, plain=0)
         KimiDeltaAttention.scanned["positions"] = 0
+        kda = KimiDeltaAttention.calls
+        kda.update(fused=0, plain=0)
         t0 = time.perf_counter()
         entry = self._graph(b, step_decode) if graphed else None
         capture_s = time.perf_counter() - t0  # a first call's capture; a lookup after
@@ -393,6 +396,7 @@ class SlowFastGenerator:
             "fast_block_fused": calls["fused"] / max(1, calls["fused"] + calls["module"]),
             "mla_fused": mla["fused"] / max(1, mla["fused"] + mla["plain"]),
             "kda_positions": KimiDeltaAttention.scanned["positions"],
+            "kda_fused": kda["fused"] / max(1, kda["fused"] + kda["plain"]),
         }
         if self._pairs is not None:  # after the fetch: the device has finished
             pairs = self._pairs.to("cpu", copy=True).numpy()

@@ -25,7 +25,10 @@ Two forms of the same recurrence, chosen by shape when the call is made:
     chunk's pairs taken in parallel and the state carried from chunk to
     chunk; heads in groups of at most GROUP_BYTES of float32 queries, whose
     operands are written once into chunk-major buffers. Every exponential it
-    takes is of a non-positive sum of gates, so no gate overflows it;
+    takes is of a non-positive sum of gates, so no gate overflows it. Where
+    `k6_takes` holds (bf16 on the card, no gradient, heads of 128, 4 taps)
+    the core from the projections' outputs to o runs as kernel K6 instead
+    (`ops/kda_scan.py`: one launch a call over all heads);
   * recurrent (a one-position step over the cache: the decode): the state
     and the convolutions' inputs stepped in place, with no host read, so a
     captured graph takes it.
@@ -45,6 +48,7 @@ from torch import nn
 
 from dmel_codec_tpu_torch.models.deepseek_v3 import LatentAttention, MoE
 from dmel_codec_tpu_torch.models.transformer import MLP, RMSNorm, TransformerConfig
+from dmel_codec_tpu_torch.ops import kda_scan as k6
 from dmel_codec_tpu_torch.utils.trace import span
 
 CHUNK = 64
@@ -189,6 +193,9 @@ class KimiDeltaAttention(nn.Module):
     # rows x positions the chunked form has processed, every layer's call counted (tail padding
     # left out); `SlowFastGenerator` zeroes it and reports it
     scanned = {"positions": 0}
+    # chunked calls of every instance, by core: "fused" (K6) or "plain"; `SlowFastGenerator`
+    # zeroes them and reports the fused share
+    calls = {"fused": 0, "plain": 0}
 
     def __init__(self, config: TransformerConfig):
         super().__init__()
@@ -249,18 +256,40 @@ class KimiDeltaAttention(nn.Module):
                 return self._step(x, *cache)
             return self._chunked(x, cache)
 
-    def _chunked(self, x: torch.Tensor, cache: Optional[Sequence[torch.Tensor]]) -> torch.Tensor:
-        """Heads in groups: each group's q, k, v and gates are written once,
-        into chunk-major buffers [chunks, B, heads, CHUNK, d], for
-        `scan_chunks`."""
+    def k6_takes(self, x: torch.Tensor, cache: Optional[Sequence[torch.Tensor]]) -> bool:
+        """Whether the chunked core may run as K6: bf16 input, projections
+        and convolutions off the CPU, no gradient taken, the sizes K6 takes
+        (`ops/kda_scan.shape_fault`), and a cache, if any, of a float32
+        state and bf16 convolution inputs."""
         cfg = self.config
+        projs, convs = self._projections()
+        return (not torch.is_grad_enabled() and x.device.type != "cpu" and x.dtype == torch.bfloat16
+                and all(m.weight.dtype == torch.bfloat16 for m in (*projs, *convs, self.f_b_proj, self.b_proj))
+                and (cache is None or (cache[0].dtype == torch.float32 and cache[1].dtype == torch.bfloat16))
+                and not k6.shape_fault(cfg.kda_num_heads, cfg.kda_head_dim, cfg.kda_conv_size, CHUNK))
+
+    def _chunked(self, x: torch.Tensor, cache: Optional[Sequence[torch.Tensor]]) -> torch.Tensor:
+        """K6 where `k6_takes` holds; else heads in groups: each group's q,
+        k, v and gates are written once, into chunk-major buffers [chunks,
+        B, heads, CHUNK, d], for `scan_chunks`."""
         b, s, _ = x.shape
+        KimiDeltaAttention.scanned["positions"] += b * s
+        state, conv = cache if cache is not None else (None, None)
+        projs, convs = self._projections()
+        if self.k6_takes(x, cache):
+            KimiDeltaAttention.calls["fused"] += 1
+            f, beta = self.f_b_proj(self.f_a_proj(x)), self.b_proj(x)
+            qkv = [p(x) for p in projs]
+            with span("lm.kda.scan"):
+                o = k6.kda_scan(*qkv, f, beta, [c.weight for c in convs], self.A_log, self.dt_bias, self.scale,
+                                conv, state)
+            return self.o_proj(self._out(o, self.g_b_proj(self.g_a_proj(x))).to(x.dtype))
+        KimiDeltaAttention.calls["plain"] += 1
+        cfg = self.config
         nh, d = cfg.kda_num_heads, cfg.kda_head_dim
         width = nh * d
         nc = -(-s // CHUNK)
         full, rest = divmod(s, CHUNK)
-        state, conv = cache if cache is not None else (None, None)
-        projs, convs = self._projections()
         fa, ga = self.f_a_proj(x), self.g_a_proj(x)
         beta = torch.sigmoid(self.b_proj(x).float())
         out = x.new_empty(b, s, width)
@@ -305,7 +334,6 @@ class KimiDeltaAttention(nn.Module):
         if conv is not None:
             for j, ch, tail in tails:
                 conv[:, :, j * width + ch.start:j * width + ch.stop].copy_(tail)
-        KimiDeltaAttention.scanned["positions"] += b * s
         return self.o_proj(out)
 
     def _step(self, x: torch.Tensor, state: torch.Tensor, conv: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,24 @@
 """On the card: Kimi Linear's KDA scan at its published head size against
-the recurrence, and a bf16 slow decoder of Kimi Linear's published widths
-(four layers: three KDA and one NoPE latent attention; rank 0's share of
-64 of the router's 256 experts) through `generate_batched`: its expanded
-latent attention on K5, its captured frames the eager step's tokens at B =
-16. Imports nothing of JAX (the suite runs without the tests' conftest).
+the recurrence, kernel K6 (the chunked core from the projections' outputs
+to o, `ops/kda_scan.py`) against the float64 recurrence and against the
+plain chunked path, and a bf16 slow decoder of Kimi Linear's published
+widths (four layers: three KDA and one NoPE latent attention; rank 0's
+share of 64 of the router's 256 experts) through `generate_batched`: its
+expanded latent attention on K5, its KDA prefill on K6, its captured
+frames the eager step's tokens at B = 16. Imports nothing of JAX (the
+suite runs without the tests' conftest).
 
 Tolerances: the chunked scan in float32 (TF32 off) against the float64
 recurrence, of max(1, the largest magnitude): 1e-5 at the gates of the
 weights' draw and 1e-4 at gates down to -20 a step, as on the CPU
-(tests/test_torch_kimi_linear.py); the KDA layer's prefill then decode in
-bf16 against its own chunked call over every position, 2^-5 of max(1,
-its largest output) (bf16 projections and convolution inputs through the
-two forms' different orders of summation)."""
+(tests/test_torch_kimi_linear.py); K6 (split-TF32 products, float32
+sums) against the float64 recurrence from the same bf16 inputs, the same
+1e-5 / 1e-4; K6 against the plain chunked path, whose convolutions round
+their outputs to bf16 (2^-9 relative) where K6 keeps float32, and the
+KDA layer's prefill then decode in bf16 against its own chunked call over
+every position, 2^-5 of max(1, its largest output) (bf16 projections and
+convolution inputs through the two forms' different orders of
+summation)."""
 
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from dmel_codec_tpu_torch.models import kimi_linear
 from dmel_codec_tpu_torch.models.deepseek_v3 import LatentAttention
 from dmel_codec_tpu_torch.models.lm import ChatMusicLM, SlowFastLMConfig
 from dmel_codec_tpu_torch.models.transformer import TransformerConfig
+from dmel_codec_tpu_torch.ops import kda_scan as k6
 from dmel_codec_tpu_torch.ops.mla_attention import mla_attention
 from tests.card import on_card, rel_err
 
@@ -81,6 +89,95 @@ def test_the_scan_at_published_heads_is_the_recurrence(steepest):
     assert bool(torch.isfinite(o).all()) and rel_err(o, want_o) <= tol and rel_err(last, want_s) <= tol
 
 
+def _k6_inputs(b: int, s: int, steepest, dev, seed: int = 13):
+    """K6's inputs at 32 heads of 128 (bf16 projections N(0, 1), conv
+    weights N(0, 1/4), carried convolution inputs and a state drawn too):
+    the gates of the weights' draw, or -exp(A_log) softplus(f + dt_bias)
+    spread over [-steepest, 0] a step."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    heads, d = 32, 128
+    width = heads * d
+
+    def draw(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    q, k, v = (draw(b, s, width).bfloat16() for _ in range(3))
+    weights = [draw(width, 1, 4, std=0.5).bfloat16() for _ in range(3)]
+    if steepest is None:
+        a_log = torch.empty(heads, device=dev).uniform_(1.0, 16.0, generator=gen).log_()
+        dt = torch.empty(width, device=dev).uniform_(math.log(1e-3), math.log(1e-1), generator=gen).exp_()
+        dt_bias = dt + torch.log(-torch.expm1(-dt))
+        f = draw(b, s, width).bfloat16()
+    else:
+        a_log, dt_bias = torch.zeros(heads, device=dev), torch.zeros(width, device=dev)
+        u = torch.empty((b, s, width), device=dev).uniform_(1e-3, -steepest, generator=gen)
+        f = (u + torch.log(-torch.expm1(-u))).bfloat16()  # softplus(f) = u
+    beta = draw(b, s, heads).bfloat16()
+    conv, state = draw(b, 3, 3 * width).bfloat16(), draw(b, heads, d, d)
+    return (q, k, v, f, beta, weights, a_log, dt_bias, 1 / math.sqrt(d)), conv, state
+
+
+def _k6_float64(args, conv, state):
+    """K6's function in float64 from the same inputs: the convolutions,
+    norms and gates, then the recurrence -> (o, last state, conv tails)."""
+    q, k, v, f, beta, weights, a_log, dt_bias, scale = args
+    b, s, width = q.shape
+    heads, d = a_log.shape[0], width // a_log.shape[0]
+    ops = []
+    for j, (x, w) in enumerate(zip((q, k, v), weights)):
+        full = torch.cat([conv[:, :, j * width:(j + 1) * width], x], 1).double()
+        y = sum(full[:, m:m + s] * w[:, 0, m].double() for m in range(4))
+        y = (y * torch.sigmoid(y)).view(b, s, heads, d)
+        if j < 2:
+            y = y / torch.sqrt((y * y).sum(-1, keepdim=True) + kimi_linear.L2NORM_EPS)
+        ops.append(y * scale if j == 0 else y)
+    g = -torch.exp(a_log.double())[:, None] * torch.nn.functional.softplus(
+        f.double().view(b, s, heads, d) + dt_bias.double().view(heads, d))
+
+    def rows(t):
+        return t.transpose(1, 2).reshape(b * heads, s, *t.shape[3:])
+
+    o, last = _recurrence(*(rows(t) for t in (*ops, g)), rows(torch.sigmoid(beta.double())),
+                          state.reshape(b * heads, d, d))
+    tails = torch.cat([torch.cat([conv[:, :, j * width:(j + 1) * width], x], 1)[:, s:] for j, x in enumerate((q, k, v))], -1)
+    return o.view(b, heads, s, d).transpose(1, 2), last.view(b, heads, d, d), tails
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("steepest", [None, -20.0], ids=["drawn", "gates_to_-20"])
+def test_k6_is_the_recurrence(steepest):
+    """K6 at 32 heads of 128 over 2 rows of 700 positions (ten chunks and a
+    ragged tail), from a carried state and carried convolution inputs,
+    against the float64 recurrence from the same bf16 inputs: o, the last
+    state and the convolutions' last inputs (those exactly)."""
+    dev = on_card()
+    args, conv, state = _k6_inputs(2, 700, steepest, dev)
+    want_o, want_s, want_tails = _k6_float64(args, conv, state)
+    before = k6.kda_scan.launches
+    o = k6.kda_scan(*args, conv, state)
+    torch.cuda.synchronize()
+    tol = SCAN_TOL if steepest is None else STEEP_TOL
+    assert k6.kda_scan.launches == before + 1 and o.dtype == torch.float32 and bool(torch.isfinite(o).all())
+    assert rel_err(o, want_o) <= tol and rel_err(state, want_s) <= tol
+    assert torch.equal(conv, want_tails)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("s", [12343, 2], ids=["long_dialog", "shorter_than_the_halo"])
+def test_k6_is_the_plain_chunked_path(s):
+    """K6 against the plain chunked path (`kda_scan_reference`: the model's
+    convolution and `chunk_kda`) at B = 2 from a carried state and carried
+    convolution inputs: the long-dialog prompt's 12,343 positions (a ragged
+    tail) and 2 positions (the tails then take carried inputs)."""
+    dev = on_card()
+    args, conv, state = _k6_inputs(2, s, None, dev, seed=s)
+    conv_p, state_p = conv.clone(), state.clone()
+    want = k6.kda_scan_reference(*args, conv_p, state_p)
+    got = k6.kda_scan(*args, conv, state)
+    assert rel_err(got, want) <= LAYER_TOL and rel_err(state, state_p) <= LAYER_TOL
+    assert torch.equal(conv, conv_p)
+
+
 @pytest.fixture(scope="module")
 def kimi():
     dev = on_card()
@@ -118,15 +215,18 @@ def _prompts(b: int, s: int):
 def test_generation_captures_the_eager_step(kimi):
     """generate_batched at B = 16 over 600-position prompts, bf16 weights
     and cache: every expanded latent attention call on K5 (mla_fused 1.0,
-    one launch a prefill), the KDA prefill's positions counted, and the
+    one launch a prefill), every KDA layer's prefill on K6 (kda_fused 1.0,
+    one launch a layer), the KDA prefill's positions counted, and the
     captured graph's frames the eager step's tokens."""
     dev = on_card()
     gen = SlowFastGenerator(kimi, InferenceConfig(max_new_tokens=24, max_seq_len=640, cache_dtype="bfloat16"))
     text, audio = _prompts(16, 600)
-    before = mla_attention.launches
+    before, before_k6 = mla_attention.launches, k6.kda_scan.launches
     graph = list(zip(*gen.generate_batched(text, audio, torch.Generator(device=dev).manual_seed(5))))
     assert gen.stats["graphed"] and gen.stats["mla_fused"] == 1.0 and LatentAttention.calls == {"fused": 1, "plain": 0}
     assert mla_attention.launches == before + 1 and gen.stats["kda_positions"] == 16 * 600 * 3
+    assert gen.stats["kda_fused"] == 1.0 and kimi_linear.KimiDeltaAttention.calls == {"fused": 3, "plain": 0}
+    assert k6.kda_scan.launches == before_k6 + 3
     texts, audios, lengths = gen._generate(text, audio, torch.Generator(device=dev).manual_seed(5),
                                            gen._fast_decode_fixed, gen._fast_decode_fixed, graphed=False)
     eager = [(audios[i, : lengths[i]], texts[i, : lengths[i]]) for i in range(16)]

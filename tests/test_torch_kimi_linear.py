@@ -39,7 +39,7 @@ from dmel_codec_tpu_torch.lm.generate import InferenceConfig, SlowFastGenerator
 from dmel_codec_tpu_torch.models import kimi_linear
 from dmel_codec_tpu_torch.models.deepseek_v3 import Experts, LatentAttention, MoE
 from dmel_codec_tpu_torch.models.lm import ChatMusicLM
-from dmel_codec_tpu_torch.models.transformer import init_kv_cache
+from dmel_codec_tpu_torch.models.transformer import TransformerConfig, init_kv_cache
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 2e-5
@@ -494,3 +494,169 @@ def test_infer_lm_runs_the_kind(tmp_path):
     infer_lm.main(["--config", str(tmp_path / "infer.yaml"), "--prompt", "hi", "--out", str(out), "--device", "cpu"])
     sr, wav = wavfile.read(out)
     assert sr == 24000 and wav.ndim == 1 and len(wav) > 0 and np.isfinite(wav).all()
+
+
+# K6's sizes (heads of 128, 4 taps) in one KDA layer small enough for `meta`: 2 heads over a hidden size of 256
+K6_LAYER = TransformerConfig(vocab_size=64, hidden_size=256, intermediate_size=128, num_layers=1, num_heads=2,
+                             num_kv_heads=2, rms_norm_eps=1e-5, kind="kimi_linear", kda_layers=(0,), kda_num_heads=2,
+                             kda_head_dim=128, kda_conv_size=4)
+
+
+def k6_layer(cfg=K6_LAYER, dtype=torch.bfloat16, device="meta") -> kimi_linear.KimiDeltaAttention:
+    with torch.device(device):
+        return kimi_linear.KimiDeltaAttention(cfg).to(dtype).eval()
+
+
+def k6_cache(b: int, cfg=K6_LAYER, device="meta", conv_dtype=torch.bfloat16):
+    width = cfg.kda_num_heads * cfg.kda_head_dim
+    return (torch.zeros((b, cfg.kda_num_heads, cfg.kda_head_dim, cfg.kda_head_dim), device=device),
+            torch.zeros((b, cfg.kda_conv_size - 1, 3 * width), device=device, dtype=conv_dtype))
+
+
+@pytest.mark.parametrize("sizes, reason", [((32, 128, 4, 64), ""), ((32, 64, 4, 64), "heads of 128, got 64"),
+                                           ((32, 128, 3, 64), "4 taps, got 3"), ((32, 128, 4, 32), "64 positions, got 32")],
+                         ids=["kimi_linear", "head_dim_64", "taps_3", "chunk_32"])
+def test_k6_shape_fault(sizes, reason):
+    """`shape_fault` passes Kimi Linear's sizes and names the size of any
+    other head size, tap count or chunk."""
+    from dmel_codec_tpu_torch.ops import kda_scan as k6
+
+    fault = k6.shape_fault(*sizes)
+    assert (fault == "") == (reason == "") and reason in fault
+
+
+@pytest.mark.parametrize("case", ["meta_bf16", "cpu", "float32", "gradient", "head_dim_64", "float32_conv_cache"])
+def test_k6_takes(case):
+    """`k6_takes` holds for a bf16 layer of K6's sizes off the CPU with no
+    gradient taken, and not on the CPU, in float32, under a gradient, at
+    another head size or with a cache K6 does not take."""
+    cfg = dataclasses.replace(K6_LAYER, hidden_size=128, kda_num_heads=2, kda_head_dim=64) if case == "head_dim_64" \
+        else K6_LAYER
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    device = "cpu" if case == "cpu" else "meta"
+    layer = k6_layer(cfg, dtype, device)
+    x = torch.zeros((2, 70, cfg.hidden_size), device=device, dtype=dtype)
+    cache = k6_cache(2, cfg, device, torch.float32 if case == "float32_conv_cache" else torch.bfloat16)
+    with torch.set_grad_enabled(case == "gradient"):
+        assert layer.k6_takes(x, cache) == (case == "meta_bf16")
+        assert layer.k6_takes(x, None) == (case in ("meta_bf16", "float32_conv_cache"))
+
+
+class _K6Lib:
+    """Records each K6 call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def dmel_kda_scan(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@torch.no_grad()
+def test_k6_dispatch(monkeypatch):
+    """Off the CPU (`meta`, the library stood in for), a bf16 KDA layer of
+    K6's sizes runs each call over several positions as one K6 launch, with
+    the call's sizes and the cache's state and inputs where given (none
+    without a cache), and counts the positions and the fused call; the
+    one-position step over the cache launches nothing."""
+    from dmel_codec_tpu_torch.ops import kda_scan as k6
+    from dmel_codec_tpu_torch.ops import library
+
+    lib = _K6Lib()
+    real_check = k6._check
+
+    def check(*args):  # every check but the device's (meta tensors stand in for CUDA ones)
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            real_check(*args)
+
+    monkeypatch.setattr(k6, "_check", check)
+    monkeypatch.setattr(library, "load", lambda: lib)
+    monkeypatch.setattr(library, "stream", lambda x: 0)
+    layer = k6_layer()
+    calls, scanned = kimi_linear.KimiDeltaAttention.calls, kimi_linear.KimiDeltaAttention.scanned
+    calls.update(fused=0, plain=0)
+    scanned["positions"] = 0
+    launches = k6.kda_scan.launches
+    x = torch.empty((3, 37, 256), device="meta", dtype=torch.bfloat16)
+    cache = k6_cache(3)
+    assert layer(x, cache).shape == x.shape
+    layer(x[:, :1], cache)  # the decode step
+    assert layer(x).shape == x.shape
+    assert len(lib.calls) == 2 and calls == {"fused": 2, "plain": 0} and scanned["positions"] == 2 * 3 * 37
+    assert k6.kda_scan.launches == launches + 2
+    for args, cached in zip(lib.calls, (True, False)):
+        assert len(args) == 24 and args[16:22] == (3, 37, 2, 128, 4, 64)
+        assert args[22] == pytest.approx(128 ** -0.5)
+        assert tuple(args[5]) == (37 * 256, 256) * 4 + (37 * 2, 2)
+        assert (args[11] is None) == (args[13] is None) == (not cached)
+
+
+def test_k6_check_refuses_what_it_does_not_take():
+    """`_check` refuses (on `meta` tensors, before the device) float32
+    projections, another head size, a cache K6 does not take and a
+    projection whose rows do not start on 16 bytes; a CPU tensor past those
+    checks is not a CUDA one."""
+    from dmel_codec_tpu_torch.ops import kda_scan as k6
+
+    def args(dtype=torch.bfloat16, d=128, device="meta", **over):
+        width = 2 * d
+        a = dict(q=torch.empty((2, 5, width), device=device, dtype=dtype),
+                 k=torch.empty((2, 5, width), device=device, dtype=torch.bfloat16),
+                 v=torch.empty((2, 5, width), device=device, dtype=torch.bfloat16),
+                 f=torch.empty((2, 5, width), device=device, dtype=torch.bfloat16),
+                 b=torch.empty((2, 5, 2), device=device, dtype=torch.bfloat16),
+                 weights=[torch.empty((width, 1, 4), device=device, dtype=torch.bfloat16)] * 3,
+                 a_log=torch.empty(2, device=device), dt_bias=torch.empty(width, device=device),
+                 conv=torch.empty((2, 3, 3 * width), device=device, dtype=torch.bfloat16),
+                 state=torch.empty((2, 2, d, d), device=device))
+        a.update(over)
+        return list(a.values())
+
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        k6._check(*args())
+    wide = torch.empty((2, 5, 264), device="meta", dtype=torch.bfloat16)
+    for bad, match in ((args(torch.float32), "q must be bf16"), (args(d=64), "heads of 128, got 64"),
+                       (args(state=torch.empty((2, 2, 128, 128), device="meta", dtype=torch.bfloat16)),
+                        "state must be contiguous float32"),
+                       (args(conv=torch.empty((2, 3, 768), device="meta")), "conv must be contiguous bf16"),
+                       (args(k=wide[..., 4:260]), "k must be bf16"),
+                       (args(device="cpu"), "must be a CUDA tensor")):
+        with pytest.raises(ValueError, match=match):
+            k6._check(*bad)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("s", [70, 2], ids=["ragged_chunks", "shorter_than_the_halo"])
+def test_the_k6_reference_is_the_plain_layer(s):
+    """`kda_scan` on a CPU tensor (its plain version, every head at once)
+    through the layer's gated norm and output gives the plain chunked
+    layer's output, and leaves the same state and convolution inputs in a
+    cache that held some already."""
+    from dmel_codec_tpu_torch.ops import kda_scan as k6
+
+    _, model = build()
+    layer = model.slow_decoder.layers[0].self_attn
+    gen = torch.Generator().manual_seed(s)
+    x = torch.randn(2, s, CFG["hidden_size"], generator=gen)
+    width = 2 * 16
+    state, conv = torch.randn(2, 2, 16, 16, generator=gen), torch.randn(2, 3, 3 * width, generator=gen)
+    cache = (state.clone(), conv.clone())
+    want = layer(x, cache)
+    projs, convs = layer._projections()
+    got = k6.kda_scan(*(p(x) for p in projs), layer.f_b_proj(layer.f_a_proj(x)), layer.b_proj(x),
+                      [c.weight for c in convs], layer.A_log, layer.dt_bias, layer.scale, conv, state)
+    got = layer.o_proj(layer._out(got, layer.g_b_proj(layer.g_a_proj(x))))
+    assert rel(got, want) <= TOL and rel(state, cache[0]) <= TOL and torch.equal(conv, cache[1])
+
+
+@torch.no_grad()
+def test_generation_reports_no_fused_kda_on_the_cpu():
+    """A CPU generation reports stats["kda_fused"] 0: every KDA prefill
+    call ran the plain chunked core."""
+    _, model = build()
+    gen = SlowFastGenerator(model, InferenceConfig(max_new_tokens=2, max_seq_len=16, top_k=1))
+    text, audio = grid(2, 6, seed=4)
+    gen.generate_batched(text.numpy(), audio.numpy())
+    assert gen.stats["kda_fused"] == 0.0 and gen.stats["kda_positions"] == 2 * 6 * 4
+    assert kimi_linear.KimiDeltaAttention.calls == {"fused": 0, "plain": 4}
