@@ -85,16 +85,24 @@ def load_codec_adapter(
     return DMelCodecAdapter(codec, vocoder)
 
 
+# SlowFastLMConfig's text special ids, which a YAML may set at its top level
+SPECIAL_IDS = ("bos_token_id", "eos_token_id", "start_of_human_id", "end_of_human_id", "start_of_robot_id",
+               "end_of_robot_id", "start_of_music_id", "end_of_music_id", "text_pad_id")
+
+
 def build_lm_config(cfg: dict) -> SlowFastLMConfig:
     """SlowFastLMConfig from a CLI YAML: optional `slow_lm:` / `fast_lm:`
     sections override the flagship TransformerConfigs (testing, smaller
     deployments; `kind: deepseek_v3` with its latent-attention and expert
     keys makes a DeepSeek-V3 decoder, configs/lm_infer_moonlight.yaml);
-    text/audio loss weights come from the top level. A key that is no
+    text/audio loss weights come from the top level, and so may the text
+    special ids (SPECIAL_IDS; a vocabulary that does not hold the
+    flagship's, configs/lm_infer_nemotron_h.yaml). A key that is no
     TransformerConfig field raises TypeError."""
     kwargs = dict(
         text_weight=cfg.get("text_weight", 0.01),
         audio_weight=cfg.get("audio_weight", 1.0),
+        **{k: cfg[k] for k in SPECIAL_IDS if k in cfg},
     )
     base = SlowFastLMConfig()
     for section, field in (("slow_lm", "slow"), ("fast_lm", "fast")):

@@ -36,6 +36,7 @@ import torch
 from dmel_codec_tpu_torch.lm.sampling import sample_token
 from dmel_codec_tpu_torch.models.deepseek_v3 import LatentAttention
 from dmel_codec_tpu_torch.models.kimi_linear import KimiDeltaAttention
+from dmel_codec_tpu_torch.models.nemotron_h import Mamba2Mixer, NoPEAttention
 from dmel_codec_tpu_torch.models.lm import ChatMusicLM, SlowFastLMConfig
 from dmel_codec_tpu_torch.utils.trace import span
 
@@ -110,8 +111,10 @@ class SlowFastGenerator:
         # calls over several positions that ran as kernel K5; 0 without latent attention),
         # kda_positions (rows x positions the KDA layers' chunked form processed, every layer's call
         # counted; 0 without KDA), kda_fused (the share of those chunked calls that ran as kernel K6;
-        # 0 without KDA), and with experts in the slow decoder pairs_prefill / pairs_decode
-        # ([moe layers, router's experts] routed pairs)
+        # 0 without KDA), ssd_positions (rows x positions the Mamba layers' chunked SSD processed,
+        # every layer's call counted; 0 without Mamba), attn_flash (the share of the NoPE attention
+        # calls over several positions that ran on FA; 0 without them), and with experts in the slow
+        # decoder pairs_prefill / pairs_decode ([moe layers, router's experts] routed pairs)
         self.stats: dict = {}
         self._pairs = model.slow_decoder.track_pairs()
 
@@ -370,6 +373,9 @@ class SlowFastGenerator:
         KimiDeltaAttention.scanned["positions"] = 0
         kda = KimiDeltaAttention.calls
         kda.update(fused=0, plain=0)
+        Mamba2Mixer.scanned["positions"] = 0
+        attn = NoPEAttention.calls
+        attn.update(flash=0, plain=0)
         t0 = time.perf_counter()
         entry = self._graph(b, step_decode) if graphed else None
         capture_s = time.perf_counter() - t0  # a first call's capture; a lookup after
@@ -397,6 +403,8 @@ class SlowFastGenerator:
             "mla_fused": mla["fused"] / max(1, mla["fused"] + mla["plain"]),
             "kda_positions": KimiDeltaAttention.scanned["positions"],
             "kda_fused": kda["fused"] / max(1, kda["fused"] + kda["plain"]),
+            "ssd_positions": Mamba2Mixer.scanned["positions"],
+            "attn_flash": attn["flash"] / max(1, attn["flash"] + attn["plain"]),
         }
         if self._pairs is not None:  # after the fetch: the device has finished
             pairs = self._pairs.to("cpu", copy=True).numpy()

@@ -34,10 +34,13 @@ Mixture of experts (HF `DeepseekV3MoE` with `DeepseekV3TopkRouter`,
   (the bias, a persistent buffer, only selects);
   w_i = routed_scaling_factor * s_i / (sum of the chosen s + 1e-20);
   y = sum_i w_i E_i(h) + S(h): E_i a SwiGLU of moe_intermediate_size, S the
-  shared SwiGLU of n_shared_experts times that width.
+  shared SwiGLU of n_shared_experts times that width. With
+  `TransformerConfig.mlp_hidden_act` "relu2" (Nemotron-H's experts) each is
+  non-gated, down(relu(up(h))^2), and S of shared_expert_intermediate_size.
 No capacity: every token reaches its experts, whatever the imbalance. The
 experts' weights are stacked (`experts.gate_up_proj` [E, 2 I, H], gate rows
-then up rows; `experts.down_proj` [E, H, I]). Two ways of computing the
+then up rows, or for relu2 `experts.up_proj` [E, I, H]; `experts.down_proj`
+[E, H, I]). Two ways of computing the
 same sum, chosen by shape when the call is made:
   * routed (a call over several positions: the prefill, a teacher-forced
     forward): the (token, expert) pairs sorted by expert, each expert's
@@ -208,21 +211,25 @@ class Experts(nn.Module):
     def __init__(self, config: TransformerConfig):
         super().__init__()
         e, h, i = config.held_experts, config.hidden_size, config.moe_intermediate_size
-        self.gate_up_proj = nn.Parameter(torch.empty(e, 2 * i, h))
+        self.gated = config.mlp_hidden_act == "silu"
+        if self.gated:  # SwiGLU: gate rows, then up rows
+            self.gate_up_proj = nn.Parameter(torch.empty(e, 2 * i, h))
+        else:  # squared ReLU
+            self.up_proj = nn.Parameter(torch.empty(e, i, h))
         self.down_proj = nn.Parameter(torch.empty(e, h, i))
         self.offset, self.router_width = config.expert_offset, config.n_routed_experts
 
     @property
     def whole(self) -> bool:
         """Whether the layer holds every expert of its router."""
-        return self.gate_up_proj.shape[0] == self.router_width
+        return self.down_proj.shape[0] == self.router_width
 
     def routed(self, x: torch.Tensor, chosen: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Only the chosen (token, expert) pairs of held experts. x [N, H],
         chosen [N, k] router ids -> float32 [N, H]."""
         k = chosen.shape[1]
         flat = chosen.flatten()
-        held = self.gate_up_proj.shape[0]
+        held = self.down_proj.shape[0]
         if not self.whole:  # the held experts' own ids; every absent one past them, sorted last and left out
             flat = flat - self.offset
             flat = torch.where((flat >= 0) & (flat < held), flat, held)
@@ -234,8 +241,12 @@ class Experts(nn.Module):
         for e, n in enumerate(torch.bincount(flat, minlength=held).tolist()[:held]):
             if n:
                 rows = token[start:start + n]
-                gate, up = F.linear(x.index_select(0, rows), self.gate_up_proj[e]).chunk(2, dim=-1)
-                y = F.linear(F.silu(gate) * up, self.down_proj[e])
+                if self.gated:
+                    gate, up = F.linear(x.index_select(0, rows), self.gate_up_proj[e]).chunk(2, dim=-1)
+                    hidden = F.silu(gate) * up
+                else:
+                    hidden = F.relu(F.linear(x.index_select(0, rows), self.up_proj[e])).square()
+                y = F.linear(hidden, self.down_proj[e])
                 out.index_add_(0, rows, y.float() * weight[start:start + n, None])
                 start += n
         return out
@@ -243,13 +254,29 @@ class Experts(nn.Module):
     def dense(self, x: torch.Tensor, chosen: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Every held expert over every token, weighted by zero where
         unchosen. x [N, H], chosen [N, k] router ids -> float32 [N, H]."""
-        e, two_i, h = self.gate_up_proj.shape
+        e, h, i = self.down_proj.shape
         weights = torch.zeros((x.shape[0], self.router_width), dtype=torch.float32, device=x.device).scatter_(1, chosen, w)
         if not self.whole:
             weights = weights[:, self.offset:self.offset + e]
-        gate, up = F.linear(x, self.gate_up_proj.view(e * two_i, h)).view(-1, e, two_i).chunk(2, dim=-1)
-        y = torch.bmm((F.silu(gate) * up).transpose(0, 1), self.down_proj.transpose(1, 2))  # [E, N, H]
+        if self.gated:
+            gate, up = F.linear(x, self.gate_up_proj.view(e * 2 * i, h)).view(-1, e, 2 * i).chunk(2, dim=-1)
+            hidden = F.silu(gate) * up
+        else:
+            hidden = F.relu(F.linear(x, self.up_proj.view(e * i, h)).view(-1, e, i)).square()
+        y = torch.bmm(hidden.transpose(0, 1), self.down_proj.transpose(1, 2))  # [E, N, H]
         return torch.einsum("enh,ne->nh", y.float(), weights)
+
+
+class SquaredReluMLP(nn.Module):
+    """The non-gated expert of `mlp_hidden_act` "relu2": down(relu(up(x))^2)."""
+
+    def __init__(self, config: TransformerConfig, intermediate_size: int):
+        super().__init__()
+        self.up_proj = nn.Linear(config.hidden_size, intermediate_size, bias=False)
+        self.down_proj = nn.Linear(intermediate_size, config.hidden_size, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(F.relu(self.up_proj(x)).square())
 
 
 class MoE(nn.Module):
@@ -257,7 +284,8 @@ class MoE(nn.Module):
         super().__init__()
         self.gate = TopkRouter(config)
         self.experts = Experts(config)
-        self.shared_experts = MLP(config, config.moe_intermediate_size * config.n_shared_experts)
+        width = config.shared_expert_intermediate_size or config.moe_intermediate_size * config.n_shared_experts
+        self.shared_experts = (MLP if config.mlp_hidden_act == "silu" else SquaredReluMLP)(config, width)
         # Decoder.track_pairs' counter ([2, experts]) and track_routes' log ([B, max_len, k]) of this
         # layer, None when no one reads them
         self.pair_counts: Optional[torch.Tensor] = None

@@ -69,19 +69,21 @@ def head_group(rows: int, positions: int, heads: int, d: int) -> int:
     return max([g for g in range(1, heads + 1) if heads % g == 0 and g * per_head <= GROUP_BYTES] or [1])
 
 
-def causal_conv(u: torch.Tensor, weight: torch.Tensor, prev: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+def causal_conv(u: torch.Tensor, weight: torch.Tensor, prev: Optional[torch.Tensor],
+                bias: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """SiLU of the causal depthwise convolution. u [B, S, c]; weight [c,
     taps] (tap taps - 1 on the current input); prev [B, taps - 1, c], the
-    inputs before u (None: zeros) -> (float32 [B, S, c], the last taps - 1
-    inputs [B, taps - 1, c]). The convolution runs as a 2-D one over [B,
-    c, 1, S + taps - 1] in channels-last memory, the layout the inputs
-    already have, so nothing is transposed."""
+    inputs before u (None: zeros); bias [c] or None -> (float32 [B, S, c],
+    the last taps - 1 inputs [B, taps - 1, c]). The convolution runs as a
+    2-D one over [B, c, 1, S + taps - 1] in channels-last memory, the
+    layout the inputs already have, so nothing is transposed."""
     b, s, c = u.shape
     taps = weight.shape[1]
     if prev is None:
         prev = u.new_zeros(b, taps - 1, c)
     full = torch.cat([prev.to(u.dtype), u], dim=1)
-    y = F.conv2d(full[:, None].permute(0, 3, 1, 2), weight[:, None, None, :].to(u.dtype), groups=c)
+    y = F.conv2d(full[:, None].permute(0, 3, 1, 2), weight[:, None, None, :].to(u.dtype),
+                 None if bias is None else bias.to(u.dtype), groups=c)
     return F.silu(y.permute(0, 2, 3, 1)[:, 0].float(), inplace=True), full[:, s:]
 
 

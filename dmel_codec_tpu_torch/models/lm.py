@@ -4,7 +4,9 @@
   * slow model: Qwen2-0.5B-shaped decoder over summed embeddings
     text_emb(ids) + projector(concat of 10 shifted-codebook audio embs), or
     any `TransformerConfig` kind (a DeepSeek-V3 decoder: MLA and experts;
-    a Kimi Linear one: KDA, NoPE MLA and experts, its cache hybrid)
+    a Kimi Linear one: KDA, NoPE MLA and experts, its cache hybrid; a
+    Nemotron-H one: Mamba-2, NoPE GQA and squared-ReLU experts, one mixer a
+    block, its cache hybrid)
   * fast model: small depth decoder over per-frame windows
     [slow_hidden, cb0..cb9] (11 tokens), pre-RMSNorm on the slow hidden +
     896->480 projection
@@ -46,6 +48,7 @@ from dmel_codec_tpu_torch.models.transformer import (
 )
 from dmel_codec_tpu_torch.models.deepseek_v3 import Experts, TopkRouter
 from dmel_codec_tpu_torch.models.kimi_linear import KimiDeltaAttention
+from dmel_codec_tpu_torch.models.nemotron_h import Mamba2Mixer
 from dmel_codec_tpu_torch.parallel.mesh import global_count
 from dmel_codec_tpu_torch.parallel.tensor import copy_to_model, vocab_parallel_cross_entropy
 
@@ -141,18 +144,21 @@ class ChatMusicLM(nn.Module):
         """HF Qwen2's scheme: N(0, std) weights, zero biases, unit norms;
         experts and routers as HF DeepseekV3's (N(0, std), a zero
         correction bias); KDA's convolutions N(0, std) and its gates' A_log
-        and dt_bias as fla draws them."""
+        and dt_bias as fla draws them; Mamba-2's convolution N(0, std) with
+        a zero bias, its A_log, dt_bias and D as HF Nemotron-H draws them."""
         for m in self.modules():
             if isinstance(m, KimiDeltaAttention):
                 m.reset_gates(generator)
+            if isinstance(m, Mamba2Mixer):
+                m.reset_ssm(generator)
             if isinstance(m, (nn.Linear, nn.Embedding, TopkRouter, nn.Conv1d)):
                 m.weight.normal_(0.0, std, generator=generator)
                 for bias in ("bias", "e_score_correction_bias"):
                     if getattr(m, bias, None) is not None:
                         getattr(m, bias).zero_()
             elif isinstance(m, Experts):
-                m.gate_up_proj.normal_(0.0, std, generator=generator)
-                m.down_proj.normal_(0.0, std, generator=generator)
+                for w in m.parameters(recurse=False):  # gate_up_proj or up_proj, then down_proj
+                    w.normal_(0.0, std, generator=generator)
             elif isinstance(m, RMSNorm):
                 m.weight.fill_(1.0)
 

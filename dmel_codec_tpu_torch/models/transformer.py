@@ -38,7 +38,10 @@ loads into `Decoder` directly.
     the MLP. `kind="kimi_linear"` builds Kimi Linear's blocks
     (`models/kimi_linear.py`): Kimi Delta Attention in the layers
     `kda_layers`, NoPE latent attention in the others, the same MLP and
-    experts. The kind is fixed when the decoder is built; the cache's
+    experts. `kind="nemotron_h"` builds Nemotron-H's one-mixer blocks
+    (`models/nemotron_h.py`) by `layer_pattern`: Mamba-2, squared-ReLU
+    experts, or attention without positions at heads of
+    `attention_head_dim`. The kind is fixed when the decoder is built; the cache's
     layout follows it (`init_kv_cache`), and each layer is handed its own
     slots of it (`Decoder.slots`).
 `scan_layers` of the JAX config (one compiled layer body under `nn.scan`)
@@ -113,6 +116,22 @@ class TransformerConfig:
     kda_num_heads: int = 0
     kda_head_dim: int = 0
     kda_conv_size: int = 0
+    # kind "nemotron_h" (models/nemotron_h.py): one mixer a layer, by the layer's letter of
+    # layer_pattern (HF hybrid_override_pattern): "M" Mamba-2 of mamba_num_heads heads of
+    # mamba_head_dim, a state of ssm_state_size, mamba_n_groups groups of B / C and a causal
+    # convolution of mamba_conv_kernel taps; "E" the deepseek_v3 kind's experts; "*" attention
+    # without positions, with heads of attention_head_dim (0: hidden_size / num_heads)
+    layer_pattern: str = ""
+    mamba_num_heads: int = 0
+    mamba_head_dim: int = 0
+    ssm_state_size: int = 0
+    mamba_n_groups: int = 0
+    mamba_conv_kernel: int = 0
+    attention_head_dim: int = 0
+    # the experts' activation: "silu" (gated SwiGLU) or "relu2" (non-gated squared ReLU), and the
+    # shared experts' width (0: moe_intermediate_size * n_shared_experts)
+    mlp_hidden_act: str = "silu"
+    shared_expert_intermediate_size: int = 0
 
     def __post_init__(self):
         if self.kind not in CACHE_KEYS:
@@ -122,10 +141,18 @@ class TransformerConfig:
         if self.experts_held and not 0 <= self.expert_offset <= self.n_routed_experts - self.experts_held:
             raise ValueError(f"experts {self.expert_offset}..{self.expert_offset + self.experts_held - 1} are not "
                              f"among the router's {self.n_routed_experts}")
+        if self.mlp_hidden_act not in ("silu", "relu2"):
+            raise ValueError(f"experts are silu (SwiGLU) or relu2 (squared ReLU), not {self.mlp_hidden_act!r}")
+        if self.kind == "nemotron_h" and (len(self.layer_pattern) != self.num_layers
+                                          or set(self.layer_pattern) - set("ME*")):
+            raise ValueError(f"a nemotron_h pattern is one of M, E, * a layer, {self.num_layers} layers; "
+                             f"got {self.layer_pattern!r}")
+        if "M" in self.layer_pattern and self.mamba_num_heads % max(1, self.mamba_n_groups):
+            raise ValueError(f"{self.mamba_num_heads} Mamba heads do not split into {self.mamba_n_groups} groups")
 
     @property
     def head_dim(self) -> int:
-        return self.hidden_size // self.num_heads
+        return self.attention_head_dim or self.hidden_size // self.num_heads
 
     @property
     def rope_dim(self) -> int:
@@ -140,8 +167,11 @@ class TransformerConfig:
 
 # The cache's tensors of each kind, the one indexed by position first: per-head
 # keys and values; MLA's normalised latent and rotated shared rope key side by
-# side; and beside MLA's, the KDA layers' recurrent state and convolution state.
-CACHE_KEYS = {"qwen2": ("k", "v"), "deepseek_v3": ("kv",), "kimi_linear": ("kv", "state", "conv")}
+# side; beside MLA's, the KDA layers' recurrent state and convolution state;
+# and beside the attention layers' keys and values, the Mamba layers' state and
+# convolution state.
+CACHE_KEYS = {"qwen2": ("k", "v"), "deepseek_v3": ("kv",), "kimi_linear": ("kv", "state", "conv"),
+              "nemotron_h": ("k", "v", "state", "conv")}
 
 
 # Flagship sizes (Qwen2-0.5B slow decoder, 12-layer fast depth decoder).
@@ -212,8 +242,22 @@ def init_kv_cache(
     attention layers, and of the KDA layers "state" [KDA layers, B, heads,
     head_dim (key), head_dim (value)] in float32 whatever `dtype` says, and
     "conv" [KDA layers, B, kda_conv_size - 1, 3 * heads * head_dim], the
-    last inputs of the q, k and v convolutions side by side."""
-    if config.kind == "kimi_linear":
+    last inputs of the q, k and v convolutions side by side; nemotron_h:
+    "k", "v" of the attention layers ([attention layers, B, max_len,
+    kv_heads, head_dim]), and of the Mamba layers "state" [Mamba layers, B,
+    heads, mamba_head_dim, ssm_state_size] in float32 whatever `dtype` says
+    and "conv" [Mamba layers, B, mamba_conv_kernel - 1, heads *
+    mamba_head_dim + 2 * mamba_n_groups * ssm_state_size], the
+    convolution's last inputs; the expert layers hold nothing."""
+    if config.kind == "nemotron_h":
+        attn, mamba = config.layer_pattern.count("*"), config.layer_pattern.count("M")
+        kv = (attn, batch, max_len, config.num_kv_heads, config.head_dim)
+        conv = config.mamba_num_heads * config.mamba_head_dim + 2 * config.mamba_n_groups * config.ssm_state_size
+        cache = {"k": torch.zeros(kv, dtype=dtype, device=device), "v": torch.zeros(kv, dtype=dtype, device=device),
+                 "state": torch.zeros((mamba, batch, config.mamba_num_heads, config.mamba_head_dim,
+                                       config.ssm_state_size), dtype=torch.float32, device=device),
+                 "conv": torch.zeros((mamba, batch, config.mamba_conv_kernel - 1, conv), dtype=dtype, device=device)}
+    elif config.kind == "kimi_linear":
         kda = len(config.kda_layers)
         width = config.kda_num_heads * config.kda_head_dim
         cache = {"kv": torch.zeros((config.num_layers - kda, batch, max_len, config.kv_lora_rank + config.qk_rope_head_dim),
@@ -234,16 +278,24 @@ def init_kv_cache(
 def slots(config: TransformerConfig) -> list:
     """Each layer's (cache keys, index into those tensors): every layer
     takes its kind's keys at its own number, except kimi_linear's, whose KDA
-    layers take ("state", "conv") and latent attention layers ("kv",), each
-    numbered among its own kind."""
-    if config.kind != "kimi_linear":
+    layers take ("state", "conv") and latent attention layers ("kv",), and
+    nemotron_h's, whose Mamba layers take ("state", "conv"), attention
+    layers ("k", "v") and expert layers none, each numbered among its own
+    kind."""
+    if config.kind == "kimi_linear":
+        kda = set(config.kda_layers)
+        kinds = ["M" if i in kda else "*" for i in range(config.num_layers)]
+        keys = {"M": ("state", "conv"), "*": ("kv",)}
+    elif config.kind == "nemotron_h":
+        kinds = list(config.layer_pattern)
+        keys = {"M": ("state", "conv"), "*": ("k", "v"), "E": ()}
+    else:
         return [(CACHE_KEYS[config.kind], i) for i in range(config.num_layers)]
-    kda = set(config.kda_layers)
-    seen = {True: 0, False: 0}
+    seen = dict.fromkeys(keys, 0)
     out = []
-    for i in range(config.num_layers):
-        out.append((("state", "conv") if i in kda else ("kv",), seen[i in kda]))
-        seen[i in kda] += 1
+    for kind in kinds:
+        out.append((keys[kind], seen[kind]))
+        seen[kind] += 1
     return out
 
 
@@ -349,6 +401,10 @@ class Decoder(nn.Module):
             from dmel_codec_tpu_torch.models import kimi_linear
 
             self.layers = nn.ModuleList(kimi_linear.Block(config, i) for i in range(config.num_layers))
+        elif config.kind == "nemotron_h":
+            from dmel_codec_tpu_torch.models import nemotron_h
+
+            self.layers = nn.ModuleList(nemotron_h.Block(config, i) for i in range(config.num_layers))
         else:
             self.layers = nn.ModuleList(Block(config) for _ in range(config.num_layers))
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
@@ -358,7 +414,9 @@ class Decoder(nn.Module):
         self.route_log: Optional[torch.Tensor] = None  # see track_routes
 
     def _moe_layers(self) -> list:
-        return [layer.mlp for layer in self.layers if hasattr(layer.mlp, "pair_counts")]
+        """The MoE modules, a block's MLP or its one mixer, in layer order."""
+        found = (getattr(layer, "mlp", None) or getattr(layer, "mixer", None) for layer in self.layers)
+        return [m for m in found if hasattr(m, "pair_counts")]
 
     def track_pairs(self) -> Optional[torch.Tensor]:
         """The MoE layers' routed-pair counter, int64 [moe layers, 2,

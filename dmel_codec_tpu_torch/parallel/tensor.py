@@ -149,20 +149,23 @@ def set_model_groups(lm: nn.Module, specs: Dict[str, Spec], group) -> None:
     projections `specs` cut over the model axis the model `group`, and each
     head cut over its vocabulary the group in `lm.vocab_groups`. A block or
     head that fell back to replication keeps None: every rank runs it whole.
-    A DeepSeek-V3 or Kimi Linear block (latent attention, Kimi delta
-    attention, experts) has no cut here: it raises NotImplementedError."""
+    A DeepSeek-V3, Kimi Linear or Nemotron-H block (latent attention, Kimi
+    delta attention, Mamba-2, NoPE attention, experts) has no cut here: it
+    raises NotImplementedError."""
     from dmel_codec_tpu_torch.models.deepseek_v3 import LatentAttention, MoE
     from dmel_codec_tpu_torch.models.kimi_linear import KimiDeltaAttention
+    from dmel_codec_tpu_torch.models.nemotron_h import Mamba2Mixer, NoPEAttention
     from dmel_codec_tpu_torch.models.transformer import MLP, Attention
 
     def cut(name: str) -> bool:
         return MODEL_AXIS in specs[name]
 
     for prefix, m in lm.named_modules():
-        if isinstance(m, (LatentAttention, KimiDeltaAttention, MoE)):
+        if isinstance(m, (LatentAttention, KimiDeltaAttention, Mamba2Mixer, NoPEAttention, MoE)):
             raise NotImplementedError(
                 f"tensor parallelism has no cut of {prefix} ({type(m).__name__}): Kimi delta attention, "
-                f"latent attention and experts run on one rank whole; use data parallelism or a Qwen2 decoder"
+                f"Mamba-2 state-space layers, NoPE attention, latent attention and experts run on one rank "
+                f"whole; use data parallelism or a Qwen2 decoder"
             )
         if isinstance(m, Attention):
             m.model_group = group if cut(f"{prefix}.q_proj.weight") else None

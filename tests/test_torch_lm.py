@@ -135,12 +135,15 @@ def _apply(model, params, *args, method=None):
 PORT_ONLY = {"kind": "qwen2", "kv_lora_rank": 0, "qk_nope_head_dim": 0, "qk_rope_head_dim": 0, "v_head_dim": 0,
              "n_routed_experts": 0, "num_experts_per_tok": 0, "moe_intermediate_size": 0, "n_shared_experts": 0,
              "first_k_dense_replace": 0, "routed_scaling_factor": 1.0, "experts_held": 0, "expert_offset": 0,
-             "kda_layers": (), "kda_num_heads": 0, "kda_head_dim": 0, "kda_conv_size": 0}
+             "kda_layers": (), "kda_num_heads": 0, "kda_head_dim": 0, "kda_conv_size": 0, "layer_pattern": "",
+             "mamba_num_heads": 0, "mamba_head_dim": 0, "ssm_state_size": 0, "mamba_n_groups": 0,
+             "mamba_conv_kernel": 0, "attention_head_dim": 0, "mlp_hidden_act": "silu",
+             "shared_expert_intermediate_size": 0}
 
 
 def test_configs_mirror_the_jax_defaults():
     """Every field of the port's configs has the JAX default, but the
-    DeepSeek-V3 and Kimi Linear kinds' fields and the expert share's, which
+    DeepSeek-V3, Kimi Linear and Nemotron-H kinds' fields and the expert share's, which
     the JAX package has not (PORT_ONLY, at the defaults that make the qwen2
     kind); the JAX TransformerConfig's one
     extra field (`scan_layers`) is an XLA device."""
